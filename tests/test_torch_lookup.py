@@ -182,9 +182,9 @@ def test_window_ids_with_true_len_trim(tier, do_rc):
     width (256) exceeds the batch's true length (152)."""
     reads, lens = _reads(tier["genome"], 96, seed=5, width=256)
     packed, vbits, lens = tl.pack_reads_host(reads, lens)
-    kw = dict(do_rc=do_rc, bad_ix=BAD, true_len=152)
+    kw = dict(do_rc=do_rc, bad_ix=BAD, true_len=152, num_labels=64)
     j = jl._packed_window_ix(tier["jt"], packed, vbits, lens, k=32, probe_iters=1,
-                             num_labels=64, **kw)
+                             **kw)
     t = tl.window_ids(tier["tt"], torch.from_numpy(packed), torch.from_numpy(vbits),
                       torch.from_numpy(lens), **kw)
     assert t.dtype == torch.int32 and t.shape == ((96, 242) if do_rc else (96, 121))
@@ -229,3 +229,167 @@ def test_search_step_vote_compact_matches_jax(tier):
                                     torch.from_numpy(vbits), torch.from_numpy(lens), **kw)
     assert np.array_equal(np.asarray(j), _np(t))
 
+
+
+# ---- the canonical ladder and wide entries ------------------------------------
+
+def _ladder_case(nlab, wide, seed, n_words=40_000, geometry=None):
+    """A random word set with `nlab` labels, its ladder (the default geometry
+    ladder, or one pinned (slots, load, slots2, slots3) tier), and queries:
+    stored words, their RCs and random words, some windows invalid."""
+    from utree_tpu.hash_index import (_canonical_groups, _place_canonical,
+                                      build_canonical_hash_index)
+
+    rng = np.random.default_rng(seed)
+    words = np.unique(rng.integers(0, 1 << 64, size=n_words, dtype=np.uint64))
+    ixs = rng.integers(0, nlab, size=len(words)).astype(np.int64)
+    cfg = UTreeConfig(ixtype_bytes=4 if wide else 2)
+    index = DeviceIndexArrays.from_build(words, ixs, [b"l%d" % i for i in range(nlab)], cfg)
+    if geometry is None:
+        built = build_canonical_hash_index(index)
+    else:
+        slots, load, slots2, slots3 = geometry
+        if slots3:
+            built = _place_canonical(*_canonical_groups(index), slots, load, slots2,
+                                     1 << 27, slots3=slots3)
+        else:
+            built = build_canonical_hash_index(index, slots=slots, load=load,
+                                               slots2=slots2)
+    q = np.concatenate([rng.choice(words, 3000), _rc64(rng.choice(words, 1000)),
+                        rng.integers(0, 1 << 64, 1000, dtype=np.uint64)])
+    valid = rng.random(len(q)) < 0.95
+    return built, q, valid, min(cfg.bad_ix, 0x7FFFFFFF)
+
+
+def _canonical_both(built, q, valid, bad, do_rc, wide):
+    from utree_tpu_torch.hash_index import canonical_to_device
+
+    qpre, qhi, qlo = _lanes(q)
+    kw = dict(slots=built.slots, slots2=built.slots2, bad_ix=bad, do_rc=do_rc,
+              wide=wide)
+    j = jl.lookup_kmers_canonical(built.device_put(), qpre, qhi, qlo, valid, **kw)
+    t = tl.lookup_kmers_canonical(canonical_to_device(built, "cpu"), _t(qpre), _t(qhi),
+                                  _t(qlo), torch.from_numpy(valid), **kw)
+    if do_rc:
+        return np.stack([np.asarray(x) for x in j]), np.stack([_np(x) for x in t])
+    return np.asarray(j), _np(t)
+
+
+@pytest.mark.parametrize("do_rc", [True, False], ids=["rc", "forward"])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_canonical_lookup_matches_jax(wide, do_rc):
+    built, q, valid, bad = _ladder_case(70_000 if wide else 64, wide, seed=31)
+    assert built.t1.shape[1] == built.slots * (4 if wide else 3)
+    j, t = _canonical_both(built, q, valid, bad, do_rc, wide)
+    assert t.dtype == np.int32 and np.array_equal(j, t)
+    assert (t != bad).sum() > 2000
+    assert (t[..., ~valid] == bad).all()
+
+
+@pytest.mark.parametrize("geometry", [
+    (4, 0.28, 16, 0),  # 2-sector rows, cached t2
+    (4, 4.0, 8, 0),    # ladder tier C shape: overloaded t1 -> big t2
+    (4, 4.0, 2, 16),   # ladder tier B shape: the three-level chain
+    (2, 8.0, 2, 16),   # extreme overload: c3 takes a large tail
+], ids=["cached-c2", "tier-C", "tier-B-chain", "big-c3"])
+def test_canonical_ladder_geometries_match_jax(geometry):
+    """The placed geometries of tests/test_hash_index.py: slot counts come
+    from the table shapes, and a later level answers where an earlier one
+    holds no entry."""
+    built, q, valid, bad = _ladder_case(64, False, seed=11, geometry=geometry)
+    assert built.t2.shape[0] > 8
+    if geometry[3]:
+        assert built.t3.shape[0] > 8  # the c3 tail is exercised
+    for do_rc in (True, False):
+        j, t = _canonical_both(built, q, valid, bad, do_rc, False)
+        assert np.array_equal(j, t)
+
+
+def test_canonical_no_spill_sentinel_matches_jax():
+    """A tiny build spills nothing: c2 and c3 are the 8-row sentinels and
+    are not probed (their zero rows would match no key anyway)."""
+    built, q, valid, bad = _ladder_case(5, False, seed=7, n_words=12)
+    assert built.t2.shape[0] == 8 and built.t3.shape[0] == 8
+    for do_rc in (True, False):
+        j, t = _canonical_both(built, q, valid, bad, do_rc, False)
+        assert np.array_equal(j, t)
+
+
+@pytest.mark.parametrize("do_rc", [True, False], ids=["rc", "forward"])
+def test_displaced_wide_lookup_matches_jax(do_rc):
+    """IXTYPE=u32 displaced rows (4-column slots), as tests/test_displaced.py
+    places them, with a forced d3 tail."""
+    rng = np.random.default_rng(13)
+    words = np.unique(rng.integers(0, 1 << 64, size=40_000, dtype=np.uint64))
+    nlab = 70_000
+    ixs = rng.integers(0, nlab, size=len(words)).astype(np.int64)
+    cfg = UTreeConfig(ixtype_bytes=4)
+    index = DeviceIndexArrays.from_build(words, ixs, [b"l%d" % i for i in range(nlab)], cfg)
+    bad = min(cfg.bad_ix, 0x7FFFFFFF)
+    q = np.concatenate([rng.choice(words, 1500),
+                        rng.integers(0, 1 << 64, size=1500, dtype=np.uint64)])
+    valid = rng.random(len(q)) < 0.9
+    qpre, qhi, qlo = _lanes(q)
+    for built in (build_displaced_index(index),
+                  build_displaced_index(index, load=0.98, spill_budget=len(words))):
+        assert built.wide and built.t1.shape[1] == 8
+        kw = dict(bad_ix=bad, do_rc=do_rc, wide=True)
+        j = jl.lookup_kmers_displaced(built.device_put(), qpre, qhi, qlo, valid, **kw)
+        t = tl.lookup_kmers_displaced(displaced_to_device(built, "cpu"), _t(qpre),
+                                      _t(qhi), _t(qlo), torch.from_numpy(valid), **kw)
+        j = np.stack([np.asarray(x) for x in j]) if do_rc else np.asarray(j)
+        t = np.stack([_np(x) for x in t]) if do_rc else _np(t)
+        assert np.array_equal(j, t)
+        assert (t < nlab).sum() > 1000
+    assert built.t3.shape[0] > 8  # the second placement spilled into d3
+
+
+@pytest.mark.parametrize("cap", [1, 8])
+def test_pack_hist_and_unpacked_layout_overflow(cap):
+    """(B, cap+1) pack_hist rows and the (B, 2*cap+2) unpacked rows,
+    with rows of few labels, misses only, and over cap.  Hit counts pass
+    2^15, so the packed count lane reaches the sign bit."""
+    rng = np.random.default_rng(40 + cap)
+    n_lab = 12
+    ix = rng.integers(0, n_lab, (300, 242)).astype(np.int32)
+    ix[:100] = np.where(rng.random((100, 242)) < 0.5, rng.integers(0, 3, (100, 1)), BAD)
+    ix[100:150] = BAD
+    big = np.full((4, 40_000), 5, np.int32)  # one label, 40,000 hits
+    big[1, ::7] = 9
+    for rows in (ix, big):
+        j = np.asarray(jl.pack_hist(jnp.asarray(rows), n_lab, cap))
+        t = tl.histogram_packed(torch.from_numpy(rows), n_lab, cap)
+        assert t.dtype == torch.int32 and np.array_equal(j, _np(t))
+        labels, counts, nuniq, found = jl.compact_histogram(jnp.asarray(rows), n_lab, cap)
+        want = np.concatenate([np.asarray(labels), np.asarray(counts),
+                               np.asarray(nuniq)[:, None], np.asarray(found)[:, None]], 1)
+        assert np.array_equal(want, _np(tl.histogram_unpacked(torch.from_numpy(rows),
+                                                              n_lab, cap)))
+    nuniq = _np(tl.histogram(torch.from_numpy(ix), n_lab, cap)[2])
+    assert (nuniq == cap + 1).any() and (nuniq == 0).any()
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_hist_steps_on_the_ladder_match_jax(wide):
+    """search_step_hist_packed (narrow) / search_step_hist_packed_in (wide)
+    over a ladder built from a genome, on packed reads with the true_len
+    trim: the whole histogram step, bitwise."""
+    from utree_tpu.hash_index import build_canonical_hash_index
+    from utree_tpu_torch.hash_index import canonical_to_device
+
+    index, sw, ixs, labels, genome, cfg, rng = make_tier_index(30_000, 48)
+    if wide:
+        strings = list(index.strings) + [b"pad%d" % i for i in range(70_000)]
+        index = DeviceIndexArrays.from_build(sw, ixs, strings, UTreeConfig(ixtype_bytes=4))
+    built = build_canonical_hash_index(index)
+    reads, lens = _reads(genome, 96, seed=9, width=256)
+    packed, vbits, lens = tl.pack_reads_host(reads, lens)
+    kw = dict(do_rc=True, bad_ix=min(index.config.bad_ix, 0x7FFFFFFF),
+              num_labels=index.num_labels, cap=4, true_len=152)
+    jstep = jl.search_step_hist_packed_in if wide else jl.search_step_hist_packed
+    tstep = tl.search_step_hist_packed_in if wide else tl.search_step_hist_packed
+    j = jstep(built.device_put(), packed, vbits, lens, k=32, probe_iters=1, **kw)
+    t = tstep(canonical_to_device(built, "cpu"), torch.from_numpy(packed),
+              torch.from_numpy(vbits), torch.from_numpy(lens), **kw)
+    assert t.shape == (96, 10 if wide else 5)
+    assert np.array_equal(np.asarray(j), _np(t))

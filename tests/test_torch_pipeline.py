@@ -134,12 +134,18 @@ def test_record_range(db, tmp_path):
 
 
 def test_own_tables_equal_jax_tables(db):
-    """Without _table the port builds the same displaced + vote tables."""
-    want = _jax_run(db, True)[1]
-    got = SearchPipeline(db["index"], device="cpu", do_rc=True)._table
-    assert sorted(got) == sorted(want)
-    for k in want:
-        assert torch.equal(got[k], want[k]), k
+    """Without _table the port builds the same tables as the JAX pipeline:
+    under `auto` the canonical ladder (this DB is far below 80M records),
+    and the displaced table when asked for it; the vote tables with both."""
+    want_disp = _jax_run(db, True)[1]
+    want_auto = tables_from_jax(JaxPipeline(db["index"], do_rc=True)._table)
+    for mode, want in (("auto", want_auto), ("displaced", want_disp)):
+        got = SearchPipeline(db["index"], device="cpu", do_rc=True,
+                             lookup_mode=mode)._table
+        assert sorted(got) == sorted(want), mode
+        assert ("c1" if mode == "auto" else "d1") in got
+        for k in want:
+            assert torch.equal(got[k], want[k]), (mode, k)
 
 
 def test_cli_search(db, tmp_path):
@@ -156,7 +162,8 @@ def test_port_never_imports_jax():
     code = ("import sys; import utree_tpu_torch.pipeline, utree_tpu_torch.cli, "
             "utree_tpu_torch.kernels, utree_tpu_torch.convert, "
             "utree_tpu_torch.lookup, utree_tpu_torch.classify_device, "
-            "utree_tpu_torch.hash_index, utree_tpu.search_host, bench, chip_smoke; "
+            "utree_tpu_torch.hash_index, utree_tpu_torch.parallel.sharded, "
+            "utree_tpu.search_host, bench, chip_smoke; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -172,7 +179,7 @@ def test_cuda_device_without_gpu_raises(db):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(lookup_mode="canonical"), dict(lookup_mode="hash"),
+    dict(lookup_mode="hash"),
     dict(lookup_mode="bsearch"), dict(lookup_mode="routed"),
     dict(devices=2), dict(support_ranges=8),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
@@ -182,17 +189,29 @@ def test_unsupported_modes_raise(db, kw):
 
 
 def test_long_read_raises(db, tmp_path):
+    """A 20 kbp read among short ones no longer raises: it is cut into
+    chunks whose histograms merge on the host, and the bytes equal the JAX
+    pipeline's (more long-read cases are in tests/test_torch_layouts.py)."""
     reads = tmp_path / "long.fa"
     rng = np.random.default_rng(0)
     seq = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), 20_000))
-    reads.write_bytes(b">short\nACGTACGTACGTACGTACGTACGTACGTACGTACGT\n>long\n" + seq + b"\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        _port(db, True).search_file(str(reads), str(tmp_path / "o.txt"))
-
+    genomic = b"".join(ln for ln in pathlib.Path(db["dir"] / "refs.fa").read_bytes()
+                       .splitlines() if not ln.startswith(b">"))[:20_000]
+    reads.write_bytes(b">short\nACGTACGTACGTACGTACGTACGTACGTACGTACGT\n>long\n" + seq
+                      + b"\n>genomic\n" + genomic + b"\n"
+                      + b"".join(pathlib.Path(db["reads"]).read_bytes()
+                                 .splitlines(keepends=True)[:200]))
+    jax = JaxPipeline(db["index"], do_rc=True, batch_size=BATCH, lookup_mode="displaced")
+    jax.search_file(str(reads), str(tmp_path / "jax.txt"))
+    want = (tmp_path / "jax.txt").read_bytes()
+    assert any(ln.startswith(b"genomic\t") for ln in want.splitlines())
+    _port(db, True).search_file(str(reads), str(tmp_path / "o.txt"))
+    assert (tmp_path / "o.txt").read_bytes() == want
 
 
 def test_unsupported_databases_raise(db):
-    """Wide labels (>= 65535) and PACKSIZE=64 are outside the ported slice."""
+    """Wide labels (>= 65535) run now, on the ladder under `auto`, with the
+    unpacked histogram rows; PACKSIZE=64 is outside the ported slice."""
     import dataclasses
 
     rng = np.random.default_rng(1)
@@ -201,8 +220,9 @@ def test_unsupported_databases_raise(db):
     wide = DeviceIndexArrays.from_build(
         words, rng.integers(0, n_lab, len(words)), [b"l%d" % i for i in range(n_lab)],
         UTreeConfig(ixtype_bytes=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        SearchPipeline(wide, device="cpu")
+    pipe = SearchPipeline(wide, device="cpu")
+    assert pipe.table_kind == "canonical" and pipe.layout == "unpacked"
+    assert pipe._table["c1"].shape[1] % 4 == 0
     k64 = dataclasses.replace(db["index"], config=UTreeConfig(packsize=64))
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         SearchPipeline(k64, device="cpu")

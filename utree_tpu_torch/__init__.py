@@ -5,10 +5,13 @@ and never jax; it shares utree_tpu's backend-neutral host modules (config,
 index, the numpy table builders, the C++ scanner and vote formatter,
 checkpoints, PhaseTimer) and ports the device code:
 
-  lookup           search step: K1 scan_probe, K2 histogram (+ plain versions)
+  lookup           search step: K1 scan_probe, K4 ladder_probe (narrow and
+                   wide), K2 histogram in three layouts (+ plain versions)
   classify_device  aufbau vote: K3 aufbau_vote (+ plain version)
-  hash_index       displaced table -> device tensors
-  pipeline         SearchPipeline (GG search, displaced table, device vote)
+  hash_index       displaced table and canonical ladder -> device tensors
+  pipeline         SearchPipeline (GG search on either table, narrow or wide
+                   labels, device or host vote, long reads)
+  parallel         split_long_read (host chunking of long reads)
   cli              `python -m utree_tpu_torch.cli search ...`
   kernels          nvcc build, ctypes binding, launch counts
 """

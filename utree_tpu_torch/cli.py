@@ -2,7 +2,8 @@
 search branch):
 
   python -m utree_tpu_torch.cli search <db.ctr> <reads.fa> <out.txt>
-      [--rc] [--batch N] [--lookup-mode auto|displaced] [--resume] [--trace]
+      [--rc] [--batch N] [--lookup-mode auto|canonical|displaced]
+      [--resume] [--trace]
       [--device cuda|cpu]
 
 The other subcommands and search flags of `utree_tpu.cli` are not ported
@@ -32,6 +33,7 @@ def _cmd_search(a):
                                   tracer=tm)
         with tm.phase("search"):
             n = pipe.search_file(a.reads, a.out, resume=a.resume)
+        print(f"table_kind: {pipe.table_kind}")
         for name, dt in tm.phases.items():
             print(f"{name} [{dt:.3f}s]")
         rps = tm.rate("reads", "search")
@@ -56,8 +58,9 @@ def main(argv=None):
     s.add_argument("--rc", action="store_true", help="also scan reverse complement")
     s.add_argument("--batch", type=int, default=8192)
     s.add_argument("--lookup-mode", dest="lookup_mode", default="auto",
-                   choices=("auto", "displaced"),
-                   help="device table layout (auto = displaced in the port)")
+                   choices=("auto", "canonical", "displaced"),
+                   help="device table layout (auto = the canonical ladder "
+                        "below 80M records, the displaced table from 80M)")
     s.add_argument("--resume", action="store_true",
                    help="resume an interrupted search from its .ckpt sidecar")
     s.add_argument("--trace", action="store_true",

@@ -8,8 +8,9 @@ import torch
 
 
 def tables_from_jax(table: dict) -> dict[str, torch.Tensor]:
-    """The JAX pipeline's `_table` pytree (d1/ds/d3 and the `vt_*` vote
-    tables) -> CPU tensors under the same keys.  Each value goes through
+    """The JAX pipeline's `_table` pytree (d1/ds/d3 or c1/c2/c3, and the
+    `vt_*` vote tables where it votes on the device) -> CPU tensors under the
+    same keys.  Each value goes through
     `np.asarray`; u32 arrays (the vote bitmasks) travel as their int32 bits."""
     out = {}
     for k, v in table.items():

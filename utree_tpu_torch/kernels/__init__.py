@@ -1,21 +1,26 @@
 """Hand-written Hopper kernels of the search step and their launch counts.
 
-Three kernels carry the main path (sources in `utree_tpu_torch/csrc/`):
+Four kernels in eight entry points (sources in `utree_tpu_torch/csrc/`):
 
-  scan_probe   packed reads -> per-window label ids    (lookup.window_ids)
-  histogram    ids -> compact per-read histograms      (lookup.histogram)
-  aufbau_vote  histograms -> 12 B/read vote rows       (classify_device.vote_rows)
+  K1 scan_probe[_wide]    packed reads -> ids, displaced table (lookup.window_ids)
+  K4 ladder_probe[_wide]  packed reads -> ids, canonical ladder (lookup.window_ids)
+  K2 histogram            ids -> compact histograms        (lookup.histogram)
+     histogram_packed     ids -> (B, cap+1) packed rows    (lookup.histogram_packed)
+     histogram_unpacked   ids -> (B, 2*cap+2) rows         (lookup.histogram_unpacked)
+  K3 aufbau_vote          histograms -> 12 B/read votes    (classify_device.vote_rows)
 
-Each wrapper calls `launch`, which adds one to the kernel's entry in
-`launches` after a launch that CUDA accepted; nothing else touches
-the counts except `reset_launches`.
+`_wide` takes 4-column slots (IXTYPE=u32 label ids).  Each wrapper calls
+`launch`, which adds one to the entry point's count in `launches` after a
+launch that CUDA accepted; nothing else touches the counts except
+`reset_launches`.
 """
 
 from __future__ import annotations
 
 from utree_tpu_torch.kernels.build import build, check, library
 
-KERNELS = ("scan_probe", "histogram", "aufbau_vote")
+KERNELS = ("scan_probe", "scan_probe_wide", "ladder_probe", "ladder_probe_wide",
+           "histogram", "histogram_packed", "histogram_unpacked", "aufbau_vote")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

@@ -1,56 +1,82 @@
 """End-to-end GG search on one device: counterpart of `utree_tpu/pipeline.py`.
 
-The slice ported here is the product's main path:
-
   host:   the C++ FASTA scanner packs reads to 2 bits (shared native code);
-  device: one step per batch -- K1 scan_probe (windows, canonical keys,
-          displaced probe), K2 histogram, K3 aufbau_vote -- returning
-          12 B/read vote rows (lookup.search_step_vote_compact);
-  host:   the shared C formatter writes the lines; reads the device flagged
-          (more unique labels than hist_cap, or fields too wide) are
-          replayed exactly on the host first.
+  device: one step per batch over the table `lookup_mode` resolves to, as
+          the JAX pipeline resolves it: the canonical ladder (K4
+          ladder_probe) below 80M records under `auto`, the displaced table
+          (K1 scan_probe) from 80M; `_wide` kernels for IXTYPE=u32 labels;
+  readback, by the JAX pipeline's step choice:
+          narrow labels of <= 2047 chars: K2 histogram + K3 aufbau_vote,
+            12 B/read vote rows (lookup.search_step_vote_compact);
+          narrow labels of 2048+ chars: K2 histogram_packed, (B, cap+1)
+            rows voted by the shared C `VoteEngine.vote_packed`;
+          wide labels: K2 histogram_unpacked, (B, 2*cap+2) rows voted by
+            `VoteEngine.vote_batch_pooled`;
+  host:   reads the device flagged (more unique labels than hist_cap, or
+          fields too wide) are replayed exactly on the host; the shared C
+          formatter writes the lines.
+
+Reads over `long_read_threshold` are cut into chunks (`split_long_read`)
+whose histograms go through the histogram step, merge on the host and take
+one vote (`classify_long_read`).
 
 Batches are dispatched asynchronously: the rows of a finished batch start
 their device->host copy into pinned memory at once, and the drain waits on
 that copy's CUDA event, `queue_depth` batches later.  Output bytes equal the
-JAX pipeline's in `lookup_mode="displaced"` with the device vote on, which
-equal the reference binary's.
+JAX pipeline's in every layout.
 
-Everything outside the slice raises NotImplementedError naming its ROADMAP
-item; nothing falls back silently.
+Not ported yet, each raising NotImplementedError that names its ROADMAP
+item (nothing falls back silently): the modes in `_TODO`, `devices > 1`
+(A.9), PACKSIZE=64 (A.8), `support_ranges=8` (A.6), and a DB that fits
+neither device table, which the JAX pipeline serves by the bsearch replay
+(A.8).
 """
 
 from __future__ import annotations
 
+import functools
 import pathlib
 
 import numpy as np
 import torch
 
 from utree_tpu.index import DeviceIndexArrays
-from utree_tpu_torch.lookup import search_step_vote_compact
+from utree_tpu_torch.lookup import (WIDE_LABELS, pack_reads_host,
+                                    search_step_hist_packed,
+                                    search_step_hist_packed_in,
+                                    search_step_vote_compact)
 
 _TODO = {
-    "canonical": "the canonical ladder (ROADMAP A.7)",
     "hash": "the legacy two-table hash (ROADMAP A.8)",
     "bsearch": "the bsearch replay (ROADMAP A.8)",
     "routed": "routed shards across GPUs (ROADMAP A.9)",
 }
+# `auto` table choice, as utree_tpu.pipeline resolves it for PACKSIZE=32:
+# the displaced table from this many records (the ladder below), and an
+# error from _HASH_AUTO_MAX on, where the JAX pipeline gives up on the
+# device tables.  Both were tuned on a TPU (ROADMAP A.11).
+_DISPLACED_AUTO_MIN = 80_000_000
+_HASH_AUTO_MAX = 400_000_000
+
+
+def _bucket_len(n: int, minimum: int = 64) -> int:
+    """Round up to a power of two (the long-read chunk count)."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
 
 
 def _bucket_len64(n: int, minimum: int = 64) -> int:
     """Batch width: a multiple of 64 (pow2 above 2048), as utree_tpu.pipeline."""
     if n > 2048:
-        b = 4096
-        while b < n:
-            b *= 2
-        return b
+        return _bucket_len(n, 4096)
     return max(minimum, (n + 63) & ~63)
 
 
 class _Readback:
-    """One dispatched batch: its (B, 3) vote rows, on their way to the host.
-    On CUDA `rows` is a pinned host tensor filled by a non-blocking copy that
+    """One dispatched batch: its int32 rows, on their way to the host.  On
+    CUDA `rows` is a pinned host tensor filled by a non-blocking copy that
     `event` marks done; on the CPU the rows are already there."""
 
     def __init__(self, rows: torch.Tensor, event=None):
@@ -65,6 +91,7 @@ class _Readback:
 
 class SearchPipeline:
     long_read_threshold = 1 << 14
+    long_chunk = 1 << 14
     # file pieces the C++ scanner reads at a time (search RSS is O(chunk))
     stream_chunk_bytes = 32 << 20
 
@@ -81,8 +108,8 @@ class SearchPipeline:
         if lookup_mode in _TODO:
             raise NotImplementedError(
                 f"--lookup-mode {lookup_mode}: {_TODO[lookup_mode]} is not "
-                "ported yet; use auto or displaced")
-        if lookup_mode not in ("auto", "displaced"):
+                "ported yet; use auto, canonical or displaced")
+        if lookup_mode not in ("auto", "canonical", "displaced"):
             raise ValueError(f"unknown lookup_mode {lookup_mode!r}")
         if devices is not None and devices > 1:
             raise NotImplementedError(
@@ -92,10 +119,6 @@ class SearchPipeline:
             raise NotImplementedError(
                 f"PACKSIZE={cfg.packsize}: only the 32-mer device path is "
                 "ported (PACKSIZE=64 is ROADMAP A.8)")
-        if index.num_labels >= 0xFFFF:
-            raise NotImplementedError(
-                "wide labels (IXTYPE=u32, >= 65535 labels) are not ported yet "
-                "(ROADMAP A.7)")
         if support_ranges != 1:
             raise NotImplementedError(
                 "support_ranges=8 (per-rank SUPPORT;RANGE columns) is not "
@@ -105,7 +128,6 @@ class SearchPipeline:
             raise RuntimeError(
                 "device='cuda' but torch.cuda.is_available() is False")
 
-        from utree_tpu.classify_device import build_aufbau_tables
         from utree_tpu.native import VoteEngine, fasta_lib
 
         eng = VoteEngine(index.strings, cfg.taxacut)
@@ -114,48 +136,95 @@ class SearchPipeline:
                 "the native vote formatter / FASTA scanner did not build "
                 "(utree_tpu.native needs g++); the port has no Python path")
         self._vote_engine = eng
-        vtab = build_aufbau_tables(index.strings)
-        if vtab.max_len > 2047:
-            raise NotImplementedError(
-                "label strings of 2048+ chars do not fit the device vote's "
-                "11-bit dv lane; the host-vote layout is ROADMAP A.7")
-
         self.index = index
         self.do_rc = do_rc
         self.batch_size = batch_size
         self.hist_cap = hist_cap
         self.lookup_mode = lookup_mode
         self.tracer = tracer
+        self.wide = index.num_labels >= WIDE_LABELS
+        vtab = None
+        if not self.wide:
+            from utree_tpu.classify_device import build_aufbau_tables
+
+            vtab = build_aufbau_tables(index.strings)
+        # the readback layout (utree_tpu/pipeline.py:314-394): the device vote
+        # needs u16 label lanes and labels that fit its 11-bit dv lane
+        if self.wide:
+            self.layout = "unpacked"
+        elif vtab.max_len <= 2047:
+            self.layout = "vote"
+        else:
+            self.layout = "packed"
         if _table is None:
-            from utree_tpu.hash_index import build_displaced_index
-            from utree_tpu_torch.hash_index import displaced_to_device
-
-            try:
-                disp = build_displaced_index(index)
-            except (ValueError, RuntimeError) as e:
-                raise RuntimeError(
-                    f"--lookup-mode displaced cannot be honored: {e}") from e
-            _table = displaced_to_device(disp, self.device)
-        if "d1" not in _table:
-            raise ValueError("_table must hold the displaced table (d1/ds/d3)")
+            _table = self._build_table(index, lookup_mode)
+        if "d1" not in _table and "c1" not in _table:
+            raise ValueError("_table must hold the displaced (d1/ds/d3) or "
+                             "the ladder (c1/c2/c3) table")
         table = {k: v.to(self.device) for k, v in _table.items()}
-        if not any(k.startswith("vt_") for k in table):
-            from utree_tpu_torch.classify_device import aufbau_tables_to_device
+        kw = dict(do_rc=do_rc,
+                  # any miss sentinel >= num_labels is equivalent (the
+                  # histogram only tests ix < num_labels); keep it inside int32
+                  bad_ix=min(cfg.bad_ix, 0x7FFFFFFF),
+                  num_labels=index.num_labels, cap=hist_cap)
+        hist = search_step_hist_packed_in if self.wide else search_step_hist_packed
+        # long-read chunks need per-chunk histograms, merged on the host
+        # before one vote, whatever the main step returns
+        self._step_hist = functools.partial(hist, **kw)
+        if self.layout == "vote":
+            if not any(k.startswith("vt_") for k in table):
+                from utree_tpu_torch.classify_device import aufbau_tables_to_device
 
-            table.update({"vt_" + k: v for k, v in
-                          aufbau_tables_to_device(vtab, self.device).items()})
+                table.update({"vt_" + k: v for k, v in
+                              aufbau_tables_to_device(vtab, self.device).items()})
+            max_iters = (vtab.max_len + 4) * (hist_cap + 2) + 16
+            self._step = functools.partial(search_step_vote_compact,
+                                           taxacut=cfg.taxacut,
+                                           max_iters=max_iters, **kw)
+        else:
+            self._step = self._step_hist
         self._table = table
-        self._step_kw = dict(
-            do_rc=do_rc,
-            # any miss sentinel >= num_labels is equivalent (the histogram
-            # only tests ix < num_labels); keep it inside int32
-            bad_ix=min(cfg.bad_ix, 0x7FFFFFFF),
-            num_labels=index.num_labels, cap=hist_cap, taxacut=cfg.taxacut,
-            max_iters=(vtab.max_len + 4) * (hist_cap + 2) + 16)
+
+    def _build_table(self, index: DeviceIndexArrays, mode: str) -> dict:
+        """The device table `mode` resolves to, as utree_tpu/pipeline.py:180-288
+        resolves it for PACKSIZE=32; the shared numpy code places it."""
+        from utree_tpu.hash_index import (build_canonical_hash_index,
+                                          build_displaced_index)
+        from utree_tpu_torch.hash_index import (canonical_to_device,
+                                                displaced_to_device)
+
+        n = index.num_records
+        if mode == "auto" and n >= _HASH_AUTO_MAX:
+            raise RuntimeError(
+                f"this DB ({n:,} records) exceeds the single-device table "
+                "ceiling; the routed shards and the bsearch replay that serve "
+                "it are not ported yet (ROADMAP A.8, A.9)")
+        if mode == "displaced" or (mode == "auto" and n >= _DISPLACED_AUTO_MIN):
+            try:
+                return displaced_to_device(build_displaced_index(index), self.device)
+            except (ValueError, RuntimeError) as e:
+                if mode == "displaced":
+                    raise RuntimeError(
+                        f"--lookup-mode displaced cannot be honored: {e}") from e
+        try:
+            return canonical_to_device(build_canonical_hash_index(index), self.device)
+        except (ValueError, RuntimeError) as e:
+            if mode == "canonical":
+                raise RuntimeError(
+                    f"--lookup-mode canonical cannot be honored: {e}") from e
+            if n >= _DISPLACED_AUTO_MIN:
+                raise RuntimeError(
+                    f"this DB ({n:,} records) fits no single-device table "
+                    f"({e}); the routed shards that serve it are not ported "
+                    "yet (ROADMAP A.9)") from e
+            raise NotImplementedError(
+                f"this DB fits neither device table ({e}); the bsearch replay "
+                "the JAX pipeline falls back to is not ported yet "
+                "(ROADMAP A.8)") from e
 
     @property
     def table_kind(self) -> str:
-        return "displaced"
+        return "displaced" if "d1" in self._table else "canonical"
 
     # ---- device dispatch -------------------------------------------------
 
@@ -166,16 +235,17 @@ class SearchPipeline:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def dispatch_packed(self, packed: np.ndarray, vbits: np.ndarray,
-                        lens: np.ndarray) -> _Readback:
-        """Dispatch 2-bit-packed reads (e.g. from the C++ scanner) and start
-        the copy of their vote rows to the host.  The window count is trimmed
-        to the batch's true max read length, rounded up to 8."""
+                        lens: np.ndarray, step=None) -> _Readback:
+        """Dispatch 2-bit-packed reads (e.g. from the C++ scanner) through
+        `step` (default: the main step) and start the copy of their rows to
+        the host.  The window count is trimmed to the batch's true max read
+        length, rounded up to 8."""
         k = self.index.config.packsize
         tl = int(lens.max()) if len(lens) else k
         tl = min(max(k, (tl + 7) & ~7), packed.shape[1] * 4)
-        rows = search_step_vote_compact(
+        rows = (step or self._step)(
             self._table, self._to_device(packed), self._to_device(vbits),
-            self._to_device(lens.astype(np.int32)), true_len=tl, **self._step_kw)
+            self._to_device(lens.astype(np.int32)), true_len=tl)
         if self.device.type == "cpu":
             return _Readback(rows)
         host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
@@ -216,39 +286,137 @@ class SearchPipeline:
         hits = idx.ix[:-1][p[found]]
         return hits[hits < idx.num_labels]
 
-    # ---- vote rows -> lines --------------------------------------------------
+    # ---- rows -> lines ----------------------------------------------------------
 
-    def _devvote_rows(self, handle: _Readback, count: int) -> np.ndarray:
-        """(count, 3) uint32 device-vote rows."""
+    def _wait_rows(self, handle: _Readback) -> np.ndarray:
         if self.tracer is not None:
             with self.tracer.phase("drain:d2h-wait"):
-                arr = handle.wait()
-        else:
-            arr = handle.wait()
-        return arr.view(np.uint32).reshape(-1, 3)[:count]
+                return handle.wait()
+        return handle.wait()
+
+    def _replay(self, rows: np.ndarray, seq_of):
+        """Exact host histograms of the reads `rows`, as an override CSR
+        (offsets, labels, counts)."""
+        offsets = np.zeros(len(rows) + 1, np.int64)
+        ls, cs = [], []
+        for j, i in enumerate(rows):
+            cnt = np.bincount(self._host_hits(seq_of(int(i))))
+            nz = np.flatnonzero(cnt)
+            ls.append(nz.astype(np.int32))
+            cs.append(cnt[nz].astype(np.int32))
+            offsets[j + 1] = offsets[j] + len(nz)
+        return (offsets, np.concatenate(ls) if ls else np.zeros(0, np.int32),
+                np.concatenate(cs) if cs else np.zeros(0, np.int32))
+
+    def _vote(self, fn, *args) -> bytes:
+        if self.tracer is not None:
+            with self.tracer.phase("drain:vote"):
+                return fn(*args)
+        return fn(*args)
 
     def _format_devvote(self, count, name_pool, name_offsets, handle,
                         seq_of) -> bytes:
-        """Drain one batch: replay the flagged reads on the host into an
+        """Device-vote rows: replay the flagged reads on the host into an
         override CSR, then format every line in C."""
-        u = self._devvote_rows(handle, count)
+        u = self._wait_rows(handle).view(np.uint32).reshape(-1, 3)[:count]
         flags = np.flatnonzero((u[:, 0] >> 24) & 1).astype(np.int64)
-        over_offsets = np.zeros(len(flags) + 1, np.int64)
-        ols, ocs = [], []
-        for j, i in enumerate(flags):
-            cnt = np.bincount(self._host_hits(seq_of(int(i))))
-            nz = np.flatnonzero(cnt)
-            ols.append(nz.astype(np.int32))
-            ocs.append(cnt[nz].astype(np.int32))
-            over_offsets[j + 1] = over_offsets[j] + len(nz)
-        over_labels = np.concatenate(ols) if ols else np.zeros(0, np.int32)
-        over_counts = np.concatenate(ocs) if ocs else np.zeros(0, np.int32)
-        args = (count, name_pool, name_offsets, u, flags, over_offsets,
-                over_labels, over_counts)
-        if self.tracer is not None:
-            with self.tracer.phase("drain:vote"):
-                return self._vote_engine.format_device_vote(*args)
-        return self._vote_engine.format_device_vote(*args)
+        return self._vote(self._vote_engine.format_device_vote, count, name_pool,
+                          name_offsets, u, flags, *self._replay(flags, seq_of))
+
+    def _vote_packed(self, count, name_pool, name_offsets, handle,
+                     seq_of) -> bytes:
+        """(B, cap+1) `pack_hist` rows straight to `utree_vote_packed`
+        (unpack + vote + format in C); over-cap reads take the override CSR."""
+        u = self._wait_rows(handle).view(np.uint32)[:count]
+        cap = self.hist_cap
+        over = np.flatnonzero((u[:, cap] & 31) > cap).astype(np.int64)
+        return self._vote(self._vote_engine.vote_packed, count, name_pool,
+                          name_offsets, u, cap, over, *self._replay(over, seq_of))
+
+    def _vote_unpacked(self, count, name_pool, name_offsets, handle,
+                       seq_of) -> bytes:
+        """(B, 2*cap+2) rows (wide labels) flattened to a CSR, with over-cap
+        reads replayed on the host, then voted and formatted in C."""
+        labels, counts, nuniq, _ = self._unpack(self._wait_rows(handle)[:count])
+        cap = self.hist_cap
+        nu = np.minimum(nuniq, cap).astype(np.int64)
+        over = np.flatnonzero(nuniq > cap)
+        offsets = np.zeros(count + 1, np.int64)
+        if len(over) == 0:
+            np.cumsum(nu, out=offsets[1:])
+            mask = np.arange(cap)[None, :] < nu[:, None]
+            flat_l = labels[mask].astype(np.int32)
+            flat_c = counts[mask].astype(np.int32)
+        else:
+            o_off, o_l, o_c = self._replay(over, seq_of)
+            nu[over] = np.diff(o_off)
+            np.cumsum(nu, out=offsets[1:])
+            flat_l = np.empty(int(offsets[-1]), np.int32)
+            flat_c = np.empty(int(offsets[-1]), np.int32)
+            extra = {int(i): j for j, i in enumerate(over)}
+            for i in range(count):
+                a, b = offsets[i], offsets[i + 1]
+                if i in extra:
+                    j = extra[i]
+                    flat_l[a:b] = o_l[o_off[j]:o_off[j + 1]]
+                    flat_c[a:b] = o_c[o_off[j]:o_off[j + 1]]
+                else:
+                    flat_l[a:b] = labels[i, : nu[i]]
+                    flat_c[a:b] = counts[i, : nu[i]]
+        return self._vote(self._vote_engine.vote_batch_pooled, count, name_pool,
+                          name_offsets, offsets, flat_l, flat_c)
+
+    def _format(self, *args) -> bytes:
+        return {"vote": self._format_devvote, "packed": self._vote_packed,
+                "unpacked": self._vote_unpacked}[self.layout](*args)
+
+    def _unpack(self, arr: np.ndarray):
+        """Histogram rows (either layout) -> labels, counts (B, cap), nuniq,
+        found (B,), as utree_tpu.pipeline._unpack."""
+        cap = self.hist_cap
+        if self.wide:
+            return arr[:, :cap], arr[:, cap:2 * cap], arr[:, 2 * cap], arr[:, 2 * cap + 1]
+        u = arr.view(np.uint32)
+        lc = u[:, :cap]
+        tail = u[:, cap]
+        return ((lc & 0xFFFF).astype(np.int32) - 1, (lc >> 16).astype(np.int32),
+                (tail & 31).astype(np.int32), (tail >> 5).astype(np.int32))
+
+    # ---- long reads -------------------------------------------------------------
+
+    def classify_long_read(self, name: bytes, seq: bytes) -> bytes | None:
+        """One read over `long_read_threshold`: cut into a power-of-two count
+        of chunks (each scans forward + RC of its own span, so together they
+        yield the read's exact hit multiset), their histograms through the
+        histogram step, merged on the host (an over-cap chunk replayed
+        exactly), then one vote (utree_tpu/pipeline.py:824-852)."""
+        from utree_tpu.classify import aufbau_vote_counts
+        from utree_tpu_torch.parallel.sharded import split_long_read
+
+        k = self.index.config.packsize
+        num_chunks = max(1, -(-max(0, len(seq) - k + 1) // self.long_chunk))
+        num_chunks = _bucket_len(num_chunks, minimum=1)
+        chunks, lens = split_long_read(seq, num_chunks, k)
+        if chunks.shape[1] % 8:
+            chunks = np.pad(chunks, ((0, 0), (0, 8 - chunks.shape[1] % 8)))
+        handle = self.dispatch_packed(*pack_reads_host(chunks, lens),
+                                      step=self._step_hist)
+        labels, counts, nuniq, _ = self._unpack(self._wait_rows(handle))
+        cap = self.hist_cap
+        agg: dict[int, int] = {}
+        for r in range(len(chunks)):
+            if nuniq[r] > cap:  # chunk overflowed the device histogram
+                for h in self._host_hits(chunks[r, : lens[r]].tobytes()):
+                    agg[int(h)] = agg.get(int(h), 0) + 1
+            else:
+                for s in range(int(nuniq[r])):
+                    agg[int(labels[r, s])] = agg.get(int(labels[r, s]), 0) + int(counts[r, s])
+        if not agg:
+            return None
+        ks = np.array(sorted(agg), np.int64)
+        vs = np.array([agg[int(x)] for x in ks], np.int64)
+        return aufbau_vote_counts(name, ks, vs, self.index.strings,
+                                  self.index.config.taxacut, 1)
 
     # ---- streaming search -----------------------------------------------------
 
@@ -358,10 +526,13 @@ class SearchPipeline:
                         r_global += adv
                         continue
                     if lens_all[r] > threshold:
-                        raise NotImplementedError(
-                            f"read {r_global} is {int(lens_all[r])} bp, longer "
-                            f"than long_read_threshold={threshold}: long reads "
-                            "(pack_hist + split_long_read) are ROADMAP A.7")
+                        b = flush()  # long reads emit in record order
+                        if b is not None:
+                            yield b
+                        yield ("long", sc.record_name(r), sc.record_seq(r))
+                        r += 1
+                        r_global += 1
+                        continue
                     e = r
                     lim = self.batch_size - acc
                     while (e < n_piece and e - r < lim
@@ -400,7 +571,7 @@ class SearchPipeline:
                 while pending and (block or len(pending) >= queue_depth):
                     spans, count, h, npool, noffs = pending.pop(0)
                     with tm.phase("drain+vote"):
-                        lines = self._format_devvote(
+                        lines = self._format(
                             count, npool, noffs, h,
                             lambda i, spans=spans: row_seq(spans, i))
                     with tm.phase("write"):
@@ -414,6 +585,16 @@ class SearchPipeline:
                 if item[0] == "eof":
                     n = item[1]
                     break
+                if item[0] == "long":
+                    drain(block=True)  # keep output in read order
+                    with tm.phase("long-reads"):
+                        line = self.classify_long_read(item[1], item[2])
+                        if line is not None:
+                            fo.write(line + b"\n")
+                        fo.flush()
+                    done += 1
+                    ckpt.commit(done - range_lo, fo.tell())
+                    continue
                 _, spans, count, arrays, npool, noffs = item
                 with tm.phase("dispatch"):
                     handle = self.dispatch_packed(*arrays)

@@ -30,9 +30,20 @@ Phases; each passes or the script exits non-zero:
 8. long reads: on the phase-6 ladder, 8192 short reads mixed with 16 long
    reads of 20 kbp to 1 Mbp (about 4.3 Mbp, 1% mutation); K2
    histogram_packed against pack_hist at the largest read's chunk shape;
-   the whole output must equal utree_tpu.search_host's; reads/s and bases/s.
+   the whole output must equal utree_tpu.search_host's; reads/s and bases/s;
+9. PACKSIZE=64 + IXTYPE=u32 (BASELINE config 4): bench's recipe at k=64
+   (--kmers 64-mers, 70,000 labels); `auto` must resolve to the 64-mer
+   ladder and lookup_mode="displaced" gives the 64-mer displaced table; for
+   each, K6 ladder_probe64 or K5 scan_probe64 and K2 histogram_unpacked
+   against their plain versions at B=65536 ASCII reads, the reads end to end
+   twice and the host check; the two outputs must be byte-identical; 2048
+   short and 4 long reads (20-200 kbp) through the ladder, whose whole
+   output must equal utree_tpu.search_host's;
+10. bsearch: the phase-4 tier under lookup_mode="bsearch"; K7 bsearch_probe
+   against its plain version at phase 3's shapes; the reads end to end
+   twice; the output must equal phase 4's byte for byte.
 
-Every path run (phases 4, 6, 7, 8) starts with every launch count at 0 and
+Every path run (phases 4, 6-10) starts with every launch count at 0 and
 reads them just after; each kernel its path needs must have launched.
 Prints the card line, a {"kernels": [...]} JSON line and, last, the
 {"ok": true, "device": {...}} line.  Imports no JAX.
@@ -59,6 +70,7 @@ CHECK_READS = 2048
 LONG_SHORT_READS = 8192
 LONG_READS = 16
 LONG_BP = (20_000, 1_000_000)  # shortest and longest long read
+LONG64_BP = (20_000, 200_000)  # phase 9's four long reads
 
 # launches summed over the path runs (each one counted from 0)
 PATH_LAUNCHES: dict[str, int] = {}
@@ -298,6 +310,60 @@ def u32_index(words, ixs, strings):
     return dataclasses.replace(index, config=UTreeConfig(ixtype_bytes=4))
 
 
+def index64(words, ixs, strings, ixtype_bytes: int = 4):
+    """DeviceIndexArrays.from_build of a PACKSIZE=64 DB (IXTYPE=u32 unless
+    asked) from sorted, de-duplicated W128 words.  The shared 64-mer table builders
+    raise OverflowError when the lowest populated prefix bin holds a single
+    record whose suffix is not below the next bin's first one (ROADMAP §C):
+    the reference folds that record into the next bin, and the builders'
+    slow path for the unsorted bin this makes shifts an np.int64 by 104
+    bits.  So while the lowest bin holds one such record, that k-mer is
+    dropped from the DB; reads that hit it then miss in every path alike."""
+    import numpy as np
+
+    from utree_tpu.config import UTreeConfig
+    from utree_tpu.index import DeviceIndexArrays
+
+    hi, lo = words["hi"], words["lo"]
+    pre, suf = hi >> np.uint64(40), hi & np.uint64((1 << 40) - 1)
+    drop = 0
+    while (len(words) - drop > 1 and pre[drop] != pre[drop + 1]
+           and (suf[drop], lo[drop]) >= (suf[drop + 1], lo[drop + 1])):
+        log(f"tier64: dropped k-mer {drop} (alone in prefix bin {int(pre[drop])}, "
+            "it would unsort the next bin), working around the shared "
+            "builders' fault, ROADMAP §C")
+        drop += 1
+    return DeviceIndexArrays.from_build(
+        words[drop:], ixs[drop:], strings,
+        UTreeConfig(packsize=64, ixtype_bytes=ixtype_bytes))
+
+
+def tier64(kmers: int, labels: int):
+    """bench.make_tier_index's recipe at k=64 (BASELINE config 4): a genome
+    of kmers+63 bases (rng seed 0), its dense 64-mer set sorted and
+    de-duplicated, `labels` region labels with NUL bytes stripped, as an
+    IXTYPE=u32 index (index64).  Returns (index, genome, rng)."""
+    import numpy as np
+
+    from utree_tpu.encode import sample_build_kmers
+
+    rng = np.random.default_rng(0)
+    genome = rng.choice(np.frombuffer(ACGT, np.uint8), size=kmers + 63).astype(np.uint8)
+    words = sample_build_kmers(genome.tobytes(), 64, 0)
+    pos_labels = (np.arange(len(words), dtype=np.int64) * labels) // len(words)
+    order = np.lexsort((words["lo"], words["hi"]))
+    sw = words[order]
+    keep = np.ones(len(sw), bool)
+    keep[1:] = (sw["hi"][1:] != sw["hi"][:-1]) | (sw["lo"][1:] != sw["lo"][:-1])
+    ranks = b"kpcofgst"
+    strings = []
+    for i in range(labels):
+        tok = bytes(97 + rng.integers(0, 26, size=4))  # as bench: int64 bytes
+        strings.append(b";".join(ranks[d:d + 1] + b"__" + tok + str(i % 97).encode()
+                                 for d in range(8)).replace(b"\x00", b""))
+    return index64(sw[keep], pos_labels[order][keep], strings), genome, rng
+
+
 def wide_tier(kmers: int):
     """bench's tier with WIDE_LABELS labels, rebuilt as an IXTYPE=u32 index
     (bench's config is u16, whose bad_ix would collide with a label id);
@@ -436,8 +502,139 @@ def phase_long(dev, pipe, base: dict, work: pathlib.Path):
     return row, {"reads_per_s": nreads / dt, "bases_per_s": bases / dt, "seconds": dt}
 
 
+def phase_k64(dev, kmers: int, nreads: int, work: pathlib.Path):
+    """Phase 9: PACKSIZE=64 + IXTYPE=u32 (BASELINE config 4) on the 64-mer
+    ladder (`auto`) and the 64-mer displaced table; a long-read file on the
+    ladder."""
+    import numpy as np
+    import torch
+
+    from utree_tpu_torch import lookup
+    from utree_tpu_torch.pipeline import SearchPipeline
+
+    t0 = time.perf_counter()
+    index, genome, rng = tier64(kmers, WIDE_LABELS)
+    log(f"tier64: {index.num_records:,} 64-mers, {index.num_labels} labels, "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    reads = make_reads(genome, rng, nreads)
+    reads_fa = work / "smoke64_reads.fa"
+    write_fasta(reads_fa, reads)
+    host = index.host_index()
+    b = min(BATCH, nreads)
+    ascii_ = np.zeros((b, 192), np.uint8)  # the pipeline's width for 150 bp
+    ascii_[:, :READ_LEN] = reads[:b]
+    rt = torch.from_numpy(ascii_).to(dev)
+    lt = torch.full((b,), READ_LEN, dtype=torch.int32, device=dev)
+    L = index.num_labels
+    kw = dict(do_rc=True, bad_ix=0x7FFFFFFF)
+    rows, stats, outs = [], {}, {}
+    for mode, kind, name in (("auto", "canonical64", "ladder_probe64"),
+                             ("displaced", "displaced64", "scan_probe64")):
+        t = time.perf_counter()
+        pipe = SearchPipeline(index, device=dev, do_rc=True, batch_size=BATCH,
+                              hist_cap=HIST_CAP, lookup_mode=mode)
+        build_s = time.perf_counter() - t
+        if pipe.table_kind != kind or pipe.layout != "unpacked":
+            fail(f"k64 {mode}: resolved to {pipe.table_kind}, layout {pipe.layout}")
+        tab = pipe._table
+        log(f"k64 {kind}: table built in {build_s:.1f} s, "
+            + ", ".join(f"{k} {tuple(v.shape)}" for k, v in tab.items()))
+        what = f"B={b} ASCII reads, L=192, {L} labels"
+        rows.append(check_kernel(
+            name, f"{name}.cu", "utree_tpu/lookup.py:" + ("460" if mode == "auto" else "521"),
+            lambda: lookup.window_ids64(tab, rt, lt, **kw),
+            lambda: lookup.window_ids64_plain(tab, rt, lt, **kw), what))
+        ids = lookup.window_ids64(tab, rt, lt, **kw)
+        check_kernel("histogram_unpacked", "histogram.cu", "utree_tpu/lookup.py:662",
+                     lambda: lookup.histogram_unpacked(ids, L, HIST_CAP),
+                     lambda: lookup.unpacked_hist(ids, L, HIST_CAP), what + f", {kind} ids")
+        out_txt = work / f"smoke64_{kind}.txt"
+        rps = e2e(pipe, reads_fa, out_txt, nreads, f"k64 {kind} e2e",
+                  (name, "histogram_unpacked"))
+        host_check(host, reads, out_txt, work, f"k64_{kind}")
+        outs[kind] = out_txt.read_bytes()
+        stats[kind] = {"reads_per_s": rps, "table_s": build_s}
+        if mode == "auto":
+            stats["long"] = long64(pipe, genome, reads, host, work)
+        del pipe, tab, ids
+    if outs["canonical64"] != outs["displaced64"]:
+        fail("k64: the ladder's and the displaced table's outputs differ")
+    log("k64: the two tables' whole outputs are byte-identical")
+    return rows, stats
+
+
+def long64(pipe, genome, reads, host, work: pathlib.Path) -> dict:
+    """Phase 9's long-read file: CHECK_READS short reads and 4 long reads of
+    LONG64_BP (1% mutation) through the PACKSIZE=64 ladder; the whole output
+    must equal utree_tpu.search_host's."""
+    import numpy as np
+
+    from utree_tpu.search_host import search_file as host_search_file
+
+    rng = np.random.default_rng(9)
+    acgt = np.frombuffer(ACGT, np.uint8)
+    longs = []
+    for size in np.geomspace(*LONG64_BP, 4).astype(np.int64):
+        s = int(rng.integers(0, len(genome) - size))
+        seq = genome[s:s + size].copy()
+        mut = rng.random(size) < 0.01
+        seq[mut] = rng.choice(acgt, int(mut.sum()))
+        longs.append(seq.tobytes())
+    reads_fa = work / "smoke64_long.fa"
+    with open(reads_fa, "wb") as f:
+        for i in range(CHECK_READS):
+            f.write(b">r%d\n" % i + reads[i].tobytes() + b"\n")
+            if i % 512 == 256:
+                f.write(b">long%d\n" % (i // 512) + longs[i // 512] + b"\n")
+    out_txt, host_out = work / "smoke64_long.txt", work / "smoke64_long_host.txt"
+    t = time.perf_counter()
+    drive("k64 long reads", ("ladder_probe64", "histogram_unpacked"),
+          lambda: pipe.search_file(str(reads_fa), str(out_txt)))
+    dt = time.perf_counter() - t
+    bases = sum(map(len, longs)) + CHECK_READS * READ_LEN
+    host_search_file(host, str(reads_fa), str(host_out), do_rc=True)
+    if host_out.read_bytes() != out_txt.read_bytes():
+        fail("k64 long reads: the port's output differs from utree_tpu.search_host")
+    log(f"k64 long reads: {CHECK_READS} short + 4 long reads ({bases:,} bp) in "
+        f"{dt:.3f} s = {bases / dt:,.0f} bases/s; whole output "
+        f"({len(out_txt.read_bytes().splitlines())} lines) byte-identical to "
+        "utree_tpu.search_host")
+    return {"bases_per_s": bases / dt, "seconds": dt}
+
+
+def phase_bsearch(dev, base: dict, work: pathlib.Path):
+    """Phase 10: the bsearch replay over the phase-4 tier's CTR records."""
+    from utree_tpu_torch import lookup
+    from utree_tpu_torch.pipeline import SearchPipeline
+
+    index, reads = base["index"], base["reads"]
+    t = time.perf_counter()
+    pipe = SearchPipeline(index, device=dev, do_rc=True, batch_size=BATCH,
+                          hist_cap=HIST_CAP, lookup_mode="bsearch")
+    if pipe.table_kind != "bsearch" or pipe.layout != "vote":
+        fail(f"bsearch: resolved to {pipe.table_kind}, layout {pipe.layout}")
+    tab = pipe._table
+    log(f"bsearch: records on the card in {time.perf_counter() - t:.1f} s, probe_iters "
+        f"{index.probe_iters}, " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in tab.items()
+                                             if not k.startswith("vt_")))
+    packed, vbits, lens = batch_tensors(dev, reads)
+    kw = dict(do_rc=True, bad_ix=0xFFFF, true_len=(READ_LEN + 7) & ~7,
+              num_labels=index.num_labels, probe_iters=index.probe_iters)
+    row = check_kernel("bsearch_probe", "bsearch_probe.cu", "utree_tpu/lookup.py:149",
+                       lambda: lookup.window_ids(tab, packed, vbits, lens, **kw),
+                       lambda: lookup.window_ids_plain(tab, packed, vbits, lens, **kw),
+                       f"B={packed.shape[0]}")
+    out_txt = work / "smoke_bsearch.txt"
+    rps = e2e(pipe, base["reads_fa"], out_txt, len(reads), "bsearch e2e",
+              ("bsearch_probe", "histogram", "aufbau_vote"))
+    if out_txt.read_bytes() != base["out_txt"].read_bytes():
+        fail("the bsearch replay's output differs from the displaced table's")
+    log("bsearch: whole output byte-identical to the displaced run (phase 4)")
+    return row, {"reads_per_s": rps}
+
+
 def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
-    """Phases 3-8 on `dev`; returns what main() checks and prints."""
+    """Phases 3-10 on `dev`; returns what main() checks and prints."""
     import bench
     from utree_tpu.classify_device import build_aufbau_tables
     from utree_tpu_torch.classify_device import aufbau_tables_to_device
@@ -482,10 +679,15 @@ def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
     kern += wide_rows
     long_row, long = phase_long(dev, ladder_pipe, base, work)
     kern.append(long_row)
+    del ladder_pipe
+    bs_row, bsearch = phase_bsearch(dev, base, work)
+    kern.append(bs_row)
+    k64_rows, k64 = phase_k64(dev, kmers, nreads, work)
+    kern += k64_rows
     for k in kern:
         k["launches"] = PATH_LAUNCHES.get(k["name"], 0)
     return {"kernels": kern, "displaced_rps": best, "ladder": ladder,
-            "wide": wide, "long": long}
+            "wide": wide, "long": long, "bsearch": bsearch, "k64": k64}
 
 
 def main() -> int:
@@ -536,8 +738,12 @@ def main() -> int:
         f"{res['wide']['ladder']['reads_per_s']:,.0f}, wide displaced (2M) "
         f"{res['wide']['displaced']['reads_per_s']:,.0f} reads/s (best of 2 "
         f"passes); long reads {res['long']['reads_per_s']:,.0f} reads/s, "
-        f"{res['long']['bases_per_s']:,.0f} bases/s; {a.kmers} k-mers, RC, "
-        f"batch {BATCH}, on {card}")
+        f"{res['long']['bases_per_s']:,.0f} bases/s; bsearch "
+        f"{res['bsearch']['reads_per_s']:,.0f}, k64 ladder "
+        f"{res['k64']['canonical64']['reads_per_s']:,.0f}, k64 displaced "
+        f"{res['k64']['displaced64']['reads_per_s']:,.0f} reads/s, k64 long "
+        f"reads {res['k64']['long']['bases_per_s']:,.0f} bases/s; {a.kmers} "
+        f"k-mers, RC, batch {BATCH}, on {card}")
     print(json.dumps({"kernels": res["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from bench import make_tier_index
-from chip_smoke import u32_index
+from chip_smoke import index64, tier64, u32_index
 from test_classify_device import _random_strings
 from utree_tpu.classify_device import build_aufbau_tables
 from utree_tpu.hash_index import build_displaced_index
@@ -21,7 +21,8 @@ from utree_tpu_torch import kernels
 from utree_tpu_torch import lookup as tl
 from utree_tpu_torch.classify_device import (aufbau_tables_to_device,
                                              aufbau_walk, pack_vote, vote_rows)
-from utree_tpu_torch.hash_index import displaced_to_device
+from utree_tpu_torch.hash_index import (bsearch_to_device, canonical64_to_device,
+                                        displaced64_to_device, displaced_to_device)
 
 pytestmark = pytest.mark.cuda
 BAD = 65535
@@ -193,13 +194,171 @@ def test_k2_layouts_at_long_read_widths(tier, dev):
                                                       tl.compact_histogram(ids, 64, cap)))
 
 
+def _word_ascii(words):
+    """32-mer words (uint64) -> their bases as (n, 32) ASCII."""
+    shifts = np.uint64(2) * (np.uint64(31) - np.arange(32, dtype=np.uint64))
+    codes = (words[:, None] >> shifts[None, :]) & np.uint64(3)
+    return np.frombuffer(b"ACGT", np.uint8)[codes.astype(np.int64)]
+
+
+def test_k7_bsearch_probe_matches_plain(tier, dev):
+    """The replay over the tier's CTR records, RC on and off, with the
+    true_len trim; every histogram layout on its ids."""
+    index = tier["index"]
+    table = bsearch_to_device(index, dev)
+    packed, vbits, lens = _packed_reads(tier["genome"], 3000, 6, dev)
+    for do_rc in (True, False):
+        for true_len in (152, None):
+            kw = dict(do_rc=do_rc, bad_ix=BAD, true_len=true_len, num_labels=64,
+                      probe_iters=index.probe_iters)
+            n0 = kernels.launches["bsearch_probe"]
+            ids = tl.window_ids(table, packed, vbits, lens, **kw)
+            assert kernels.launches["bsearch_probe"] == n0 + 1
+            assert torch.equal(ids, tl.window_ids_plain(table, packed, vbits, lens, **kw))
+            assert int((ids < 64).sum()) > 1000
+            for cap in (1, 8, 30):
+                assert all(torch.equal(a, b) for a, b in zip(
+                    tl.histogram(ids, 64, cap), tl.compact_histogram(ids, 64, cap)))
+
+
+def test_k7_on_an_abnormal_bin(dev):
+    """A DB whose lowest populated bin holds one record that sorts after the
+    next bin's first record: the reference folds it into that bin, which is
+    then not sorted.  K7 loops until every range is empty, the plain version
+    runs JAX's fixed probe_iters trips: both end on the same record, on
+    reads built from the merged bin's words and their RCs."""
+    from utree_tpu.config import UTreeConfig
+    from utree_tpu.index import DeviceIndexArrays
+
+    rng = np.random.default_rng(9)
+    words = np.unique(rng.integers(1 << 40, 1 << 47, 3000, dtype=np.uint64))
+    odd = np.uint64(0xFFFFFFFFFF)  # prefix 0, the largest suffix
+    words = np.concatenate([[odd], words])
+    ixs = rng.integers(0, 40, len(words))
+    index = DeviceIndexArrays.from_build(words, ixs, [b"l%d" % i for i in range(40)],
+                                         UTreeConfig())
+    first = int(words[1] >> np.uint64(40))
+    assert index.bin_ix[first] == 0 and index.bin_ix[1] == 0  # merged bin
+    table = bsearch_to_device(index, dev)
+    # each read: a stored word, a word of the merged bin with a changed
+    # suffix, and the odd word, separated by N's
+    n = 600
+    pick = words[rng.integers(0, 40, n)]
+    tweak = words[1 + rng.integers(0, 8, n)] ^ rng.integers(0, 1 << 8, n, dtype=np.uint64)
+    reads = np.full((n, 104), ord("N"), np.uint8)
+    reads[:, 0:32] = _word_ascii(pick)
+    reads[:, 36:68] = _word_ascii(tweak)
+    reads[:, 72:104] = _word_ascii(np.full(n, odd))
+    lens = np.full(n, 104, np.int32)
+    packed, vbits, lens = (torch.from_numpy(a).to(dev) for a in tl.pack_reads_host(reads, lens))
+    for do_rc in (True, False):
+        kw = dict(do_rc=do_rc, bad_ix=BAD, num_labels=40, probe_iters=index.probe_iters)
+        ids = tl.window_ids(table, packed, vbits, lens, **kw)
+        assert torch.equal(ids, tl.window_ids_plain(table, packed, vbits, lens, **kw))
+        assert int((ids[:, 0] < 40).sum()) > 100  # stored words are found
+
+
+@pytest.fixture(scope="module")
+def k64(dev):
+    index, genome, _ = tier64(40_000, 64)
+    return dict(index=index, genome=genome)
+
+
+def _ascii_reads(genome, n, seed, dev, read_len=150, width=192):
+    """ASCII reads from the genome with N's, lower case, ragged lengths."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    starts = rng.integers(0, len(genome) - read_len, n)
+    reads = np.zeros((n, width), np.uint8)
+    reads[:, :read_len] = genome[starts[:, None] + np.arange(read_len)]
+    reads[rng.random(reads.shape) < 0.005] = ord("N")
+    low = rng.random(reads.shape) < 0.02
+    reads[low] |= 0x20  # a, c, g, t (and n) count as bases too
+    rand = rng.random(n) < 0.1
+    reads[rand, :read_len] = rng.choice(acgt, (int(rand.sum()), read_len))
+    lens = np.full(n, read_len, np.int32)
+    lens[::3] = rng.integers(40, read_len, len(lens[::3]))
+    return torch.from_numpy(reads).to(dev), torch.from_numpy(lens).to(dev)
+
+
+def _table64(index, geometry, dev):
+    from utree_tpu.hash_index64 import (_canonical_groups64, _place64,
+                                        build_canonical_hash_index64,
+                                        build_displaced_index64)
+
+    if geometry == "ladder":
+        return canonical64_to_device(build_canonical_hash_index64(index), dev), "ladder_probe64"
+    if geometry == "chain":  # the three-level shape, c64_3 in use
+        built = _place64(*_canonical_groups64(index), 2, 16.0, 1, 1 << 26, slots3=8)
+        assert built.t2.shape[0] > 8 and built.t3.shape[0] > 8
+        return canonical64_to_device(built, dev), "ladder_probe64"
+    if geometry == "displaced":
+        return displaced64_to_device(build_displaced_index64(index), dev), "scan_probe64"
+    built = build_displaced_index64(index, load=0.98, spill_budget=index.num_records)
+    assert built.t3.shape[0] > 8  # the d64_3 tail is exercised
+    return displaced64_to_device(built, dev), "scan_probe64"
+
+
+@pytest.mark.parametrize("geometry", ["ladder", "chain", "displaced", "displaced-spill"])
+def test_k5_k6_probe64_match_plain(k64, dev, geometry):
+    """K6 on the default ladder and the three-level chain, K5 on the default
+    displaced table and one that spills into d64_3; RC on and off; K2's
+    unpacked rows (the PACKSIZE=64 readback) on their ids."""
+    table, probe = _table64(k64["index"], geometry, dev)
+    reads, lens = _ascii_reads(k64["genome"], 3000, 7, dev)
+    nl = k64["index"].num_labels
+    for do_rc in (True, False):
+        n0 = kernels.launches[probe]
+        ids = tl.window_ids64(table, reads, lens, do_rc=do_rc, bad_ix=0x7FFFFFFF)
+        assert kernels.launches[probe] == n0 + 1
+        assert ids.shape == (3000, 2 * 129 if do_rc else 129)
+        assert torch.equal(ids, tl.window_ids64_plain(table, reads, lens, do_rc=do_rc,
+                                                      bad_ix=0x7FFFFFFF))
+        assert int((ids < nl).sum()) > 1000
+        for cap in (1, 8, 30):
+            assert torch.equal(tl.histogram_unpacked(ids, nl, cap),
+                               tl.unpacked_hist(ids, nl, cap))
+
+
+@pytest.mark.parametrize("kind", ["ladder", "displaced"])
+def test_probe64_sentinels_match_plain(k64, dev, kind):
+    """A DB of 12 64-mers spills nothing: c64_2, c64_3 and d64_3 are the
+    8-row sentinels, which the kernels must not probe; u16 labels (bad_ix
+    65535), reads over the 12 words' stretch of the genome."""
+    from utree_tpu.encode import sample_build_kmers
+    from utree_tpu.hash_index64 import build_canonical_hash_index64, build_displaced_index64
+
+    genome = k64["genome"]
+    words = np.sort(sample_build_kmers(genome[1000:1075].tobytes(), 64, 0),
+                    order=("hi", "lo"))
+    sub = index64(words, np.arange(len(words)) % 5, [b"l%d" % i for i in range(5)])
+    if kind == "ladder":
+        built = build_canonical_hash_index64(sub)
+        assert built.t2.shape[0] == 8 and built.t3.shape[0] == 8
+        table = canonical64_to_device(built, dev)
+    else:
+        built = build_displaced_index64(sub)
+        assert built.t3.shape[0] == 8
+        table = displaced64_to_device(built, dev)
+    reads, lens = _ascii_reads(genome[980:1200], 500, 8, dev, read_len=150, width=192)
+    for do_rc in (True, False):
+        ids = tl.window_ids64(table, reads, lens, do_rc=do_rc, bad_ix=65535)
+        assert torch.equal(ids, tl.window_ids64_plain(table, reads, lens, do_rc=do_rc,
+                                                      bad_ix=65535))
+        assert int((ids < 5).sum()) > 100
+
+
 # entry points each path must launch (the histogram step of long reads adds
 # histogram_packed or histogram_unpacked)
 _PATHS = {
     ("narrow", "auto"): {"ladder_probe", "histogram", "aufbau_vote", "histogram_packed"},
     ("narrow", "displaced"): {"scan_probe", "histogram", "aufbau_vote", "histogram_packed"},
+    ("narrow", "bsearch"): {"bsearch_probe", "histogram", "aufbau_vote", "histogram_packed"},
     ("wide", "auto"): {"ladder_probe_wide", "histogram_unpacked"},
     ("wide", "displaced"): {"scan_probe_wide", "histogram_unpacked"},
+    ("wide", "bsearch"): {"bsearch_probe", "histogram_unpacked"},
+    ("k64", "auto"): {"ladder_probe64", "histogram_unpacked"},
+    ("k64", "displaced"): {"scan_probe64", "histogram_unpacked"},
 }
 
 
@@ -218,10 +377,13 @@ def test_cuda_pipeline_equals_cpu_pipeline(tmp_path, dev, labels, mode):
     with open(tmp_path / "reads.fa", "ab") as f:
         for i in range(3):
             f.write(b">long%d\n" % i + recs[i][2][: 1500 + 700 * i] + b"\n")
-    res = build_database(str(tmp_path / "refs.fa"), str(tmp_path / "tax.map"), UTreeConfig())
+    cfg = UTreeConfig(packsize=64, ixtype_bytes=4) if labels == "k64" else UTreeConfig()
+    res = build_database(str(tmp_path / "refs.fa"), str(tmp_path / "tax.map"), cfg)
     strings = list(res.labels.strings)
     if labels == "wide":
         index = u32_index(res.words, res.ixs, strings + [b"pad%d" % i for i in range(70_000)])
+    elif labels == "k64":
+        index = index64(res.words, res.ixs, strings)
     else:
         index = DeviceIndexArrays.from_build(res.words, res.ixs, strings, UTreeConfig())
     outs = {}
@@ -234,4 +396,6 @@ def test_cuda_pipeline_equals_cpu_pipeline(tmp_path, dev, labels, mode):
         outs[device] = (tmp_path / f"{device}.txt").read_bytes()
         launched = {k for k, n in kernels.launches.items() if n}
         assert launched == (_PATHS[labels, mode] if device == "cuda" else set())
-    assert outs["cuda"] == outs["cpu"] and outs["cpu"].count(b"\n") > 500
+    # fewer reads classify at k=64: a 64-mer window holds twice the bases
+    assert outs["cuda"] == outs["cpu"]
+    assert outs["cpu"].count(b"\n") > (400 if labels == "k64" else 500)

@@ -1,8 +1,9 @@
 """The port's pipeline against utree_tpu.pipeline beyond the displaced main
 path: the canonical ladder that `auto` picks below 80M records, wide labels
 (IXTYPE=u32) on both tables, the narrow/wide boundary, label strings of
-2048+ chars (the packed-histogram layout) and long reads (chunked, merged on
-the host).  classifications.txt must match byte for byte.
+2048+ chars (the packed-histogram layout), long reads (chunked, merged on
+the host) and the bsearch replay in each readback layout, with `auto`'s
+fallback to it.  classifications.txt must match byte for byte.
 
 Every database comes from make_toy_db -> build_database ->
 DeviceIndexArrays.from_build (no oracle), and both pipelines search the
@@ -259,8 +260,9 @@ def test_cli_lookup_mode_canonical(env, tmp_path, capsys):
 
 def test_table_choice_follows_the_record_count(env, monkeypatch):
     """`auto` resolves by record count as utree_tpu.pipeline does: displaced
-    from the crossover, an error from the ceiling; a DB that fits neither
-    table raises where the JAX pipeline would take the bsearch replay."""
+    from the crossover; past the device tables' ceiling, the bsearch replay
+    below the replay ceiling and an error from it; a DB that fits neither
+    table takes the replay (test_auto_falls_back_to_bsearch)."""
     import utree_tpu_torch.pipeline as P
 
     index = _index(env, "narrow")
@@ -268,18 +270,84 @@ def test_table_choice_follows_the_record_count(env, monkeypatch):
     assert SearchPipeline(index, device="cpu").table_kind == "displaced"
     assert SearchPipeline(index, device="cpu", lookup_mode="canonical").table_kind == "canonical"
     monkeypatch.setattr(P, "_HASH_AUTO_MAX", 0)
-    with pytest.raises(RuntimeError, match="ROADMAP A.8"):
+    assert SearchPipeline(index, device="cpu").table_kind == "bsearch"
+    monkeypatch.setattr(P, "_REPLAY_AUTO_MAX", 0)
+    with pytest.raises(RuntimeError, match="exceeds the single-chip device-table ceiling"):
         SearchPipeline(index, device="cpu")
-    monkeypatch.setattr(P, "_DISPLACED_AUTO_MIN", 1 << 40)
-    monkeypatch.setattr(P, "_HASH_AUTO_MAX", 1 << 40)
+    assert SearchPipeline(index, device="cpu", lookup_mode="bsearch").table_kind == "bsearch"
 
-    def no_fit(*a, **k):
-        raise ValueError("no geometry fits")
 
+def _no_fit(*a, **k):
+    raise ValueError("no geometry fits")
+
+
+def test_auto_falls_back_to_bsearch(env, tmp_path, monkeypatch):
+    """With both shared builders failing, `auto` takes the bsearch replay in
+    both pipelines below 80M records (same bytes), and from the replay
+    ceiling both raise the same RuntimeError."""
     import utree_tpu.hash_index as H
+    import utree_tpu.pipeline as JP
+    import utree_tpu_torch.pipeline as P
 
-    monkeypatch.setattr(H, "build_canonical_hash_index", no_fit)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        SearchPipeline(index, device="cpu")
+    monkeypatch.setattr(H, "build_canonical_hash_index", _no_fit)
+    monkeypatch.setattr(H, "build_displaced_index", _no_fit)
+    index = _index(env, "narrow")
+    jp = JaxPipeline(index, do_rc=True, batch_size=BATCH)
+    pipe = SearchPipeline(index, device="cpu", do_rc=True, batch_size=BATCH)
+    assert jp.table_kind == pipe.table_kind == "bsearch" and pipe.layout == "vote"
+    jp.search_file(str(env["dir"] / "short.fa"), str(tmp_path / "jax.txt"))
+    pipe.search_file(str(env["dir"] / "short.fa"), str(tmp_path / "port.txt"))
+    assert (tmp_path / "port.txt").read_bytes() == (tmp_path / "jax.txt").read_bytes()
     with pytest.raises(RuntimeError, match="canonical cannot be honored"):
         SearchPipeline(index, device="cpu", lookup_mode="canonical")
+    monkeypatch.setattr(JP, "_REPLAY_AUTO_MAX", 0)
+    monkeypatch.setattr(P, "_REPLAY_AUTO_MAX", 0)
+    msgs = []
+    for make in (lambda: JaxPipeline(index), lambda: SearchPipeline(index, device="cpu")):
+        with pytest.raises(RuntimeError, match="fits no single-chip device table") as e:
+            make()
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+
+
+@pytest.mark.parametrize("kind,hist_cap", [("narrow", 8), ("narrow", 2),
+                                           ("longlabel", 2), ("wide", 2)])
+def test_bsearch_layouts(env, tmp_path, kind, hist_cap):
+    """`--lookup-mode bsearch` (K7's replay over the CTR records) in the
+    three readback layouts: the device vote, packed rows for long labels,
+    unpacked rows for wide labels; hist_cap=2 replays flagged reads."""
+    seen = []
+    got, want, pipe = _run_both(env, tmp_path, kind, "short.fa", mode="bsearch",
+                                hist_cap=hist_cap,
+                                port_hook=lambda p: seen.append(_replays(p)))
+    assert pipe.table_kind == "bsearch"
+    assert pipe.layout == {"narrow": "vote", "longlabel": "packed", "wide": "unpacked"}[kind]
+    assert got == want and want.count(b"\n") > 300
+    assert bool(seen[0]) == (hist_cap == 2)
+
+
+def test_bsearch_long_reads(env, tmp_path):
+    """Long reads through the replay: chunks take the packed histogram step."""
+    got, want, _ = _run_both(env, tmp_path, "narrow", "long.fa", mode="bsearch",
+                             hist_cap=2, threshold=SMALL_THRESHOLD, chunk=SMALL_CHUNK)
+    assert got == want
+    assert sum(ln.startswith(b"long") for ln in want.splitlines()) == 4
+
+
+def test_cli_lookup_mode_bsearch(env, tmp_path, capsys):
+    """`search --lookup-mode bsearch` on the .ctr round trip of the DB."""
+    from utree_tpu.formats import write_ctr_from_ubt, write_ubt
+    from utree_tpu_torch.cli import main
+
+    res, wd = env["res"], env["dir"]
+    cfg = UTreeConfig()
+    if not (wd / "db.ctr").exists():
+        write_ubt(str(wd / "db.ubt"), res.words, res.ixs, res.labels.strings, cfg)
+        write_ctr_from_ubt(str(wd / "db.ubt"), str(wd / "db.ctr"), cfg)
+    out = tmp_path / "cli.txt"
+    main(["search", str(wd / "db.ctr"), str(wd / "short.fa"), str(out), "--rc",
+          "--device", "cpu", "--batch", str(BATCH), "--lookup-mode", "bsearch",
+          "--trace"])
+    assert "table_kind: bsearch" in capsys.readouterr().out
+    assert out.read_bytes() == _run_both(env, tmp_path, "narrow", "short.fa",
+                                         mode="bsearch")[1]

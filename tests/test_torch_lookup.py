@@ -393,3 +393,96 @@ def test_hist_steps_on_the_ladder_match_jax(wide):
               torch.from_numpy(vbits), torch.from_numpy(lens), **kw)
     assert t.shape == (96, 10 if wide else 5)
     assert np.array_equal(np.asarray(j), _np(t))
+
+
+# ---- the bsearch replay ---------------------------------------------------------
+
+def _abnormal_index():
+    """Random 32-mers plus one word alone in prefix bin 0 whose suffix is the
+    largest: the reference folds it into the next populated bin, which is
+    then not sorted by suffix (compute_bin_ix's zero-sentinel quirk)."""
+    rng = np.random.default_rng(21)
+    words = np.unique(rng.integers(1 << 40, 1 << 46, 4000, dtype=np.uint64))
+    odd = np.uint64(0xFFFFFFFFFF)
+    words = np.concatenate([[odd], words])
+    index = DeviceIndexArrays.from_build(words, rng.integers(0, 30, len(words)),
+                                         [b"l%d" % i for i in range(30)], UTreeConfig())
+    first = int(words[1] >> np.uint64(40))
+    assert index.bin_ix[1] == 0 and index.bin_ix[first] == 0  # the merged bin
+    return index, words, rng
+
+
+def test_lookup_kmers_abnormal_bin_matches_jax():
+    """The replay on the merged, unsorted bin: stored words, the merged
+    bin's words with changed suffixes, the odd word (stored, yet its own bin
+    is empty, so it misses), random words and invalid windows; the fixed
+    `probe_iters` trip count ends where an unbounded loop does."""
+    from utree_tpu.hash_index import _rc64
+    from utree_tpu.search_host import lookup_words
+    from utree_tpu_torch.hash_index import bsearch_to_device
+
+    index, words, rng = _abnormal_index()
+    q = np.concatenate([words, words[1:40] ^ rng.integers(0, 1 << 12, 39, dtype=np.uint64),
+                        _rc64(rng.choice(words, 500)),
+                        rng.integers(0, 1 << 64, 500, dtype=np.uint64)])
+    valid = rng.random(len(q)) < 0.95
+    valid[0] = True
+    qpre, qhi, qlo = _lanes(q)
+    j = np.asarray(jl.lookup_kmers(index.device_put(), qpre, qhi, qlo, valid,
+                                   index.probe_iters, BAD))
+    tt = bsearch_to_device(index, "cpu")
+    args = (_t(qpre), _t(qhi), _t(qlo), torch.from_numpy(valid))
+    t = _np(tl.lookup_kmers(tt, *args, index.probe_iters, BAD))
+    assert t.dtype == np.int32 and np.array_equal(j, t)
+    assert np.array_equal(t, _np(tl.lookup_kmers(tt, *args, 40, BAD)))
+    host = lookup_words(index.host_index(), q)
+    assert np.array_equal(np.where(valid, host, BAD), t)
+    assert t[0] == BAD and (t[1:len(words)][valid[1:len(words)]] != BAD).all()
+
+
+@pytest.mark.parametrize("do_rc", [True, False])
+def test_bsearch_window_ids_match_jax(tier, do_rc):
+    """_packed_window_ix's replay branch on packed reads with the true_len
+    trim: with RC the arithmetic RC words follow the forward words."""
+    from utree_tpu_torch.hash_index import bsearch_to_device
+
+    index = tier["index"]
+    reads, lens = _reads(tier["genome"], 96, seed=12, width=256)
+    packed, vbits, lens = tl.pack_reads_host(reads, lens)
+    kw = dict(do_rc=do_rc, bad_ix=BAD, true_len=152, num_labels=64,
+              probe_iters=index.probe_iters)
+    j = jl._packed_window_ix(index.device_put(), packed, vbits, lens, k=32, **kw)
+    pt = [torch.from_numpy(a) for a in (packed, vbits, lens)]
+    t = tl.window_ids(bsearch_to_device(index, "cpu"), *pt, **kw)
+    assert t.shape == ((96, 242) if do_rc else (96, 121))
+    assert np.array_equal(np.asarray(j), _np(t)) and (_np(t) < 64).sum() > 1000
+    if do_rc:  # [fwd | rc]: the first half is the forward-only run
+        fwd = tl.window_ids(bsearch_to_device(index, "cpu"), *pt,
+                            **{**kw, "do_rc": False})
+        assert torch.equal(t[:, :121], fwd)
+
+
+@pytest.mark.parametrize("step", ["vote", "packed", "unpacked"])
+def test_bsearch_steps_match_jax(tier, step):
+    """The three packed steps over the CTR records, as the JAX pipeline
+    composes them for bsearch: device vote, packed and unpacked rows."""
+    from utree_tpu.classify_device import build_aufbau_tables
+    from utree_tpu_torch.classify_device import aufbau_tables_to_device
+    from utree_tpu_torch.hash_index import bsearch_to_device
+
+    index = tier["index"]
+    reads, lens = _reads(tier["genome"], 128, seed=13)
+    packed, vbits, lens = tl.pack_reads_host(reads, lens)
+    kw = dict(do_rc=True, bad_ix=BAD, num_labels=64, cap=4, true_len=152,
+              probe_iters=index.probe_iters)
+    jt, tt = index.device_put(), bsearch_to_device(index, "cpu")
+    if step == "vote":
+        tab = build_aufbau_tables(index.strings)
+        kw.update(taxacut=index.config.taxacut, max_iters=(tab.max_len + 4) * 6 + 16)
+        jt = {**jt, **{"vt_" + k: v for k, v in tab.device_put().items()}}
+        tt = {**tt, **{"vt_" + k: v for k, v in aufbau_tables_to_device(tab, "cpu").items()}}
+    name = {"vote": "search_step_vote_compact", "packed": "search_step_hist_packed",
+            "unpacked": "search_step_hist_packed_in"}[step]
+    j = getattr(jl, name)(jt, packed, vbits, lens, k=32, **kw)
+    t = getattr(tl, name)(tt, *(torch.from_numpy(a) for a in (packed, vbits, lens)), **kw)
+    assert np.array_equal(np.asarray(j).reshape(_np(t).shape), _np(t))

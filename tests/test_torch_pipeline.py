@@ -179,13 +179,30 @@ def test_cuda_device_without_gpu_raises(db):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(lookup_mode="hash"),
-    dict(lookup_mode="bsearch"), dict(lookup_mode="routed"),
+    dict(lookup_mode="hash"), dict(lookup_mode="routed"),
     dict(devices=2), dict(support_ranges=8),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_modes_raise(db, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         SearchPipeline(db["index"], device="cpu", **kw)
+
+
+def test_explicit_lookup_mode_never_degrades(db):
+    """The port's mirror of tests/test_device_pipeline.py's test of that
+    name: PACKSIZE=64 has no bsearch replay, so an explicit bsearch raises
+    ValueError in both pipelines rather than taking another table."""
+    from chip_smoke import index64
+
+    rng = np.random.default_rng(3)
+    words = np.zeros(400, [("hi", "<u8"), ("lo", "<u8")])
+    words["hi"] = np.sort(rng.integers(0, 1 << 64, 400, dtype=np.uint64))
+    words["lo"] = rng.integers(0, 1 << 64, 400, dtype=np.uint64)
+    idx64 = index64(words, rng.integers(0, 9, 400), [b"l%d" % i for i in range(9)])
+    for make in (lambda: JaxPipeline(idx64, lookup_mode="bsearch", batch_size=8),
+                 lambda: SearchPipeline(idx64, device="cpu", lookup_mode="bsearch",
+                                        batch_size=8)):
+        with pytest.raises(ValueError, match="unsupported for PACKSIZE=64"):
+            make()
 
 
 def test_long_read_raises(db, tmp_path):
@@ -211,7 +228,8 @@ def test_long_read_raises(db, tmp_path):
 
 def test_unsupported_databases_raise(db):
     """Wide labels (>= 65535) run now, on the ladder under `auto`, with the
-    unpacked histogram rows; PACKSIZE=64 is outside the ported slice."""
+    unpacked histogram rows; a PACKSIZE=64 config over 32-mer records
+    builds no 64-mer table and raises as the JAX pipeline does."""
     import dataclasses
 
     rng = np.random.default_rng(1)
@@ -224,5 +242,6 @@ def test_unsupported_databases_raise(db):
     assert pipe.table_kind == "canonical" and pipe.layout == "unpacked"
     assert pipe._table["c1"].shape[1] % 4 == 0
     k64 = dataclasses.replace(db["index"], config=UTreeConfig(packsize=64))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        SearchPipeline(k64, device="cpu")
+    for make in (lambda: JaxPipeline(k64), lambda: SearchPipeline(k64, device="cpu")):
+        with pytest.raises(RuntimeError, match="needs the canonical hash table"):
+            make()

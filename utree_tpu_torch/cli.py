@@ -2,7 +2,7 @@
 search branch):
 
   python -m utree_tpu_torch.cli search <db.ctr> <reads.fa> <out.txt>
-      [--rc] [--batch N] [--lookup-mode auto|canonical|displaced]
+      [--rc] [--batch N] [--lookup-mode auto|canonical|displaced|bsearch]
       [--resume] [--trace]
       [--device cuda|cpu]
 
@@ -58,9 +58,11 @@ def main(argv=None):
     s.add_argument("--rc", action="store_true", help="also scan reverse complement")
     s.add_argument("--batch", type=int, default=8192)
     s.add_argument("--lookup-mode", dest="lookup_mode", default="auto",
-                   choices=("auto", "canonical", "displaced"),
+                   choices=("auto", "canonical", "displaced", "bsearch"),
                    help="device table layout (auto = the canonical ladder "
-                        "below 80M records, the displaced table from 80M)")
+                        "below 80M records, the displaced table from 80M; "
+                        "bsearch = the exact replay over the CTR records, "
+                        "PACKSIZE=32 only)")
     s.add_argument("--resume", action="store_true",
                    help="resume an interrupted search from its .ckpt sidecar")
     s.add_argument("--trace", action="store_true",

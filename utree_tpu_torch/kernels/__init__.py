@@ -1,9 +1,12 @@
 """Hand-written Hopper kernels of the search step and their launch counts.
 
-Four kernels in eight entry points (sources in `utree_tpu_torch/csrc/`):
+Seven kernels in eleven entry points (sources in `utree_tpu_torch/csrc/`):
 
   K1 scan_probe[_wide]    packed reads -> ids, displaced table (lookup.window_ids)
   K4 ladder_probe[_wide]  packed reads -> ids, canonical ladder (lookup.window_ids)
+  K7 bsearch_probe        packed reads -> ids, bsearch replay  (lookup.window_ids)
+  K5 scan_probe64         ASCII reads -> ids, 64-mer displaced (lookup.window_ids64)
+  K6 ladder_probe64       ASCII reads -> ids, 64-mer ladder    (lookup.window_ids64)
   K2 histogram            ids -> compact histograms        (lookup.histogram)
      histogram_packed     ids -> (B, cap+1) packed rows    (lookup.histogram_packed)
      histogram_unpacked   ids -> (B, 2*cap+2) rows         (lookup.histogram_unpacked)
@@ -20,6 +23,7 @@ from __future__ import annotations
 from utree_tpu_torch.kernels.build import build, check, library
 
 KERNELS = ("scan_probe", "scan_probe_wide", "ladder_probe", "ladder_probe_wide",
+           "bsearch_probe", "scan_probe64", "ladder_probe64",
            "histogram", "histogram_packed", "histogram_unpacked", "aufbau_vote")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 

@@ -43,6 +43,15 @@ SIGNATURES = {
     "utree_scan_probe_wide": _SCAN,
     "utree_ladder_probe": _LADDER,
     "utree_ladder_probe_wide": _LADDER,
+    "utree_bsearch_probe": [P, P, P, I64, I64, I64, I32,
+                            P, P, P, P, I64,  # bin_ix, suf_hi, suf_lo, ix, n
+                            I32, I32, P, P],
+    # ASCII reads, lens, B, L, W; the tables as K1 / K4; do_rc, miss, out, stream
+    "utree_scan_probe64": [P, P, I64, I64, I32, P, I64, P, I64, P, I64, I32,
+                           I32, I32, P, P],
+    "utree_ladder_probe64": [P, P, I64, I64, I32,
+                             P, I64, I32, P, I64, I32, P, I64, I32,
+                             I32, I32, P, P],
     "utree_histogram": [P, I64, I32, I32, I32, P, P, P, P, P],
     "utree_histogram_packed": _HIST_ROWS,
     "utree_histogram_unpacked": _HIST_ROWS,

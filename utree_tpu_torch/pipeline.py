@@ -1,16 +1,23 @@
 """End-to-end GG search on one device: counterpart of `utree_tpu/pipeline.py`.
 
-  host:   the C++ FASTA scanner packs reads to 2 bits (shared native code);
+  host:   the C++ FASTA scanner packs reads to 2 bits (PACKSIZE=32) or to
+          an ASCII (B, L) matrix (PACKSIZE=64) (shared native code);
   device: one step per batch over the table `lookup_mode` resolves to, as
-          the JAX pipeline resolves it: the canonical ladder (K4
-          ladder_probe) below 80M records under `auto`, the displaced table
-          (K1 scan_probe) from 80M; `_wide` kernels for IXTYPE=u32 labels;
+          the JAX pipeline resolves it.  PACKSIZE=32: the canonical ladder
+          (K4 ladder_probe) below 80M records under `auto`, the displaced
+          table (K1 scan_probe) from 80M, `_wide` kernels for IXTYPE=u32
+          labels, and the bsearch replay over the CTR records (K7
+          bsearch_probe) when asked for or when `auto` finds neither table
+          fits a DB below 80M records.  PACKSIZE=64: the 64-mer ladder (K6
+          ladder_probe64) below 80M records, the 64-mer displaced table (K5
+          scan_probe64) from 80M or when asked for;
   readback, by the JAX pipeline's step choice:
-          narrow labels of <= 2047 chars: K2 histogram + K3 aufbau_vote,
-            12 B/read vote rows (lookup.search_step_vote_compact);
-          narrow labels of 2048+ chars: K2 histogram_packed, (B, cap+1)
-            rows voted by the shared C `VoteEngine.vote_packed`;
-          wide labels: K2 histogram_unpacked, (B, 2*cap+2) rows voted by
+          PACKSIZE=32, narrow labels of <= 2047 chars: K2 histogram + K3
+            aufbau_vote, 12 B/read vote rows (lookup.search_step_vote_compact);
+          PACKSIZE=32, narrow labels of 2048+ chars: K2 histogram_packed,
+            (B, cap+1) rows voted by the shared C `VoteEngine.vote_packed`;
+          wide labels, and PACKSIZE=64 at any label width: K2
+            histogram_unpacked, (B, 2*cap+2) rows voted by
             `VoteEngine.vote_batch_pooled`;
   host:   reads the device flagged (more unique labels than hist_cap, or
           fields too wide) are replayed exactly on the host; the shared C
@@ -27,9 +34,7 @@ JAX pipeline's in every layout.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
 item (nothing falls back silently): the modes in `_TODO`, `devices > 1`
-(A.9), PACKSIZE=64 (A.8), `support_ranges=8` (A.6), and a DB that fits
-neither device table, which the JAX pipeline serves by the bsearch replay
-(A.8).
+(A.9) and `support_ranges=8` (A.6).
 """
 
 from __future__ import annotations
@@ -42,21 +47,27 @@ import torch
 
 from utree_tpu.index import DeviceIndexArrays
 from utree_tpu_torch.lookup import (WIDE_LABELS, pack_reads_host,
+                                    search_step_hist,
                                     search_step_hist_packed,
                                     search_step_hist_packed_in,
                                     search_step_vote_compact)
 
 _TODO = {
     "hash": "the legacy two-table hash (ROADMAP A.8)",
-    "bsearch": "the bsearch replay (ROADMAP A.8)",
     "routed": "routed shards across GPUs (ROADMAP A.9)",
 }
-# `auto` table choice, as utree_tpu.pipeline resolves it for PACKSIZE=32:
-# the displaced table from this many records (the ladder below), and an
-# error from _HASH_AUTO_MAX on, where the JAX pipeline gives up on the
-# device tables.  Both were tuned on a TPU (ROADMAP A.11).
+_MODES = ("auto", "canonical", "displaced", "bsearch")
+# `auto` table choice, as utree_tpu.pipeline resolves it: the displaced
+# table from _DISPLACED_AUTO_MIN records (the ladder below); at PACKSIZE=32
+# the device tables only below _HASH_AUTO_MAX records, and the bsearch
+# replay never from _REPLAY_AUTO_MAX on.  All three were tuned on a TPU
+# (ROADMAP A.11).
 _DISPLACED_AUTO_MIN = 80_000_000
 _HASH_AUTO_MAX = 400_000_000
+_REPLAY_AUTO_MAX = 80_000_000
+_TABLE_KINDS = (("d1", "displaced"), ("c1", "canonical"),
+                ("c64_1", "canonical64"), ("d64_1", "displaced64"),
+                ("bin_ix", "bsearch"))
 
 
 def _bucket_len(n: int, minimum: int = 64) -> int:
@@ -105,20 +116,26 @@ class SearchPipeline:
             raise ValueError(
                 f"hist_cap={hist_cap} out of range: the packed device "
                 "histogram carries nuniq in 5 bits (valid caps are 1..30)")
+        if cfg.packsize == 64 and lookup_mode not in ("auto", "canonical", "displaced"):
+            # don't silently ignore an explicit table-layout request
+            raise ValueError(
+                f"--lookup-mode {lookup_mode!r} is unsupported for "
+                "PACKSIZE=64; device paths are the canonical hash and "
+                "the seeded-displacement table")
         if lookup_mode in _TODO:
             raise NotImplementedError(
                 f"--lookup-mode {lookup_mode}: {_TODO[lookup_mode]} is not "
-                "ported yet; use auto, canonical or displaced")
-        if lookup_mode not in ("auto", "canonical", "displaced"):
+                "ported yet; use " + ", ".join(_MODES))
+        if lookup_mode not in _MODES:
             raise ValueError(f"unknown lookup_mode {lookup_mode!r}")
         if devices is not None and devices > 1:
             raise NotImplementedError(
                 "devices > 1 (data parallel over GPUs) is not ported yet "
                 "(ROADMAP A.9)")
-        if cfg.packsize != 32:
+        if cfg.packsize not in (32, 64):
             raise NotImplementedError(
-                f"PACKSIZE={cfg.packsize}: only the 32-mer device path is "
-                "ported (PACKSIZE=64 is ROADMAP A.8)")
+                f"PACKSIZE={cfg.packsize}: the port runs the 32-mer and "
+                "64-mer device paths only")
         if support_ranges != 1:
             raise NotImplementedError(
                 "support_ranges=8 (per-rank SUPPORT;RANGE columns) is not "
@@ -142,15 +159,19 @@ class SearchPipeline:
         self.hist_cap = hist_cap
         self.lookup_mode = lookup_mode
         self.tracer = tracer
-        self.wide = index.num_labels >= WIDE_LABELS
+        # reads travel 2-bit packed at PACKSIZE=32 and as ASCII at 64; the
+        # u16-packed histogram lanes need narrow labels and packed input
+        # (utree_tpu/pipeline.py:314-315)
+        self._packed = cfg.packsize == 32
+        packed_out = self._packed and index.num_labels < WIDE_LABELS
         vtab = None
-        if not self.wide:
+        if packed_out:
             from utree_tpu.classify_device import build_aufbau_tables
 
             vtab = build_aufbau_tables(index.strings)
         # the readback layout (utree_tpu/pipeline.py:314-394): the device vote
         # needs u16 label lanes and labels that fit its 11-bit dv lane
-        if self.wide:
+        if not packed_out:
             self.layout = "unpacked"
         elif vtab.max_len <= 2047:
             self.layout = "vote"
@@ -158,16 +179,19 @@ class SearchPipeline:
             self.layout = "packed"
         if _table is None:
             _table = self._build_table(index, lookup_mode)
-        if "d1" not in _table and "c1" not in _table:
-            raise ValueError("_table must hold the displaced (d1/ds/d3) or "
-                             "the ladder (c1/c2/c3) table")
+        if not any(k in _table for k, _ in _TABLE_KINDS):
+            raise ValueError("_table must hold a device table: "
+                             + ", ".join(k for k, _ in _TABLE_KINDS))
         table = {k: v.to(self.device) for k, v in _table.items()}
-        kw = dict(do_rc=do_rc,
-                  # any miss sentinel >= num_labels is equivalent (the
-                  # histogram only tests ix < num_labels); keep it inside int32
-                  bad_ix=min(cfg.bad_ix, 0x7FFFFFFF),
+        # any miss sentinel >= num_labels is equivalent (the histogram only
+        # tests ix < num_labels); keep it inside int32
+        kw = dict(do_rc=do_rc, bad_ix=min(cfg.bad_ix, 0x7FFFFFFF),
                   num_labels=index.num_labels, cap=hist_cap)
-        hist = search_step_hist_packed_in if self.wide else search_step_hist_packed
+        if not self._packed:
+            hist = search_step_hist
+        else:
+            kw["probe_iters"] = index.probe_iters
+            hist = search_step_hist_packed if packed_out else search_step_hist_packed_in
         # long-read chunks need per-chunk histograms, merged on the host
         # before one vote, whatever the main step returns
         self._step_hist = functools.partial(hist, **kw)
@@ -187,44 +211,77 @@ class SearchPipeline:
 
     def _build_table(self, index: DeviceIndexArrays, mode: str) -> dict:
         """The device table `mode` resolves to, as utree_tpu/pipeline.py:180-288
-        resolves it for PACKSIZE=32; the shared numpy code places it."""
-        from utree_tpu.hash_index import (build_canonical_hash_index,
-                                          build_displaced_index)
-        from utree_tpu_torch.hash_index import (canonical_to_device,
-                                                displaced_to_device)
+        resolves it, with its exception types and messages; the shared numpy
+        code places the hash tables."""
+        from utree_tpu_torch import hash_index as hi
 
         n = index.num_records
-        if mode == "auto" and n >= _HASH_AUTO_MAX:
-            raise RuntimeError(
-                f"this DB ({n:,} records) exceeds the single-device table "
-                "ceiling; the routed shards and the bsearch replay that serve "
-                "it are not ported yet (ROADMAP A.8, A.9)")
-        if mode == "displaced" or (mode == "auto" and n >= _DISPLACED_AUTO_MIN):
+        want_displaced = mode == "displaced" or (
+            mode == "auto" and n >= _DISPLACED_AUTO_MIN)
+        if index.config.packsize == 64:
+            from utree_tpu.hash_index64 import (build_canonical_hash_index64,
+                                                build_displaced_index64)
+
+            if want_displaced:
+                try:
+                    return hi.displaced64_to_device(build_displaced_index64(index),
+                                                    self.device)
+                except (ValueError, RuntimeError) as e:
+                    if mode == "displaced":
+                        raise RuntimeError(
+                            f"--lookup-mode displaced cannot be honored: {e}") from e
             try:
-                return displaced_to_device(build_displaced_index(index), self.device)
+                return hi.canonical64_to_device(build_canonical_hash_index64(index),
+                                                self.device)
             except (ValueError, RuntimeError) as e:
-                if mode == "displaced":
+                raise RuntimeError(
+                    "PACKSIZE=64 device search needs the canonical hash "
+                    f"table, which this DB cannot build ({e}); use the "
+                    "host path (search --host)") from e
+        from utree_tpu.hash_index import (build_canonical_hash_index,
+                                          build_displaced_index)
+
+        if mode in ("canonical", "displaced") or (
+                mode == "auto" and n < _HASH_AUTO_MAX):
+            if want_displaced:
+                try:
+                    return hi.displaced_to_device(build_displaced_index(index),
+                                                  self.device)
+                except (ValueError, RuntimeError) as e:
+                    if mode == "displaced":
+                        raise RuntimeError(
+                            f"--lookup-mode displaced cannot be honored: {e}") from e
+            try:
+                return hi.canonical_to_device(build_canonical_hash_index(index),
+                                              self.device)
+            except (ValueError, RuntimeError) as e:
+                if mode == "canonical":
                     raise RuntimeError(
-                        f"--lookup-mode displaced cannot be honored: {e}") from e
-        try:
-            return canonical_to_device(build_canonical_hash_index(index), self.device)
-        except (ValueError, RuntimeError) as e:
-            if mode == "canonical":
-                raise RuntimeError(
-                    f"--lookup-mode canonical cannot be honored: {e}") from e
-            if n >= _DISPLACED_AUTO_MIN:
-                raise RuntimeError(
-                    f"this DB ({n:,} records) fits no single-device table "
-                    f"({e}); the routed shards that serve it are not ported "
-                    "yet (ROADMAP A.9)") from e
-            raise NotImplementedError(
-                f"this DB fits neither device table ({e}); the bsearch replay "
-                "the JAX pipeline falls back to is not ported yet "
-                "(ROADMAP A.8)") from e
+                        f"--lookup-mode canonical cannot be honored: {e}") from e
+                # neither device table fits: only a DB below the replay
+                # ceiling may quietly take the bsearch replay
+                if n >= _REPLAY_AUTO_MAX:
+                    raise RuntimeError(
+                        f"this DB ({n:,} records) fits no single-chip device "
+                        f"table ({e}); shard it across chips with --devices N "
+                        "--lookup-mode routed, or force the ~15x-slower replay "
+                        "explicitly with --lookup-mode bsearch") from e
+                return hi.bsearch_to_device(index, self.device)
+        # explicit --lookup-mode bsearch, or auto beyond the device tables'
+        # ceiling, which must not be served at replay speed without asking
+        if mode == "auto" and n >= _REPLAY_AUTO_MAX:
+            raise RuntimeError(
+                f"this DB ({n:,} records) exceeds the single-chip device-table "
+                "ceiling; shard it across chips with --devices N --lookup-mode "
+                "routed, or force the ~15x-slower replay explicitly with "
+                "--lookup-mode bsearch")
+        return hi.bsearch_to_device(index, self.device)
 
     @property
     def table_kind(self) -> str:
-        return "displaced" if "d1" in self._table else "canonical"
+        """'displaced', 'canonical', 'canonical64', 'displaced64' or
+        'bsearch', as utree_tpu.pipeline names the table it resolved to."""
+        return next(kind for key, kind in _TABLE_KINDS if key in self._table)
 
     # ---- device dispatch -------------------------------------------------
 
@@ -233,6 +290,16 @@ class SearchPipeline:
         if self.device.type == "cpu":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _readback(self, rows: torch.Tensor) -> _Readback:
+        """Start the copy of a batch's rows to the host."""
+        if self.device.type == "cpu":
+            return _Readback(rows)
+        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+        host.copy_(rows, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return _Readback(host, event)
 
     def dispatch_packed(self, packed: np.ndarray, vbits: np.ndarray,
                         lens: np.ndarray, step=None) -> _Readback:
@@ -243,22 +310,29 @@ class SearchPipeline:
         k = self.index.config.packsize
         tl = int(lens.max()) if len(lens) else k
         tl = min(max(k, (tl + 7) & ~7), packed.shape[1] * 4)
-        rows = (step or self._step)(
+        return self._readback((step or self._step)(
             self._table, self._to_device(packed), self._to_device(vbits),
-            self._to_device(lens.astype(np.int32)), true_len=tl)
-        if self.device.type == "cpu":
-            return _Readback(rows)
-        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-        host.copy_(rows, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return _Readback(host, event)
+            self._to_device(lens.astype(np.int32)), true_len=tl))
+
+    def dispatch_matrix(self, reads: np.ndarray, lengths: np.ndarray,
+                        step=None) -> _Readback:
+        """Dispatch an ASCII (B, L) batch: 2-bit packed on the host at
+        PACKSIZE=32, as ASCII at PACKSIZE=64, whose step reads all L - 63
+        windows (utree_tpu/pipeline.py:468-480)."""
+        if self._packed:
+            if reads.shape[1] % 8:
+                reads = np.pad(reads, ((0, 0), (0, 8 - reads.shape[1] % 8)))
+            return self.dispatch_packed(*pack_reads_host(reads, lengths), step=step)
+        return self._readback((step or self._step)(
+            self._table, self._to_device(reads),
+            self._to_device(lengths.astype(np.int32))))
 
     # ---- host-side exact replay of flagged reads ---------------------------
 
     def _host_hits(self, seq: bytes) -> np.ndarray:
         """Every hit label id of one read (forward + RC when do_rc), by the
-        exact xtSuffixBS replay on the host arrays (itree.c:699-730)."""
+        exact xtSuffixBS replay on the host arrays (itree.c:699-730); the
+        104-bit suffixes of PACKSIZE=64 go through `search_host.lookup_words`."""
         from utree_tpu.encode import search_window_words
 
         cfg = self.index.config
@@ -266,6 +340,13 @@ class SearchPipeline:
         if len(words) == 0:
             return np.zeros(0, np.int64)
         idx = self.index
+        if idx.s_hi64 is not None:  # PACKSIZE=64: the host index's replay
+            from utree_tpu.search_host import lookup_words
+
+            if not hasattr(self, "_hidx"):
+                self._hidx = idx.host_index()
+            ixs = lookup_words(self._hidx, words)
+            return ixs[ixs < idx.num_labels]
         suffixes = ((idx.suf_hi[:-1].astype(np.uint64) << np.uint64(32))
                     | idx.suf_lo[:-1].astype(np.uint32).astype(np.uint64))
         qpre = (words >> np.uint64(cfg.ctr_suffix_bits)).astype(np.int64)
@@ -335,7 +416,7 @@ class SearchPipeline:
 
     def _vote_unpacked(self, count, name_pool, name_offsets, handle,
                        seq_of) -> bytes:
-        """(B, 2*cap+2) rows (wide labels) flattened to a CSR, with over-cap
+        """(B, 2*cap+2) rows (wide labels or PACKSIZE=64) flattened to a CSR, with over-cap
         reads replayed on the host, then voted and formatted in C."""
         labels, counts, nuniq, _ = self._unpack(self._wait_rows(handle)[:count])
         cap = self.hist_cap
@@ -374,7 +455,7 @@ class SearchPipeline:
         """Histogram rows (either layout) -> labels, counts (B, cap), nuniq,
         found (B,), as utree_tpu.pipeline._unpack."""
         cap = self.hist_cap
-        if self.wide:
+        if self.layout == "unpacked":
             return arr[:, :cap], arr[:, cap:2 * cap], arr[:, 2 * cap], arr[:, 2 * cap + 1]
         u = arr.view(np.uint32)
         lc = u[:, :cap]
@@ -397,10 +478,7 @@ class SearchPipeline:
         num_chunks = max(1, -(-max(0, len(seq) - k + 1) // self.long_chunk))
         num_chunks = _bucket_len(num_chunks, minimum=1)
         chunks, lens = split_long_read(seq, num_chunks, k)
-        if chunks.shape[1] % 8:
-            chunks = np.pad(chunks, ((0, 0), (0, 8 - chunks.shape[1] % 8)))
-        handle = self.dispatch_packed(*pack_reads_host(chunks, lens),
-                                      step=self._step_hist)
+        handle = self.dispatch_matrix(chunks, lens, step=self._step_hist)
         labels, counts, nuniq, _ = self._unpack(self._wait_rows(handle))
         cap = self.hist_cap
         agg: dict[int, int] = {}
@@ -494,19 +572,24 @@ class SearchPipeline:
                 with tm.phase("pack"):
                     pools, offs = [], []
                     row = shift = 0
-                    packed = np.zeros((self.batch_size, lmax // 4), np.uint8)
-                    vbits = np.zeros((self.batch_size, lmax // 8), np.uint8)
+                    # 2-bit packing (PACKSIZE=32) or the ASCII matrix, in C++
+                    if self._packed:
+                        arrays = (np.zeros((self.batch_size, lmax // 4), np.uint8),
+                                  np.zeros((self.batch_size, lmax // 8), np.uint8))
+                    else:
+                        arrays = (np.zeros((self.batch_size, lmax), np.uint8),)
+                    pack = "pack_2bit" if self._packed else "pack"
                     lens = np.zeros(self.batch_size, np.int32)
                     for sc, start, count in spans:
-                        p2, v2, l2, npool, noffs = sc.pack_2bit(start, count, lmax)
-                        packed[row:row + count] = p2
-                        vbits[row:row + count] = v2
+                        *mats, l2, npool, noffs = getattr(sc, pack)(start, count, lmax)
+                        for dst, src in zip(arrays, mats):
+                            dst[row:row + count] = src
                         lens[row:row + count] = l2[:count]
                         pools.append(npool)
                         offs.append(noffs[:-1] + shift)
                         shift += len(npool)
                         row += count
-                    item = ("batch", spans, acc, (packed, vbits, lens),
+                    item = ("batch", spans, acc, (*arrays, lens),
                             b"".join(pools), np.concatenate(offs))
                 spans, acc, maxlen = [], 0, 0
                 return item
@@ -597,7 +680,10 @@ class SearchPipeline:
                     continue
                 _, spans, count, arrays, npool, noffs = item
                 with tm.phase("dispatch"):
-                    handle = self.dispatch_packed(*arrays)
+                    if self._packed:
+                        handle = self.dispatch_packed(*arrays)
+                    else:
+                        handle = self.dispatch_matrix(*arrays)
                 pending.append((spans, count, handle, npool, noffs))
                 drain(block=False)
             drain(block=True)

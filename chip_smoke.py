@@ -13,11 +13,12 @@ Phases; each passes or the script exits non-zero:
    reads of 150 bp, RC, hist_cap 8) on the phase-4 table; equality is exact
    (torch.equal: every output is an integer); both times from CUDA events;
 4. end to end: GG search with RC through SearchPipeline(device="cuda") over
-   bench.py's synthetic tier (--kmers k-mers, 4096 labels, displaced table
-   cached in .bench_cache/) and --reads reads of 150 bp written as bench.py
-   writes them;
-5. check: the first 2048 reads through utree_tpu.search_host (the exact host
-   path) must give the same bytes as the port's lines for them;
+   the synthetic tier of bench.py's recipe (`make_tier`: --kmers k-mers,
+   4096 labels, displaced table cached in .bench_cache/) and --reads reads
+   of 150 bp written as bench.py writes them;
+5. check: the first 2048 reads through utree_tpu_torch.search_host (the
+   port's exact host path) must give the same bytes as the port's lines for
+   them;
 6. ladder: the same tier under lookup_mode="auto" with no table given, which
    must resolve to the canonical ladder (below 80M records); its geometry
    and build time; K4 ladder_probe against its plain version; the reads end
@@ -30,7 +31,7 @@ Phases; each passes or the script exits non-zero:
 8. long reads: on the phase-6 ladder, 8192 short reads mixed with 16 long
    reads of 20 kbp to 1 Mbp (about 4.3 Mbp, 1% mutation); K2
    histogram_packed against pack_hist at the largest read's chunk shape;
-   the whole output must equal utree_tpu.search_host's; reads/s and bases/s;
+   the whole output must equal the host path's; reads/s and bases/s;
 9. PACKSIZE=64 + IXTYPE=u32 (BASELINE config 4): bench's recipe at k=64
    (--kmers 64-mers, 70,000 labels); `auto` must resolve to the 64-mer
    ladder and lookup_mode="displaced" gives the 64-mer displaced table; for
@@ -38,15 +39,25 @@ Phases; each passes or the script exits non-zero:
    against their plain versions at B=65536 ASCII reads, the reads end to end
    twice and the host check; the two outputs must be byte-identical; 2048
    short and 4 long reads (20-200 kbp) through the ladder, whose whole
-   output must equal utree_tpu.search_host's;
+   output must equal the host path's;
 10. bsearch: the phase-4 tier under lookup_mode="bsearch"; K7 bsearch_probe
    against its plain version at phase 3's shapes; the reads end to end
-   twice; the output must equal phase 4's byte for byte.
+   twice; the output must equal phase 4's byte for byte;
+11. compact readback: K8 hist_compact against its plain version on phase
+   3's batch, and its time on 1024 of those rows; on the phase-4 tier (displaced table, RC) with the first
+   131,072 reads: support_ranges=8 twice through the compact layout (K1,
+   K2 histogram_packed, K8), its first 2048 reads equal to the host path at
+   support 8 and every line's first five fields equal to phase 4's; the
+   same with a 64-row overflow block, which redispatches every batch, byte
+   for byte; support_ranges=1 with device_vote=False (compact rows, the C
+   vote), whose output must equal phase 4's byte for byte.
 
-Every path run (phases 4, 6-10) starts with every launch count at 0 and
+Every path run (phases 4, 6-11) starts with every launch count at 0 and
 reads them just after; each kernel its path needs must have launched.
 Prints the card line, a {"kernels": [...]} JSON line and, last, the
-{"ok": true, "device": {...}} line.  Imports no JAX.
+{"ok": true, "device": {...}} line.  Imports nothing of JAX or of the JAX
+package: the tier recipe, the table cache and the host oracle are the
+port's own.
 """
 
 from __future__ import annotations
@@ -67,6 +78,9 @@ WIDE_LABELS = 70_000
 WIDE_DISPLACED_KMERS = 2_000_000
 HIST_CAP = 8
 CHECK_READS = 2048
+COMPACT_READS = 131_072  # phase 11's reads
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
+SECTOR = 32  # bytes of one device-memory sector
 LONG_SHORT_READS = 8192
 LONG_READS = 16
 LONG_BP = (20_000, 1_000_000)  # shortest and longest long read
@@ -111,19 +125,45 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def check_kernel(name, source, replaces, kernel, plain, what: str) -> dict:
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (each read or written once)."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def windows(lens, k: int) -> int:
+    """Windows of k bases in reads of these lengths (the reads hold no N)."""
+    return int((lens.long() - (k - 1)).clamp(min=0).sum())
+
+
+def probe_bytes(packed, vbits, lens, ids, k: int, sectors: int) -> int:
+    """A probe's bytes: the packed reads in, the ids out, and `sectors` 32 B
+    sectors of table rows for each valid window of k bases (one row a
+    window at 24 or 32 B, two at 48 B; the bsearch replay's words read a
+    bin offset and one record)."""
+    return nbytes(packed, vbits, lens, ids) + SECTOR * sectors * windows(lens, k)
+
+
+def check_kernel(name, source, replaces, kernel, plain, what: str, moved: int) -> dict:
     """One entry point against its plain version; both timed with CUDA
-    events.  Returns its row of the kernels line."""
+    events.  `moved` is the bytes the function must move on these inputs
+    (inputs read once, outputs written once, one sector per table row or
+    record a valid window needs); its time at the card's memory rate is the
+    row's bound.  The work is integer compares and adds, a few per byte, far
+    under the card's operation rates, so bytes bound every kernel.  No
+    single PyTorch call computes any of these functions: library_ms is
+    null.  Returns its row of the kernels line."""
     got, want = kernel(), plain()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = max_abs_err(got, want)
     ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
     log(f"kernel {name}: equal to plain at {what}; {ms:.4f} ms vs plain "
-        f"{plain_ms:.4f} ms")
+        f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({moved:,} bytes)")
     return {"name": name, "route": "cuda", "source": f"utree_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def drive(path: str, expect, fn):
@@ -183,7 +223,7 @@ def batch_tensors(dev, reads):
 
 def e2e(pipe, reads_fa, out_txt, nreads: int, path: str, expect, passes: int = 2):
     """`passes` timed runs of search_file; returns the best reads/s."""
-    from utree_tpu.utils.trace import PhaseTimer
+    from utree_tpu_torch.utils.trace import PhaseTimer
 
     best = 0.0
     for p in range(passes):
@@ -201,10 +241,11 @@ def e2e(pipe, reads_fa, out_txt, nreads: int, path: str, expect, passes: int = 2
     return best
 
 
-def host_check(host_index, reads, out_txt, work: pathlib.Path, tag: str) -> None:
+def host_check(host_index, reads, out_txt, work: pathlib.Path, tag: str,
+               support_ranges: int = 1) -> None:
     """The port's lines for the first CHECK_READS reads (named r<i>) must
-    equal utree_tpu.search_host's bytes for them."""
-    from utree_tpu.search_host import search_file as host_search_file
+    equal the exact host path's (utree_tpu_torch.search_host) bytes."""
+    from utree_tpu_torch.search_host import search_file as host_search_file
 
     port_lines = out_txt.read_bytes().splitlines(keepends=True)
     if not port_lines:
@@ -216,12 +257,13 @@ def host_check(host_index, reads, out_txt, work: pathlib.Path, tag: str) -> None
         head.append(ln)
     sub_fa, host_out = work / f"{tag}_check.fa", work / f"{tag}_host.txt"
     write_fasta(sub_fa, reads[:CHECK_READS])
-    host_search_file(host_index, str(sub_fa), str(host_out), do_rc=True)
+    host_search_file(host_index, str(sub_fa), str(host_out), do_rc=True,
+                     support_ranges=support_ranges)
     if host_out.read_bytes() != b"".join(head):
         fail(f"{tag}: the port's lines for the first {CHECK_READS} reads differ "
-             "from utree_tpu.search_host")
+             "from the host path's")
     log(f"{tag} check: first {CHECK_READS} reads ({len(head)} lines) "
-        "byte-identical to utree_tpu.search_host")
+        "byte-identical to the host path (search_host)")
 
 
 def phase_kernels(dev, table, reads, index, max_iters):
@@ -243,14 +285,15 @@ def phase_kernels(dev, table, reads, index, max_iters):
         check_kernel("scan_probe", "scan_probe.cu", "utree_tpu/lookup.py:887",
                      lambda: lookup.window_ids(table, packed, vbits, lens, **kw),
                      lambda: lookup.window_ids_plain(table, packed, vbits, lens, **kw),
-                     what),
+                     what, probe_bytes(packed, vbits, lens, ids, 32, 1)),
         check_kernel("histogram", "histogram.cu", "utree_tpu/lookup.py:621",
                      lambda: lookup.histogram(ids, L, HIST_CAP),
-                     lambda: lookup.compact_histogram(ids, L, HIST_CAP), what),
+                     lambda: lookup.compact_histogram(ids, L, HIST_CAP), what,
+                     nbytes(ids, *hist)),
         check_kernel("aufbau_vote", "aufbau.cu", "utree_tpu/classify_device.py:113",
                      lambda: vote_rows(vt, *hist, **vkw),
                      lambda: pack_vote(*aufbau_walk(vt, *hist, **vkw), hist[2], hist[3]),
-                     what),
+                     what, nbytes(*hist, *vt.values(), rows)),
     ]
     flags = int(((rows[:, 0].long() >> 24) & 1).sum())
     nuniq = hist[2].long()
@@ -279,10 +322,11 @@ def phase_ladder(dev, base: dict, work: pathlib.Path):
     packed, vbits, lens = batch_tensors(dev, reads)
     kw = dict(do_rc=True, bad_ix=0xFFFF, true_len=(READ_LEN + 7) & ~7,
               num_labels=index.num_labels)
+    ids = lookup.window_ids(t, packed, vbits, lens, **kw)
     row = check_kernel("ladder_probe", "ladder_probe.cu", "utree_tpu/lookup.py:349",
                        lambda: lookup.window_ids(t, packed, vbits, lens, **kw),
                        lambda: lookup.window_ids_plain(t, packed, vbits, lens, **kw),
-                       f"B={packed.shape[0]}")
+                       f"B={packed.shape[0]}", probe_bytes(packed, vbits, lens, ids, 32, 1))
     out_txt = work / "smoke_ladder.txt"
     rps = e2e(pipe, base["reads_fa"], out_txt, len(reads), "ladder e2e",
               ("ladder_probe", "histogram", "aufbau_vote"))
@@ -293,36 +337,88 @@ def phase_ladder(dev, base: dict, work: pathlib.Path):
     return pipe, row, {"reads_per_s": rps, "build_s": build_s, "geometry": geo}
 
 
-def u32_index(words, ixs, strings):
-    """DeviceIndexArrays.from_build of an IXTYPE=u32 DB.  utree_tpu.index
-    fills its sentinel record with np.full(n + 1, cfg.bad_ix, np.int32):
-    NumPy 2.0 wraps 2^32-1 to -1, newer NumPy raises OverflowError.  So the
-    index is built under the u16 config, the sentinel set to the -1 the u32
-    build gives, and the config re-tagged (no lookup reads the sentinel's
-    id, and nothing else in the index depends on IXTYPE)."""
-    import dataclasses
-
-    from utree_tpu.config import UTreeConfig
-    from utree_tpu.index import DeviceIndexArrays
-
-    index = DeviceIndexArrays.from_build(words, ixs, strings, UTreeConfig())
-    index.ix[-1] = -1
-    return dataclasses.replace(index, config=UTreeConfig(ixtype_bytes=4))
+def tier_labels(rng, labels: int) -> list[bytes]:
+    """bench.py's region labels (8 ranks of a 4-letter token and the region
+    number mod 97), drawn from `rng` as bench.py draws them.  bench.py makes
+    its tokens' bytes from an int64 array, so its labels carry NUL bytes,
+    which the C formatter reads as terminators and the Python host path does
+    not; they are stripped here, so that every path sees the same strings."""
+    ranks = b"kpcofgst"
+    out = []
+    for i in range(labels):
+        tok = bytes(97 + rng.integers(0, 26, size=4))  # int64 bytes, as bench.py
+        out.append(b";".join(ranks[d:d + 1] + b"__" + tok + str(i % 97).encode()
+                             for d in range(8)).replace(b"\x00", b""))
+    return out
 
 
-def index64(words, ixs, strings, ixtype_bytes: int = 4):
-    """DeviceIndexArrays.from_build of a PACKSIZE=64 DB (IXTYPE=u32 unless
-    asked) from sorted, de-duplicated W128 words.  The shared 64-mer table builders
-    raise OverflowError when the lowest populated prefix bin holds a single
-    record whose suffix is not below the next bin's first one (ROADMAP §C):
-    the reference folds that record into the next bin, and the builders'
-    slow path for the unsorted bin this makes shifts an np.int64 by 104
-    bits.  So while the lowest bin holds one such record, that k-mer is
-    dropped from the DB; reads that hit it then miss in every path alike."""
+def tier_kmers(kmers: int, labels: int):
+    """bench.py's synthetic tier (its make_tier_index recipe): a genome of
+    kmers+31 bases (rng seed 0), its dense 32-mer set sorted and
+    de-duplicated, `labels` contiguous regions of one label each (a read
+    hits about one label, two near a border).  Returns (sorted words, their
+    label ids, genome, rng); the rng draws tier_labels next."""
     import numpy as np
 
-    from utree_tpu.config import UTreeConfig
-    from utree_tpu.index import DeviceIndexArrays
+    from utree_tpu_torch.encode import sample_build_kmers
+
+    rng = np.random.default_rng(0)
+    genome = rng.choice(np.frombuffer(ACGT, np.uint8), size=kmers + 31).astype(np.uint8)
+    words = sample_build_kmers(genome.tobytes(), 32, 0)
+    pos_labels = (np.arange(len(words), dtype=np.int64) * labels) // len(words)
+    order = np.argsort(words, kind="stable")
+    sw = words[order]
+    keep = np.ones(len(sw), bool)
+    keep[1:] = sw[1:] != sw[:-1]
+    return sw[keep], pos_labels[order][keep], genome, rng
+
+
+def make_tier(kmers: int, labels: int, ixtype_bytes: int = 2):
+    """The tier of tier_kmers as an index (IXTYPE=u32 for wide labels).
+    Returns (index, genome, rng)."""
+    from utree_tpu_torch.config import UTreeConfig
+    from utree_tpu_torch.index import DeviceIndexArrays
+
+    sw, ixs, genome, rng = tier_kmers(kmers, labels)
+    index = DeviceIndexArrays.from_build(sw, ixs, tier_labels(rng, labels),
+                                         UTreeConfig(ixtype_bytes=ixtype_bytes))
+    return index, genome, rng
+
+
+def load_or_build_displaced(index, kmers: int, labels: int, cache: pathlib.Path):
+    """The tier's displaced table (hash_index.build_displaced_index), loaded
+    from its npz cache or placed and cached (bench.py's cache: same file
+    name and fields)."""
+    import numpy as np
+
+    from utree_tpu_torch.hash_index import DisplacedHashArrays, build_displaced_index
+
+    f = cache / f"disp_{kmers}_{labels}.npz"
+    if f.exists():
+        z = np.load(f)
+        log(f"displaced table loaded from {f}")
+        return DisplacedHashArrays(t1=z["t1"], seeds=z["seeds"], t3=z["t3"],
+                                   slots3=int(z["slots3"]), num_entries=int(z["ne"]),
+                                   wide=bool(z["wide"]))
+    t = time.perf_counter()
+    disp = build_displaced_index(index)
+    log(f"displaced placement took {time.perf_counter() - t:.1f} s")
+    cache.mkdir(parents=True, exist_ok=True)
+    np.savez(f, t1=disp.t1, seeds=disp.seeds, t3=disp.t3, slots3=disp.slots3,
+             ne=disp.num_entries, wide=disp.wide)
+    return disp
+
+
+def lowest_bin_drop(words) -> int:
+    """How many of the first sorted, de-duplicated W128 words index64 drops.
+    The 64-mer table builders (the port's and the JAX package's alike) raise
+    OverflowError when the lowest populated prefix bin holds a single record
+    whose suffix is not below the next bin's first one (ROADMAP §C): the
+    reference folds that record into the next bin, and the builders' slow
+    path for the unsorted bin this makes shifts an np.int64 by 104 bits.  So
+    while the lowest bin holds one such record, that k-mer is dropped from
+    the DB; reads that hit it then miss in every path alike."""
+    import numpy as np
 
     hi, lo = words["hi"], words["lo"]
     pre, suf = hi >> np.uint64(40), hi & np.uint64((1 << 40) - 1)
@@ -330,22 +426,33 @@ def index64(words, ixs, strings, ixtype_bytes: int = 4):
     while (len(words) - drop > 1 and pre[drop] != pre[drop + 1]
            and (suf[drop], lo[drop]) >= (suf[drop + 1], lo[drop + 1])):
         log(f"tier64: dropped k-mer {drop} (alone in prefix bin {int(pre[drop])}, "
-            "it would unsort the next bin), working around the shared "
+            "it would unsort the next bin), working around the 64-mer "
             "builders' fault, ROADMAP §C")
         drop += 1
+    return drop
+
+
+def index64(words, ixs, strings, ixtype_bytes: int = 4):
+    """DeviceIndexArrays.from_build of a PACKSIZE=64 DB (IXTYPE=u32 unless
+    asked) from sorted, de-duplicated W128 words, less the lowest_bin_drop
+    first ones."""
+    from utree_tpu_torch.config import UTreeConfig
+    from utree_tpu_torch.index import DeviceIndexArrays
+
+    drop = lowest_bin_drop(words)
     return DeviceIndexArrays.from_build(
         words[drop:], ixs[drop:], strings,
         UTreeConfig(packsize=64, ixtype_bytes=ixtype_bytes))
 
 
 def tier64(kmers: int, labels: int):
-    """bench.make_tier_index's recipe at k=64 (BASELINE config 4): a genome
+    """bench.py's tier recipe at k=64 (BASELINE config 4): a genome
     of kmers+63 bases (rng seed 0), its dense 64-mer set sorted and
     de-duplicated, `labels` region labels with NUL bytes stripped, as an
     IXTYPE=u32 index (index64).  Returns (index, genome, rng)."""
     import numpy as np
 
-    from utree_tpu.encode import sample_build_kmers
+    from utree_tpu_torch.encode import sample_build_kmers
 
     rng = np.random.default_rng(0)
     genome = rng.choice(np.frombuffer(ACGT, np.uint8), size=kmers + 63).astype(np.uint8)
@@ -355,24 +462,8 @@ def tier64(kmers: int, labels: int):
     sw = words[order]
     keep = np.ones(len(sw), bool)
     keep[1:] = (sw["hi"][1:] != sw["hi"][:-1]) | (sw["lo"][1:] != sw["lo"][:-1])
-    ranks = b"kpcofgst"
-    strings = []
-    for i in range(labels):
-        tok = bytes(97 + rng.integers(0, 26, size=4))  # as bench: int64 bytes
-        strings.append(b";".join(ranks[d:d + 1] + b"__" + tok + str(i % 97).encode()
-                                 for d in range(8)).replace(b"\x00", b""))
-    return index64(sw[keep], pos_labels[order][keep], strings), genome, rng
-
-
-def wide_tier(kmers: int):
-    """bench's tier with WIDE_LABELS labels, rebuilt as an IXTYPE=u32 index
-    (bench's config is u16, whose bad_ix would collide with a label id);
-    NUL bytes stripped as in phase 4."""
-    import bench
-
-    _, sw, ixs, labels, genome, _cfg, rng = bench.make_tier_index(kmers, WIDE_LABELS)
-    strings = [s.replace(b"\x00", b"") for s in labels]
-    return u32_index(sw, ixs, strings), genome, rng
+    return (index64(sw[keep], pos_labels[order][keep], tier_labels(rng, labels)),
+            genome, rng)
 
 
 def phase_wide(dev, kmers: int, base: dict, work: pathlib.Path):
@@ -384,7 +475,7 @@ def phase_wide(dev, kmers: int, base: dict, work: pathlib.Path):
     rows, stats = [], {}
     for kind, n_kmers in (("ladder", kmers), ("displaced", WIDE_DISPLACED_KMERS)):
         t0 = time.perf_counter()
-        index, genome, rng = wide_tier(n_kmers)
+        index, genome, rng = make_tier(n_kmers, WIDE_LABELS, ixtype_bytes=4)
         pipe = SearchPipeline(index, device=dev, do_rc=True, batch_size=BATCH,
                               hist_cap=HIST_CAP,
                               lookup_mode="auto" if kind == "ladder" else "displaced")
@@ -411,16 +502,18 @@ def phase_wide(dev, kmers: int, base: dict, work: pathlib.Path):
             if kind == "ladder" else
             ("scan_probe_wide", "scan_probe.cu", "utree_tpu/lookup.py:887"))
         what = f"B={packed.shape[0]}, {L} labels"
+        ids = lookup.window_ids(t, packed, vbits, lens, **kw)
         rows.append(check_kernel(
             name, source, replaces,
             lambda: lookup.window_ids(t, packed, vbits, lens, **kw),
-            lambda: lookup.window_ids_plain(t, packed, vbits, lens, **kw), what))
+            lambda: lookup.window_ids_plain(t, packed, vbits, lens, **kw), what,
+            probe_bytes(packed, vbits, lens, ids, 32, 1)))
         if kind == "ladder":
-            ids = lookup.window_ids(t, packed, vbits, lens, **kw)
+            hist = lookup.histogram_unpacked(ids, L, HIST_CAP)
             rows.append(check_kernel(
                 "histogram_unpacked", "histogram.cu", "utree_tpu/lookup.py:820",
                 lambda: lookup.histogram_unpacked(ids, L, HIST_CAP),
-                lambda: lookup.unpacked_hist(ids, L, HIST_CAP), what))
+                lambda: lookup.unpacked_hist(ids, L, HIST_CAP), what, nbytes(ids, hist)))
         out_txt = work / f"smoke_wide_{kind}.txt"
         rps = e2e(pipe, reads_fa, out_txt, len(reads), f"wide {kind} e2e",
                   (name, "histogram_unpacked"))
@@ -435,10 +528,10 @@ def phase_long(dev, pipe, base: dict, work: pathlib.Path):
     import numpy as np
     import torch
 
-    from utree_tpu.search_host import search_file as host_search_file
-    from utree_tpu.utils.trace import PhaseTimer
     from utree_tpu_torch import lookup
     from utree_tpu_torch.parallel.sharded import split_long_read
+    from utree_tpu_torch.search_host import search_file as host_search_file
+    from utree_tpu_torch.utils.trace import PhaseTimer
 
     genome, index = base["genome"], base["index"]
     rng = np.random.default_rng(8)
@@ -479,7 +572,8 @@ def phase_long(dev, pipe, base: dict, work: pathlib.Path):
     row = check_kernel("histogram_packed", "histogram.cu", "utree_tpu/lookup.py:811",
                        lambda: lookup.histogram_packed(ids, L, HIST_CAP),
                        lambda: lookup.pack_hist(ids, L, HIST_CAP),
-                       f"{n_chunks} chunks x {ids.shape[1]} ids")
+                       f"{n_chunks} chunks x {ids.shape[1]} ids",
+                       nbytes(ids, lookup.histogram_packed(ids, L, HIST_CAP)))
     out_txt = work / "smoke_long.txt"
     pipe.tracer = PhaseTimer(quiet=True)
     t = time.perf_counter()
@@ -496,9 +590,9 @@ def phase_long(dev, pipe, base: dict, work: pathlib.Path):
     t = time.perf_counter()
     host_search_file(base["host"], str(reads_fa), str(host_out), do_rc=True)
     if host_out.read_bytes() != out_txt.read_bytes():
-        fail("long reads: the port's output differs from utree_tpu.search_host")
+        fail("long reads: the port's output differs from the host path's")
     log(f"long reads check: whole output ({len(host_out.read_bytes().splitlines())} "
-        f"lines) byte-identical to utree_tpu.search_host ({time.perf_counter() - t:.1f} s)")
+        f"lines) byte-identical to the host path ({time.perf_counter() - t:.1f} s)")
     return row, {"reads_per_s": nreads / dt, "bases_per_s": bases / dt, "seconds": dt}
 
 
@@ -540,14 +634,17 @@ def phase_k64(dev, kmers: int, nreads: int, work: pathlib.Path):
         log(f"k64 {kind}: table built in {build_s:.1f} s, "
             + ", ".join(f"{k} {tuple(v.shape)}" for k, v in tab.items()))
         what = f"B={b} ASCII reads, L=192, {L} labels"
+        ids = lookup.window_ids64(tab, rt, lt, **kw)
+        # a 64-mer slot row is 48 B: two sectors a window
+        moved = nbytes(rt, lt, ids) + SECTOR * 2 * windows(lt, 64)
         rows.append(check_kernel(
             name, f"{name}.cu", "utree_tpu/lookup.py:" + ("460" if mode == "auto" else "521"),
             lambda: lookup.window_ids64(tab, rt, lt, **kw),
-            lambda: lookup.window_ids64_plain(tab, rt, lt, **kw), what))
-        ids = lookup.window_ids64(tab, rt, lt, **kw)
+            lambda: lookup.window_ids64_plain(tab, rt, lt, **kw), what, moved))
         check_kernel("histogram_unpacked", "histogram.cu", "utree_tpu/lookup.py:662",
                      lambda: lookup.histogram_unpacked(ids, L, HIST_CAP),
-                     lambda: lookup.unpacked_hist(ids, L, HIST_CAP), what + f", {kind} ids")
+                     lambda: lookup.unpacked_hist(ids, L, HIST_CAP), what + f", {kind} ids",
+                     nbytes(ids, lookup.histogram_unpacked(ids, L, HIST_CAP)))
         out_txt = work / f"smoke64_{kind}.txt"
         rps = e2e(pipe, reads_fa, out_txt, nreads, f"k64 {kind} e2e",
                   (name, "histogram_unpacked"))
@@ -566,10 +663,10 @@ def phase_k64(dev, kmers: int, nreads: int, work: pathlib.Path):
 def long64(pipe, genome, reads, host, work: pathlib.Path) -> dict:
     """Phase 9's long-read file: CHECK_READS short reads and 4 long reads of
     LONG64_BP (1% mutation) through the PACKSIZE=64 ladder; the whole output
-    must equal utree_tpu.search_host's."""
+    must equal the host path's."""
     import numpy as np
 
-    from utree_tpu.search_host import search_file as host_search_file
+    from utree_tpu_torch.search_host import search_file as host_search_file
 
     rng = np.random.default_rng(9)
     acgt = np.frombuffer(ACGT, np.uint8)
@@ -594,11 +691,11 @@ def long64(pipe, genome, reads, host, work: pathlib.Path) -> dict:
     bases = sum(map(len, longs)) + CHECK_READS * READ_LEN
     host_search_file(host, str(reads_fa), str(host_out), do_rc=True)
     if host_out.read_bytes() != out_txt.read_bytes():
-        fail("k64 long reads: the port's output differs from utree_tpu.search_host")
+        fail("k64 long reads: the port's output differs from the host path's")
     log(f"k64 long reads: {CHECK_READS} short + 4 long reads ({bases:,} bp) in "
         f"{dt:.3f} s = {bases / dt:,.0f} bases/s; whole output "
         f"({len(out_txt.read_bytes().splitlines())} lines) byte-identical to "
-        "utree_tpu.search_host")
+        "the host path")
     return {"bases_per_s": bases / dt, "seconds": dt}
 
 
@@ -620,10 +717,13 @@ def phase_bsearch(dev, base: dict, work: pathlib.Path):
     packed, vbits, lens = batch_tensors(dev, reads)
     kw = dict(do_rc=True, bad_ix=0xFFFF, true_len=(READ_LEN + 7) & ~7,
               num_labels=index.num_labels, probe_iters=index.probe_iters)
+    ids = lookup.window_ids(tab, packed, vbits, lens, **kw)
+    # both strands' words are probed apart; each reads a bin offset and the
+    # found record's suffix and id (suf_hi, suf_lo, ix): 2 x 4 sectors
     row = check_kernel("bsearch_probe", "bsearch_probe.cu", "utree_tpu/lookup.py:149",
                        lambda: lookup.window_ids(tab, packed, vbits, lens, **kw),
                        lambda: lookup.window_ids_plain(tab, packed, vbits, lens, **kw),
-                       f"B={packed.shape[0]}")
+                       f"B={packed.shape[0]}", probe_bytes(packed, vbits, lens, ids, 32, 8))
     out_txt = work / "smoke_bsearch.txt"
     rps = e2e(pipe, base["reads_fa"], out_txt, len(reads), "bsearch e2e",
               ("bsearch_probe", "histogram", "aufbau_vote"))
@@ -633,22 +733,102 @@ def phase_bsearch(dev, base: dict, work: pathlib.Path):
     return row, {"reads_per_s": rps}
 
 
+def phase_compact(dev, base: dict, work: pathlib.Path):
+    """Phase 11: the compact readback (K8) and support_ranges=8 on the
+    phase-4 tier (displaced table, RC), with its first COMPACT_READS reads."""
+    from utree_tpu_torch import kernels, lookup
+    from utree_tpu_torch.pipeline import SearchPipeline
+
+    index = base["index"]
+    table = {k: v for k, v in base["table"].items() if not k.startswith("vt_")}
+    L = index.num_labels
+    # (a) K8 against its plain version on phase 3's batch
+    packed, vbits, lens = batch_tensors(dev, base["reads"])
+    rows = lookup.histogram_packed(lookup.window_ids(
+        table, packed, vbits, lens, do_rc=True, bad_ix=0xFFFF,
+        true_len=(READ_LEN + 7) & ~7, num_labels=L), L, HIST_CAP)
+    over_cap = max(64, BATCH // 8)
+    vec = lookup.hist_compact(rows, over_cap)
+    row = check_kernel("hist_compact", "hist_compact.cu", "utree_tpu/lookup.py:726",
+                       lambda: lookup.hist_compact(rows, over_cap),
+                       lambda: lookup.compact_rows(rows, over_cap),
+                       f"B={rows.shape[0]}, cap {HIST_CAP}, over_cap {over_cap}",
+                       nbytes(rows, vec))
+    log(f"compact readback: {vec.numel():,} int32 ({nbytes(vec):,} B) against "
+        f"{nbytes(rows):,} B of full rows; n_over {int(vec[2 * rows.shape[0]])}")
+    # K8 on a 64th of the batch: about the full batch's time if its three
+    # stream operations' launches, not its bytes, set it
+    small = rows[:1024].contiguous()
+    small_ms = cuda_ms(lambda: lookup.hist_compact(small, 64), 20)
+    log(f"kernel hist_compact at B=1024, over_cap 64: {small_ms:.4f} ms "
+        f"(B={rows.shape[0]}: {row['ms']:.4f} ms)")
+
+    reads = base["reads"][:COMPACT_READS]
+    n = len(reads)
+    reads_fa = work / "smoke_compact_reads.fa"
+    write_fasta(reads_fa, reads)
+    # phase 4's lines of these reads
+    want = [ln for ln in base["out_txt"].read_bytes().splitlines(keepends=True)
+            if int(ln.split(b"\t", 1)[0][1:]) < n]
+    expect = ("scan_probe", "histogram_packed", "hist_compact")
+
+    def pipeline(**kw):
+        pipe = SearchPipeline(index, device=dev, do_rc=True, batch_size=BATCH,
+                              hist_cap=HIST_CAP, lookup_mode="displaced",
+                              _table=table, **kw)
+        if pipe.layout != "compact":
+            fail(f"compact {kw}: layout {pipe.layout}")
+        return pipe
+
+    # (b) support_ranges=8 end to end, twice
+    out8 = work / "smoke_support8.txt"
+    rps8 = e2e(pipeline(support_ranges=8), reads_fa, out8, n, "support-8 e2e", expect)
+    host_check(base["host"], reads, out8, work, "support8", support_ranges=8)
+    got = out8.read_bytes().splitlines(keepends=True)
+    if len(got) != len(want):
+        fail(f"support 8: {len(got)} lines, phase 4 has {len(want)} for these reads")
+    for g, w in zip(got, want):
+        f = g.split(b"\t")
+        if (len(f) == 12 and b"\t".join(f[:5]) + b"\n" != w) or (len(f) == 5 and g != w) \
+                or len(f) not in (5, 12):
+            fail(f"support 8: line {g[:80]!r} disagrees with phase 4's {w[:80]!r}")
+    log(f"support 8: whole output ({len(got)} lines) agrees with phase 4 in its "
+        "first five fields")
+
+    # (c) a 64-row block: every batch overflows it and is redispatched
+    out_c = work / "smoke_support8_redispatch.txt"
+    e2e(pipeline(support_ranges=8, compact_over_cap=64), reads_fa, out_c, n,
+        "support-8 redispatch e2e", expect, passes=1)
+    batches = kernels.launches["hist_compact"]
+    if kernels.launches["histogram_packed"] != 2 * batches:
+        fail(f"redispatch: {kernels.launches['histogram_packed']} histogram_packed "
+             f"launches for {batches} compact batches")
+    if out_c.read_bytes() != out8.read_bytes():
+        fail("support 8: the redispatched output differs")
+    log(f"support 8 redispatch: all {batches} batches redispatched; output "
+        "byte-identical")
+
+    # (d) support_ranges=1 without the device vote: compact rows, the C vote
+    out1 = work / "smoke_compact_cvote.txt"
+    rps1 = e2e(pipeline(device_vote=False), reads_fa, out1, n, "compact C-vote e2e",
+               expect)
+    if out1.read_bytes() != b"".join(want):
+        fail("compact + C vote: output differs from phase 4's")
+    log("compact + C vote: whole output byte-identical to phase 4's lines")
+    return row, {"support8_reads_per_s": rps8, "cvote_reads_per_s": rps1,
+                 "readback_bytes": nbytes(vec), "full_bytes": nbytes(rows)}
+
+
 def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
-    """Phases 3-10 on `dev`; returns what main() checks and prints."""
-    import bench
-    from utree_tpu.classify_device import build_aufbau_tables
-    from utree_tpu_torch.classify_device import aufbau_tables_to_device
+    """Phases 3-11 on `dev`; returns what main() checks and prints."""
+    from utree_tpu_torch.classify_device import (aufbau_tables_to_device,
+                                                 build_aufbau_tables)
     from utree_tpu_torch.hash_index import displaced_to_device
     from utree_tpu_torch.pipeline import SearchPipeline
 
     t0 = time.perf_counter()
-    index, _sw, _ixs, _labels, genome, _cfg, rng = bench.make_tier_index(kmers, LABELS)
-    # bench's labels carry NUL bytes (its rank tokens are int64 codes turned
-    # into bytes); the C formatter reads them as terminators and the Python
-    # host path does not, so phase 5 could not compare the two.  Stripping
-    # them gives every path the same label strings.
-    index.strings = [s.replace(b"\x00", b"") for s in index.strings]
-    disp = bench.load_or_build_displaced(index, kmers, LABELS, str(ROOT / ".bench_cache"))
+    index, genome, rng = make_tier(kmers, LABELS)
+    disp = load_or_build_displaced(index, kmers, LABELS, ROOT / ".bench_cache")
     vtab = build_aufbau_tables(index.strings)
     max_iters = (vtab.max_len + 4) * (HIST_CAP + 2) + 16
     table = displaced_to_device(disp, dev)
@@ -670,7 +850,7 @@ def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
     del pipe
     # phase 5: independent check against the exact host path
     base = dict(index=index, host=index.host_index(), genome=genome, reads=reads,
-                reads_fa=reads_fa, out_txt=out_txt)
+                reads_fa=reads_fa, out_txt=out_txt, table=table)
     host_check(base["host"], reads, out_txt, work, "displaced")
 
     ladder_pipe, row, ladder = phase_ladder(dev, base, work)
@@ -684,10 +864,13 @@ def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
     kern.append(bs_row)
     k64_rows, k64 = phase_k64(dev, kmers, nreads, work)
     kern += k64_rows
+    compact_row, compact = phase_compact(dev, base, work)
+    kern.append(compact_row)
     for k in kern:
         k["launches"] = PATH_LAUNCHES.get(k["name"], 0)
     return {"kernels": kern, "displaced_rps": best, "ladder": ladder,
-            "wide": wide, "long": long, "bsearch": bsearch, "k64": k64}
+            "wide": wide, "long": long, "bsearch": bsearch, "k64": k64,
+            "compact": compact}
 
 
 def main() -> int:
@@ -742,7 +925,9 @@ def main() -> int:
         f"{res['bsearch']['reads_per_s']:,.0f}, k64 ladder "
         f"{res['k64']['canonical64']['reads_per_s']:,.0f}, k64 displaced "
         f"{res['k64']['displaced64']['reads_per_s']:,.0f} reads/s, k64 long "
-        f"reads {res['k64']['long']['bases_per_s']:,.0f} bases/s; {a.kmers} "
+        f"reads {res['k64']['long']['bases_per_s']:,.0f} bases/s; compact "
+        f"support 8 {res['compact']['support8_reads_per_s']:,.0f}, compact C "
+        f"vote {res['compact']['cvote_reads_per_s']:,.0f} reads/s; {a.kmers} "
         f"k-mers, RC, batch {BATCH}, on {card}")
     print(json.dumps({"kernels": res["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {

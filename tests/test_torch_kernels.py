@@ -2,8 +2,9 @@
 
 Every test here is marked `cuda` and skips without a CUDA device: a CUDA
 kernel has no CPU mode.  The plain versions are held to the JAX package by
-tests/test_torch_{lookup,aufbau,pipeline}.py on the CPU.  This file imports
-no JAX, so it also runs on a machine without it:
+tests/test_torch_{lookup,aufbau,pipeline,layouts,pack64}.py on the CPU.
+This file imports nothing but the port, numpy and chip_smoke (whose tier
+recipe makes the databases), so it runs on a machine without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -12,20 +13,49 @@ import numpy as np
 import pytest
 import torch
 
-from bench import make_tier_index
-from chip_smoke import index64, tier64, u32_index
-from test_classify_device import _random_strings
-from utree_tpu.classify_device import build_aufbau_tables
-from utree_tpu.hash_index import build_displaced_index
+from chip_smoke import (index64, make_reads, make_tier, tier64, tier_kmers,
+                        tier_labels, write_fasta)
 from utree_tpu_torch import kernels
 from utree_tpu_torch import lookup as tl
 from utree_tpu_torch.classify_device import (aufbau_tables_to_device,
-                                             aufbau_walk, pack_vote, vote_rows)
-from utree_tpu_torch.hash_index import (bsearch_to_device, canonical64_to_device,
-                                        displaced64_to_device, displaced_to_device)
+                                             aufbau_walk, build_aufbau_tables,
+                                             pack_vote, vote_rows)
+from utree_tpu_torch.config import UTreeConfig
+from utree_tpu_torch.hash_index import (bsearch_to_device, build_displaced_index,
+                                        canonical64_to_device, displaced64_to_device,
+                                        displaced_to_device)
+from utree_tpu_torch.index import DeviceIndexArrays
 
 pytestmark = pytest.mark.cuda
 BAD = 65535
+
+
+def _random_strings(rng, n):
+    """Taxonomy-shaped strings with shared prefixes, blank ranks, '_' tails,
+    and the occasional flat or empty string."""
+    ranks = [b"k__", b"p__", b"c__", b"o__", b"f__", b"g__", b"s__"]
+    words = [b"a", b"ab", b"abc", b"b", b"ba", b"x", b"", b"_", b"q_"]
+    out = set()
+    while len(out) < n:
+        kind = rng.random()
+        if kind < 0.85:
+            depth = int(rng.integers(1, len(ranks) + 1))
+            out.add(b";".join(ranks[d] + words[int(rng.integers(len(words)))]
+                              for d in range(depth)))
+        elif kind < 0.95:
+            out.add(bytes(rng.choice(list(b"ab_;"), int(rng.integers(1, 6))).astype(np.uint8)))
+        else:
+            out.add(b"")
+    return sorted(out)[:n]
+
+
+def _wide_tier(kmers=40_000, labels=64):
+    """chip_smoke's tier with 70,000 more label strings (IXTYPE=u32): the
+    same words and label ids, wide label lanes.  Returns (index, genome, rng)."""
+    sw, ixs, genome, rng = tier_kmers(kmers, labels)
+    strings = tier_labels(rng, labels) + [b"pad%d" % i for i in range(70_000)]
+    return (DeviceIndexArrays.from_build(sw, ixs, strings, UTreeConfig(ixtype_bytes=4)),
+            genome, rng)
 
 
 @pytest.fixture(scope="module")
@@ -37,13 +67,15 @@ def dev():
 
 @pytest.fixture(scope="module")
 def tier(dev):
-    index, sw, ixs, labels, genome, cfg, rng = make_tier_index(40_000, 64)
-    disp = build_displaced_index(index, load=0.98, spill_budget=len(sw))
+    index, genome, _ = make_tier(40_000, 64)
+    disp = build_displaced_index(index, load=0.98, spill_budget=index.num_records)
     assert disp.t3.shape[0] > 8  # the d3 tail is exercised too
     return dict(index=index, genome=genome, table=displaced_to_device(disp, dev))
 
 
-def _packed_reads(genome, n, seed, dev, read_len=150, width=192):
+def _packed_reads(genome, n, seed, dev, read_len=150, width=192, padded=0):
+    """Reads from the genome with N's and ragged lengths; the last `padded`
+    rows have length 0, as a batch's padding rows do."""
     rng = np.random.default_rng(seed)
     acgt = np.frombuffer(b"ACGT", np.uint8)
     starts = rng.integers(0, len(genome) - read_len, n)
@@ -54,6 +86,7 @@ def _packed_reads(genome, n, seed, dev, read_len=150, width=192):
     reads[rand, :read_len] = rng.choice(acgt, (int(rand.sum()), read_len))
     lens = np.full(n, read_len, np.int32)
     lens[::3] = rng.integers(20, read_len, len(lens[::3]))
+    lens[n - padded:] = 0
     reads[np.arange(width)[None, :] >= lens[:, None]] = 0
     return [torch.from_numpy(a).to(dev) for a in tl.pack_reads_host(reads, lens)]
 
@@ -109,8 +142,8 @@ def test_k3_aufbau_vote_matches_plain(dev, seed, cap):
 
 
 def _ladder(index, geometry):
-    from utree_tpu.hash_index import (_canonical_groups, _place_canonical,
-                                      build_canonical_hash_index)
+    from utree_tpu_torch.hash_index import (_canonical_groups, _place_canonical,
+                                            build_canonical_hash_index)
 
     if geometry == "chain":  # tier B's three-level shape, c3 in use
         built = _place_canonical(*_canonical_groups(index), 4, 4.0, 2, 1 << 27,
@@ -118,11 +151,6 @@ def _ladder(index, geometry):
         assert built.t2.shape[0] > 8 and built.t3.shape[0] > 8
         return built
     return build_canonical_hash_index(index)
-
-
-def _wide_index(index, sw, ixs):
-    strings = list(index.strings) + [b"pad%d" % i for i in range(70_000)]
-    return u32_index(sw, ixs, strings)
 
 
 def _probe_and_hists(table, packed, vbits, lens, num_labels, probe):
@@ -156,12 +184,11 @@ def test_k4_ladder_probe_matches_plain(tier, dev, geometry):
 def test_wide_probes_match_plain(dev, kind):
     from utree_tpu_torch.hash_index import canonical_to_device
 
-    index, sw, ixs, labels, genome, cfg, rng = make_tier_index(40_000, 64)
-    wide = _wide_index(index, sw, ixs)
+    wide, genome, _ = _wide_tier()
     if kind == "ladder":
         table, probe = canonical_to_device(_ladder(wide, "default"), dev), "ladder_probe_wide"
     else:
-        disp = build_displaced_index(wide, load=0.98, spill_budget=len(sw))
+        disp = build_displaced_index(wide, load=0.98, spill_budget=wide.num_records)
         assert disp.wide and disp.t3.shape[0] > 8
         table, probe = displaced_to_device(disp, dev), "scan_probe_wide"
     packed, vbits, lens = _packed_reads(genome, 3000, 4, dev)
@@ -227,9 +254,6 @@ def test_k7_on_an_abnormal_bin(dev):
     then not sorted.  K7 loops until every range is empty, the plain version
     runs JAX's fixed probe_iters trips: both end on the same record, on
     reads built from the merged bin's words and their RCs."""
-    from utree_tpu.config import UTreeConfig
-    from utree_tpu.index import DeviceIndexArrays
-
     rng = np.random.default_rng(9)
     words = np.unique(rng.integers(1 << 40, 1 << 47, 3000, dtype=np.uint64))
     odd = np.uint64(0xFFFFFFFFFF)  # prefix 0, the largest suffix
@@ -282,9 +306,9 @@ def _ascii_reads(genome, n, seed, dev, read_len=150, width=192):
 
 
 def _table64(index, geometry, dev):
-    from utree_tpu.hash_index64 import (_canonical_groups64, _place64,
-                                        build_canonical_hash_index64,
-                                        build_displaced_index64)
+    from utree_tpu_torch.hash_index64 import (_canonical_groups64, _place64,
+                                              build_canonical_hash_index64,
+                                              build_displaced_index64)
 
     if geometry == "ladder":
         return canonical64_to_device(build_canonical_hash_index64(index), dev), "ladder_probe64"
@@ -325,8 +349,9 @@ def test_probe64_sentinels_match_plain(k64, dev, kind):
     """A DB of 12 64-mers spills nothing: c64_2, c64_3 and d64_3 are the
     8-row sentinels, which the kernels must not probe; u16 labels (bad_ix
     65535), reads over the 12 words' stretch of the genome."""
-    from utree_tpu.encode import sample_build_kmers
-    from utree_tpu.hash_index64 import build_canonical_hash_index64, build_displaced_index64
+    from utree_tpu_torch.encode import sample_build_kmers
+    from utree_tpu_torch.hash_index64 import (build_canonical_hash_index64,
+                                              build_displaced_index64)
 
     genome = k64["genome"]
     words = np.sort(sample_build_kmers(genome[1000:1075].tobytes(), 64, 0),
@@ -348,12 +373,56 @@ def test_probe64_sentinels_match_plain(k64, dev, kind):
         assert int((ids < 5).sum()) > 100
 
 
+@pytest.mark.parametrize("cap", [1, 8, 30])
+def test_k8_hist_compact_matches_plain(tier, dev, cap):
+    """K8 on K2's packed rows of tier reads (padding rows included) and on
+    random rows over many tiles: a block that holds every flagged read, one
+    that is one row short or a single row (the header keeps the true count,
+    the rows past it are dropped), and one far larger."""
+    packed, vbits, lens = _packed_reads(tier["genome"], 3000, 10, dev, padded=200)
+    ids = tl.window_ids(tier["table"], packed, vbits, lens, do_rc=True, bad_ix=BAD,
+                        num_labels=64)
+    rng = np.random.default_rng(cap)
+    b = 70_001  # 69 tiles of 1024 reads, the last one partial
+    tail = rng.integers(0, cap + 2, b) | (rng.integers(0, 1 << 20, b) << 5)
+    slots = rng.integers(-(1 << 31), 1 << 31, (b, cap))
+    synth = torch.from_numpy(np.concatenate([slots, tail[:, None]], 1).astype(np.int32))
+    for rows in (tl.histogram_packed(ids, 64, cap), synth.to(dev)):
+        n_over = int(((rows[:, cap] & 31) >= 2).sum())
+        assert n_over > 1
+        for over_cap in (1, n_over - 1, n_over, 8192):
+            n0 = kernels.launches["hist_compact"]
+            got = tl.hist_compact(rows, over_cap)
+            assert kernels.launches["hist_compact"] == n0 + 1
+            assert got.shape == (2 * rows.shape[0] + (over_cap + 1) * (cap + 1),)
+            assert torch.equal(got, tl.compact_rows(rows, over_cap))
+            assert int(got[2 * rows.shape[0]]) == n_over
+
+
+def _pipeline_reads(path, genome, rng):
+    """900 tier reads, 40 chimeras of three 50 bp pieces (3 labels a read:
+    hist_cap=2 overflows) and three long reads."""
+    reads = make_reads(genome, rng, 900)
+    write_fasta(path, reads)
+    with open(path, "ab") as f:
+        for i in range(40):
+            starts = rng.integers(0, len(genome) - 50, 3)
+            f.write(b">chimera%d\n" % i
+                    + b"".join(genome[s:s + 50].tobytes() for s in starts) + b"\n")
+        for i in range(3):
+            s = int(rng.integers(0, len(genome) - 3000))
+            f.write(b">long%d\n" % i + genome[s:s + 1500 + 700 * i].tobytes() + b"\n")
+
+
 # entry points each path must launch (the histogram step of long reads adds
-# histogram_packed or histogram_unpacked)
+# histogram_packed or histogram_unpacked); "support8" is support_ranges=8
+# and "cvote" device_vote=False, both the compact readback
 _PATHS = {
     ("narrow", "auto"): {"ladder_probe", "histogram", "aufbau_vote", "histogram_packed"},
     ("narrow", "displaced"): {"scan_probe", "histogram", "aufbau_vote", "histogram_packed"},
     ("narrow", "bsearch"): {"bsearch_probe", "histogram", "aufbau_vote", "histogram_packed"},
+    ("support8", "displaced"): {"scan_probe", "histogram_packed", "hist_compact"},
+    ("cvote", "auto"): {"ladder_probe", "histogram_packed", "hist_compact"},
     ("wide", "auto"): {"ladder_probe_wide", "histogram_unpacked"},
     ("wide", "displaced"): {"scan_probe_wide", "histogram_unpacked"},
     ("wide", "bsearch"): {"bsearch_probe", "histogram_unpacked"},
@@ -366,36 +435,25 @@ _PATHS = {
 def test_cuda_pipeline_equals_cpu_pipeline(tmp_path, dev, labels, mode):
     """The whole search through the kernels equals the plain versions' run,
     long reads included, and every kernel of the path was launched."""
-    from utree_tpu.build import build_database
-    from utree_tpu.config import UTreeConfig
-    from utree_tpu.index import DeviceIndexArrays
-    from utree_tpu.testdata import make_toy_db, make_toy_reads
     from utree_tpu_torch.pipeline import SearchPipeline
 
-    recs = make_toy_db(str(tmp_path / "refs.fa"), str(tmp_path / "tax.map"), seed=23)
-    make_toy_reads(str(tmp_path / "reads.fa"), recs, num_reads=900, seed=29)
-    with open(tmp_path / "reads.fa", "ab") as f:
-        for i in range(3):
-            f.write(b">long%d\n" % i + recs[i][2][: 1500 + 700 * i] + b"\n")
-    cfg = UTreeConfig(packsize=64, ixtype_bytes=4) if labels == "k64" else UTreeConfig()
-    res = build_database(str(tmp_path / "refs.fa"), str(tmp_path / "tax.map"), cfg)
-    strings = list(res.labels.strings)
     if labels == "wide":
-        index = u32_index(res.words, res.ixs, strings + [b"pad%d" % i for i in range(70_000)])
+        index, genome, rng = _wide_tier()
     elif labels == "k64":
-        index = index64(res.words, res.ixs, strings)
+        index, genome, rng = tier64(40_000, 64)
     else:
-        index = DeviceIndexArrays.from_build(res.words, res.ixs, strings, UTreeConfig())
+        index, genome, rng = make_tier(40_000, 64)
+    _pipeline_reads(tmp_path / "reads.fa", genome, rng)
+    kw = {"support8": dict(support_ranges=8), "cvote": dict(device_vote=False)}.get(labels, {})
     outs = {}
     for device in ("cpu", "cuda"):
         kernels.reset_launches()
         pipe = SearchPipeline(index, device=device, do_rc=True, batch_size=128,
-                              hist_cap=2, lookup_mode=mode)
+                              hist_cap=2, lookup_mode=mode, **kw)
         pipe.long_read_threshold, pipe.long_chunk = 1000, 256
         pipe.search_file(str(tmp_path / "reads.fa"), str(tmp_path / f"{device}.txt"))
         outs[device] = (tmp_path / f"{device}.txt").read_bytes()
         launched = {k for k, n in kernels.launches.items() if n}
         assert launched == (_PATHS[labels, mode] if device == "cuda" else set())
-    # fewer reads classify at k=64: a 64-mer window holds twice the bases
     assert outs["cuda"] == outs["cpu"]
-    assert outs["cpu"].count(b"\n") > (400 if labels == "k64" else 500)
+    assert outs["cpu"].count(b"\n") > 700

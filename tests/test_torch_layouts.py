@@ -3,11 +3,14 @@ path: the canonical ladder that `auto` picks below 80M records, wide labels
 (IXTYPE=u32) on both tables, the narrow/wide boundary, label strings of
 2048+ chars (the packed-histogram layout), long reads (chunked, merged on
 the host) and the bsearch replay in each readback layout, with `auto`'s
-fallback to it.  classifications.txt must match byte for byte.
+fallback to it; and support_ranges=8 (per-rank SUPPORT;RANGE columns) in
+every table and readback layout.  classifications.txt must match byte for
+byte.
 
 Every database comes from make_toy_db -> build_database ->
-DeviceIndexArrays.from_build (no oracle), and both pipelines search the
-same table: the port receives the JAX pipeline's `_table` through
+DeviceIndexArrays.from_build (no oracle); the port gets its own copy of the
+index through convert.index_from_jax, and both pipelines search the same
+table: the port receives the JAX pipeline's `_table` through
 convert.tables_from_jax."""
 
 import numpy as np
@@ -19,7 +22,7 @@ from utree_tpu.config import UTreeConfig
 from utree_tpu.index import DeviceIndexArrays
 from utree_tpu.pipeline import SearchPipeline as JaxPipeline
 from utree_tpu.testdata import make_toy_db, make_toy_reads
-from utree_tpu_torch.convert import tables_from_jax
+from utree_tpu_torch.convert import index_from_jax, tables_from_jax
 from utree_tpu_torch.pipeline import SearchPipeline
 
 BATCH = 128
@@ -89,28 +92,31 @@ def _index(env, kind):
 
 
 def _run_both(env, tmp_path, kind, reads, *, mode="auto", hist_cap=8,
-              threshold=None, chunk=None, port_hook=None):
-    """The JAX pipeline's bytes (cached) and the port's, on one table."""
-    key = (kind, reads, mode, hist_cap, threshold, chunk)
+              threshold=None, chunk=None, port_hook=None, **kw):
+    """The JAX pipeline's bytes (cached) and the port's, on one table; `kw`
+    (support_ranges, compact_over_cap, device_vote) goes to both."""
+    key = (kind, reads, mode, hist_cap, threshold, chunk, tuple(sorted(kw.items())))
     index = _index(env, kind)
     if key not in env["golden"]:
         jp = JaxPipeline(index, do_rc=True, batch_size=BATCH, hist_cap=hist_cap,
-                         lookup_mode=mode)
+                         lookup_mode=mode, **kw)
         if threshold:
             jp.long_read_threshold, jp.long_chunk = threshold, chunk
-        out = env["dir"] / ("jax_%s_%s_%s_%d_%s.txt" % (kind, reads, mode, hist_cap,
-                                                      threshold))
+        out = env["dir"] / ("jax_%d.txt" % len(env["golden"]))
         jp.search_file(str(env["dir"] / reads), str(out))
+        layout = ("vote" if jp._devvote else "compact" if jp._compact
+                  else "packed" if jp._packed_out else "unpacked")
         env["golden"][key] = (out.read_bytes(), tables_from_jax(jp._table),
-                              jp.table_kind, jp._devvote, jp._packed_out)
-    want, table, kind_j, devvote, packed_out = env["golden"][key]
-    pipe = SearchPipeline(index, device="cpu", do_rc=True, batch_size=BATCH,
-                          hist_cap=hist_cap, lookup_mode=mode, _table=table)
+                              jp.table_kind, layout)
+    want, table, kind_j, layout = env["golden"][key]
+    pipe = SearchPipeline(index_from_jax(index), device="cpu", do_rc=True,
+                          batch_size=BATCH, hist_cap=hist_cap, lookup_mode=mode,
+                          _table=table, **kw)
     if threshold:
         pipe.long_read_threshold, pipe.long_chunk = threshold, chunk
     assert pipe.table_kind == kind_j
     # the port's readback layout is the JAX pipeline's step choice
-    assert pipe.layout == ("vote" if devvote else "packed" if packed_out else "unpacked")
+    assert pipe.layout == layout
     if port_hook:
         port_hook(pipe)
     out = tmp_path / "port.txt"
@@ -141,7 +147,7 @@ def test_auto_builds_the_jax_ladder(env):
     """Without _table the port places the same ladder and vote tables."""
     index = _index(env, "narrow")
     want = tables_from_jax(JaxPipeline(index, do_rc=True)._table)
-    got = SearchPipeline(index, device="cpu", do_rc=True)._table
+    got = SearchPipeline(index_from_jax(index), device="cpu", do_rc=True)._table
     assert sorted(got) == sorted(want) and "c1" in got
     for k in want:
         assert torch.equal(got[k], want[k]), k
@@ -174,10 +180,11 @@ def test_narrow_wide_boundary(env, tmp_path, kind):
 @pytest.mark.parametrize("hist_cap", [8, 2])
 def test_long_label_strings(env, tmp_path, hist_cap):
     """Labels of 2048+ chars do not fit the device vote's dv lane: the
-    packed (B, cap+1) rows go to the C vote (`vote_packed`)."""
+    compact readback (K8), rebuilt into the packed (B, cap+1) rows on the
+    host, goes to the C vote (`vote_packed`), as JAX's `_compact` step."""
     got, want, pipe = _run_both(env, tmp_path, "longlabel", "short.fa",
                                 hist_cap=hist_cap)
-    assert pipe.layout == "packed"
+    assert pipe.layout == "compact"
     assert got == want and b"q" * 2100 in want
 
 
@@ -209,10 +216,10 @@ def test_resume_across_a_long_read(env, tmp_path):
     second long read resumes to the uninterrupted bytes."""
     want = _run_both(env, tmp_path, "narrow", "long.fa", hist_cap=2,
                      threshold=SMALL_THRESHOLD, chunk=SMALL_CHUNK)[1]
-    pipe = SearchPipeline(_index(env, "narrow"), device="cpu", do_rc=True,
-                          batch_size=BATCH, hist_cap=2,
+    pipe = SearchPipeline(index_from_jax(_index(env, "narrow")), device="cpu",
+                          do_rc=True, batch_size=BATCH, hist_cap=2,
                           _table=env["golden"][("narrow", "long.fa", "auto", 2,
-                                                SMALL_THRESHOLD, SMALL_CHUNK)][1])
+                                                SMALL_THRESHOLD, SMALL_CHUNK, ())][1])
     pipe.long_read_threshold, pipe.long_chunk = SMALL_THRESHOLD, SMALL_CHUNK
 
     class Stop(Exception):
@@ -265,7 +272,7 @@ def test_table_choice_follows_the_record_count(env, monkeypatch):
     table takes the replay (test_auto_falls_back_to_bsearch)."""
     import utree_tpu_torch.pipeline as P
 
-    index = _index(env, "narrow")
+    index = index_from_jax(_index(env, "narrow"))
     monkeypatch.setattr(P, "_DISPLACED_AUTO_MIN", 0)
     assert SearchPipeline(index, device="cpu").table_kind == "displaced"
     assert SearchPipeline(index, device="cpu", lookup_mode="canonical").table_kind == "canonical"
@@ -282,28 +289,31 @@ def _no_fit(*a, **k):
 
 
 def test_auto_falls_back_to_bsearch(env, tmp_path, monkeypatch):
-    """With both shared builders failing, `auto` takes the bsearch replay in
-    both pipelines below 80M records (same bytes), and from the replay
-    ceiling both raise the same RuntimeError."""
+    """With both table builders failing (the JAX package's and the port's
+    copies), `auto` takes the bsearch replay in both pipelines below 80M
+    records (same bytes), and from the replay ceiling both raise the same
+    RuntimeError."""
     import utree_tpu.hash_index as H
     import utree_tpu.pipeline as JP
+    import utree_tpu_torch.hash_index as TH
     import utree_tpu_torch.pipeline as P
 
-    monkeypatch.setattr(H, "build_canonical_hash_index", _no_fit)
-    monkeypatch.setattr(H, "build_displaced_index", _no_fit)
-    index = _index(env, "narrow")
+    for mod in (H, TH):
+        monkeypatch.setattr(mod, "build_canonical_hash_index", _no_fit)
+        monkeypatch.setattr(mod, "build_displaced_index", _no_fit)
+    index, port = _index(env, "narrow"), index_from_jax(_index(env, "narrow"))
     jp = JaxPipeline(index, do_rc=True, batch_size=BATCH)
-    pipe = SearchPipeline(index, device="cpu", do_rc=True, batch_size=BATCH)
+    pipe = SearchPipeline(port, device="cpu", do_rc=True, batch_size=BATCH)
     assert jp.table_kind == pipe.table_kind == "bsearch" and pipe.layout == "vote"
     jp.search_file(str(env["dir"] / "short.fa"), str(tmp_path / "jax.txt"))
     pipe.search_file(str(env["dir"] / "short.fa"), str(tmp_path / "port.txt"))
     assert (tmp_path / "port.txt").read_bytes() == (tmp_path / "jax.txt").read_bytes()
     with pytest.raises(RuntimeError, match="canonical cannot be honored"):
-        SearchPipeline(index, device="cpu", lookup_mode="canonical")
+        SearchPipeline(port, device="cpu", lookup_mode="canonical")
     monkeypatch.setattr(JP, "_REPLAY_AUTO_MAX", 0)
     monkeypatch.setattr(P, "_REPLAY_AUTO_MAX", 0)
     msgs = []
-    for make in (lambda: JaxPipeline(index), lambda: SearchPipeline(index, device="cpu")):
+    for make in (lambda: JaxPipeline(index), lambda: SearchPipeline(port, device="cpu")):
         with pytest.raises(RuntimeError, match="fits no single-chip device table") as e:
             make()
         msgs.append(str(e.value))
@@ -314,14 +324,15 @@ def test_auto_falls_back_to_bsearch(env, tmp_path, monkeypatch):
                                            ("longlabel", 2), ("wide", 2)])
 def test_bsearch_layouts(env, tmp_path, kind, hist_cap):
     """`--lookup-mode bsearch` (K7's replay over the CTR records) in the
-    three readback layouts: the device vote, packed rows for long labels,
-    unpacked rows for wide labels; hist_cap=2 replays flagged reads."""
+    three readback layouts: the device vote, the compact readback for long
+    labels, unpacked rows for wide labels; hist_cap=2 replays flagged
+    reads."""
     seen = []
     got, want, pipe = _run_both(env, tmp_path, kind, "short.fa", mode="bsearch",
                                 hist_cap=hist_cap,
                                 port_hook=lambda p: seen.append(_replays(p)))
     assert pipe.table_kind == "bsearch"
-    assert pipe.layout == {"narrow": "vote", "longlabel": "packed", "wide": "unpacked"}[kind]
+    assert pipe.layout == {"narrow": "vote", "longlabel": "compact", "wide": "unpacked"}[kind]
     assert got == want and want.count(b"\n") > 300
     assert bool(seen[0]) == (hist_cap == 2)
 
@@ -351,3 +362,59 @@ def test_cli_lookup_mode_bsearch(env, tmp_path, capsys):
     assert "table_kind: bsearch" in capsys.readouterr().out
     assert out.read_bytes() == _run_both(env, tmp_path, "narrow", "short.fa",
                                          mode="bsearch")[1]
+
+
+# support_ranges=8 (per-rank SUPPORT;RANGE columns): both pipelines vote
+# every read in Python; (labels, lookup mode, reads, hist_cap, extra keywords)
+_LONG = dict(threshold=SMALL_THRESHOLD, chunk=SMALL_CHUNK)
+_SUPPORT8 = {
+    "ladder": ("narrow", "auto", "short.fa", 8, {}),
+    "displaced-replay": ("narrow", "displaced", "short.fa", 2, {}),
+    "bsearch": ("narrow", "bsearch", "short.fa", 8, {}),
+    "packed": ("narrow", "auto", "short.fa", 8, dict(compact_readback=False)),
+    "longlabel": ("longlabel", "auto", "short.fa", 2, {}),
+    "wide-ladder-replay": ("wide", "canonical", "short.fa", 2, {}),
+    "wide-displaced": ("wide", "displaced", "short.fa", 8, {}),
+    "long-reads": ("narrow", "auto", "long.fa", 2, _LONG),
+    "wide-long-reads": ("wide", "auto", "long.fa", 2, _LONG),
+}
+
+
+@pytest.mark.parametrize("case", list(_SUPPORT8))
+def test_support_ranges_8(env, tmp_path, case):
+    """support_ranges=8 in every table and readback layout: the compact
+    readback on narrow labels (packed rows without compact_readback),
+    unpacked rows on wide labels; reads over hist_cap replayed on the host,
+    long reads chunked; the JAX pipeline's bytes."""
+    kind, mode, reads, hist_cap, extra = _SUPPORT8[case]
+    seen = []
+    got, want, pipe = _run_both(env, tmp_path, kind, reads, mode=mode, hist_cap=hist_cap,
+                                support_ranges=8,
+                                port_hook=lambda p: seen.append(_replays(p)), **extra)
+    assert pipe.layout == ("unpacked" if kind == "wide" else
+                           "packed" if "compact_readback" in extra else "compact")
+    assert got == want and want.count(b"\n") > (60 if reads == "long.fa" else 300)
+    assert max(ln.count(b"\t") for ln in want.splitlines()) == 11
+    if reads == "long.fa":
+        assert sum(ln.startswith(b"long") for ln in want.splitlines()) == 4
+    assert bool(seen[0]) == (hist_cap == 2)
+
+
+@pytest.mark.parametrize("support_ranges", [1, 8])
+def test_compact_readback_redispatch(env, tmp_path, support_ranges):
+    """compact_over_cap=1: a batch with 2+ reads of 2+ labels overflows the
+    block and is dispatched again through the full rows; at support 1 the
+    device vote is off (the C vote over the rebuilt rows), at 8 it is off
+    anyway.  The JAX pipeline's bytes."""
+    redone = []
+
+    def hook(pipe):
+        orig = pipe._step_hist
+        pipe._step_hist = lambda *a, **k: redone.append(1) or orig(*a, **k)
+
+    got, want, pipe = _run_both(env, tmp_path, "narrow", "short.fa", mode="displaced",
+                                support_ranges=support_ranges, device_vote=False,
+                                compact_over_cap=1, port_hook=hook)
+    assert pipe.layout == "compact" and pipe._over_cap == 1
+    assert got == want and want.count(b"\n") > 300
+    assert redone  # a batch was redispatched

@@ -3,7 +3,8 @@
 Inputs are made with numpy from a seed and fed to both packages; every
 output is an integer, so the tolerance is exact equality.  The plain
 versions run on the CPU; the CUDA kernels are held to them on a GPU in
-tests/test_torch_kernels.py."""
+tests/test_torch_kernels.py.  Where a port function takes the index, it
+gets its own copy of the JAX index (convert.index_from_jax)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +17,7 @@ from utree_tpu.config import UTreeConfig
 from utree_tpu.hash_index import _rc64, build_displaced_index
 from utree_tpu.index import DeviceIndexArrays
 from utree_tpu_torch import lookup as tl
+from utree_tpu_torch.convert import index_from_jax
 from utree_tpu_torch.hash_index import displaced_to_device
 
 BAD = 65535
@@ -42,8 +44,8 @@ def tier():
     """A small synthetic tier (bench's generator) and its displaced table."""
     index, sw, ixs, labels, genome, cfg, rng = make_tier_index(40_000, 64)
     disp = build_displaced_index(index)
-    return dict(index=index, words=sw, genome=genome, disp=disp,
-                jt=disp.device_put(), tt=displaced_to_device(disp, "cpu"))
+    return dict(index=index, port=index_from_jax(index), words=sw, genome=genome,
+                disp=disp, jt=disp.device_put(), tt=displaced_to_device(disp, "cpu"))
 
 
 def _reads(genome, n, seed, read_len=150, width=192, n_prob=0.01):
@@ -229,6 +231,29 @@ def test_search_step_vote_compact_matches_jax(tier):
                                     torch.from_numpy(vbits), torch.from_numpy(lens), **kw)
     assert np.array_equal(np.asarray(j), _np(t))
 
+
+@pytest.mark.parametrize("cap", [1, 8])
+@pytest.mark.parametrize("over_cap", [64, 3], ids=["fits", "overflows"])
+def test_search_step_hist_compact_matches_jax(tier, cap, over_cap):
+    """The compact readback step: per-read (tail, lc0) pairs and the block
+    of rows of 2+ labels in read order; with a 3-row block the header keeps
+    the true count and the rows past the block are dropped.  The last 16
+    rows are padding (length 0), never flagged."""
+    reads, lens = _reads(tier["genome"], 128, seed=14)
+    reads[-16:], lens[-16:] = 0, 0
+    packed, vbits, lens = tl.pack_reads_host(reads, lens)
+    kw = dict(do_rc=True, bad_ix=BAD, num_labels=64, cap=cap, true_len=152,
+              over_cap=over_cap)
+    j = np.asarray(jl.search_step_hist_compact(tier["jt"], packed, vbits, lens, k=32,
+                                               probe_iters=1, **kw))
+    t = _np(tl.search_step_hist_compact(tier["tt"], torch.from_numpy(packed),
+                                        torch.from_numpy(vbits), torch.from_numpy(lens),
+                                        **kw))
+    assert t.dtype == np.int32 and np.array_equal(j, t)
+    assert t.shape == (2 * 128 + (over_cap + 1) * (cap + 1),)
+    n_over = int(t[2 * 128])
+    assert n_over > 3 and (n_over <= over_cap) == (over_cap == 64)
+    assert not t[2 * 112:2 * 128].any()  # padding: tail and lc0 are 0
 
 
 # ---- the canonical ladder and wide entries ------------------------------------
@@ -430,7 +455,7 @@ def test_lookup_kmers_abnormal_bin_matches_jax():
     qpre, qhi, qlo = _lanes(q)
     j = np.asarray(jl.lookup_kmers(index.device_put(), qpre, qhi, qlo, valid,
                                    index.probe_iters, BAD))
-    tt = bsearch_to_device(index, "cpu")
+    tt = bsearch_to_device(index_from_jax(index), "cpu")
     args = (_t(qpre), _t(qhi), _t(qlo), torch.from_numpy(valid))
     t = _np(tl.lookup_kmers(tt, *args, index.probe_iters, BAD))
     assert t.dtype == np.int32 and np.array_equal(j, t)
@@ -453,11 +478,11 @@ def test_bsearch_window_ids_match_jax(tier, do_rc):
               probe_iters=index.probe_iters)
     j = jl._packed_window_ix(index.device_put(), packed, vbits, lens, k=32, **kw)
     pt = [torch.from_numpy(a) for a in (packed, vbits, lens)]
-    t = tl.window_ids(bsearch_to_device(index, "cpu"), *pt, **kw)
+    t = tl.window_ids(bsearch_to_device(tier["port"], "cpu"), *pt, **kw)
     assert t.shape == ((96, 242) if do_rc else (96, 121))
     assert np.array_equal(np.asarray(j), _np(t)) and (_np(t) < 64).sum() > 1000
     if do_rc:  # [fwd | rc]: the first half is the forward-only run
-        fwd = tl.window_ids(bsearch_to_device(index, "cpu"), *pt,
+        fwd = tl.window_ids(bsearch_to_device(tier["port"], "cpu"), *pt,
                             **{**kw, "do_rc": False})
         assert torch.equal(t[:, :121], fwd)
 
@@ -475,7 +500,7 @@ def test_bsearch_steps_match_jax(tier, step):
     packed, vbits, lens = tl.pack_reads_host(reads, lens)
     kw = dict(do_rc=True, bad_ix=BAD, num_labels=64, cap=4, true_len=152,
               probe_iters=index.probe_iters)
-    jt, tt = index.device_put(), bsearch_to_device(index, "cpu")
+    jt, tt = index.device_put(), bsearch_to_device(tier["port"], "cpu")
     if step == "vote":
         tab = build_aufbau_tables(index.strings)
         kw.update(taxacut=index.config.taxacut, max_iters=(tab.max_len + 4) * 6 + 16)

@@ -9,16 +9,17 @@ the same table (convert.tables_from_jax).  Every output is an integer or a
 byte, so equality is exact.
 
 Databases come from make_toy_db -> build_database -> from_build (or from
-random words), through chip_smoke.index64, which drops the one k-mer that
-would trip the shared 64-mer builders' fault (ROADMAP §C); the fault itself
-is pinned by test_lowest_bin_fault_matches_jax."""
+random words), less the one k-mer that chip_smoke.lowest_bin_drop finds
+would trip the 64-mer builders' fault (ROADMAP §C); the fault itself is
+pinned by test_lowest_bin_fault_matches_jax.  The port gets its own copy of
+each JAX index through convert.index_from_jax."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import index64
+from chip_smoke import lowest_bin_drop
 from utree_tpu import lookup as jl
 from utree_tpu.build import build_database
 from utree_tpu.config import UTreeConfig
@@ -31,7 +32,7 @@ from utree_tpu.index import DeviceIndexArrays
 from utree_tpu.pipeline import SearchPipeline as JaxPipeline
 from utree_tpu.testdata import make_toy_db, make_toy_reads
 from utree_tpu_torch import lookup as tl
-from utree_tpu_torch.convert import tables_from_jax
+from utree_tpu_torch.convert import index_from_jax, tables_from_jax
 from utree_tpu_torch.hash_index import canonical64_to_device, displaced64_to_device
 from utree_tpu_torch.pipeline import SearchPipeline
 
@@ -42,6 +43,14 @@ SMALL_THRESHOLD, SMALL_CHUNK = 400, 128
 
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _index64(words, ixs, strings, ixb=4):
+    """The JAX index of a PACKSIZE=64 DB from sorted W128 words, less the
+    lowest_bin_drop first ones."""
+    drop = lowest_bin_drop(words)
+    return DeviceIndexArrays.from_build(words[drop:], np.asarray(ixs)[drop:], strings,
+                                        UTreeConfig(packsize=64, ixtype_bytes=ixb))
 
 
 def _u(x):
@@ -112,7 +121,8 @@ def env(tmp_path_factory):
     for ixb in (4, 2):
         cfg = UTreeConfig(packsize=64, ixtype_bytes=ixb)
         res = build_database(str(wd / "refs.fa"), str(wd / "tax.map"), cfg)
-        out[ixb] = index64(res.words, res.ixs, list(res.labels.strings), ixb)
+        out[ixb] = _index64(res.words, res.ixs, list(res.labels.strings), ixb)
+        out["port", ixb] = index_from_jax(out[ixb])
     return out
 
 
@@ -160,8 +170,8 @@ def _random_case(seed, n_words=6000, nlab=50, ixb=4):
     pal["hi"] = rng.integers(0, 1 << 64, len(pal), dtype=np.uint64)
     pal["lo"] = _rc64(pal["hi"])  # a 64-mer equal to its reverse complement
     words = np.unique(np.concatenate([w, rc, pal]))
-    index = index64(words, rng.integers(0, nlab, len(words)),
-                    [b"l%d" % i for i in range(nlab)], ixb)
+    index = _index64(words, rng.integers(0, nlab, len(words)),
+                     [b"l%d" % i for i in range(nlab)], ixb)
     q = np.concatenate([rng.choice(words, 3000), rc, pal, w[:300]])
     rnd = np.zeros(1000, W128)
     rnd["hi"] = rng.integers(0, 1 << 64, 1000, dtype=np.uint64)
@@ -257,22 +267,22 @@ def test_search_step_hist_k64_matches_jax(env, table):
 
 
 def _run_both(env, tmp_path, reads, *, ixb=4, mode="auto", do_rc=True, hist_cap=8,
-              threshold=None, port_hook=None):
+              threshold=None, port_hook=None, support_ranges=1):
     """The JAX pipeline's bytes (cached) and the port's, on one table."""
-    key = (reads, ixb, mode, do_rc, hist_cap, threshold)
-    index = env[ixb]
+    key = (reads, ixb, mode, do_rc, hist_cap, threshold, support_ranges)
     if key not in env["golden"]:
-        jp = JaxPipeline(index, do_rc=do_rc, batch_size=BATCH, hist_cap=hist_cap,
-                         lookup_mode=mode)
+        jp = JaxPipeline(env[ixb], do_rc=do_rc, batch_size=BATCH, hist_cap=hist_cap,
+                         lookup_mode=mode, support_ranges=support_ranges)
         if threshold:
             jp.long_read_threshold, jp.long_chunk = threshold, SMALL_CHUNK
-        out = env["dir"] / ("jax_%s_%d_%s_%s_%d_%s.txt" % key)
+        out = env["dir"] / ("jax_%s_%d_%s_%s_%d_%s_%d.txt" % key)
         jp.search_file(str(env["dir"] / reads), str(out))
         env["golden"][key] = (out.read_bytes(), tables_from_jax(jp._table),
                               jp.table_kind)
     want, table, kind = env["golden"][key]
-    pipe = SearchPipeline(index, device="cpu", do_rc=do_rc, batch_size=BATCH,
-                          hist_cap=hist_cap, lookup_mode=mode, _table=table)
+    pipe = SearchPipeline(env["port", ixb], device="cpu", do_rc=do_rc, batch_size=BATCH,
+                          hist_cap=hist_cap, lookup_mode=mode, _table=table,
+                          support_ranges=support_ranges)
     if threshold:
         pipe.long_read_threshold, pipe.long_chunk = threshold, SMALL_CHUNK
     assert pipe.table_kind == kind and pipe.layout == "unpacked"
@@ -326,8 +336,8 @@ def test_pipeline64_long_reads(env, tmp_path, threshold):
 def test_pipeline64_resume(env, tmp_path):
     """A run that dies after two batches resumes to the uninterrupted bytes."""
     want = _run_both(env, tmp_path, "short.fa")[1]
-    table = env["golden"][("short.fa", 4, "auto", True, 8, None)][1]
-    pipe = SearchPipeline(env[4], device="cpu", do_rc=True, batch_size=BATCH,
+    table = env["golden"][("short.fa", 4, "auto", True, 8, None, 1)][1]
+    pipe = SearchPipeline(env["port", 4], device="cpu", do_rc=True, batch_size=BATCH,
                           _table=table)
 
     class Stop(Exception):
@@ -356,7 +366,7 @@ def test_own_tables_equal_jax_tables(env):
     pipeline, under `auto` and `displaced`."""
     for mode, key in (("auto", "c64_1"), ("displaced", "d64_1")):
         want = tables_from_jax(JaxPipeline(env[4], lookup_mode=mode)._table)
-        got = SearchPipeline(env[4], device="cpu", lookup_mode=mode)._table
+        got = SearchPipeline(env["port", 4], device="cpu", lookup_mode=mode)._table
         assert sorted(got) == sorted(want) and key in got
         assert all(torch.equal(got[k], want[k]) for k in want)
 
@@ -365,29 +375,33 @@ def test_table_choice64_matches_jax(env, monkeypatch):
     """The PACKSIZE=64 table choice: the displaced table from the crossover,
     an explicit mode the 64-mer path lacks raises ValueError, a displaced
     table that cannot be built is an error only when asked for, and a DB
-    that fits no ladder raises RuntimeError; in both pipelines alike."""
+    that fits no ladder raises RuntimeError; in both pipelines alike (each
+    over its own package's builders)."""
     import utree_tpu.hash_index64 as H
+    import utree_tpu_torch.hash_index64 as TH
     import utree_tpu_torch.pipeline as P
 
-    index = env[4]
+    index, port = env[4], env["port", 4]
     monkeypatch.setattr(P, "_DISPLACED_AUTO_MIN", 0)
-    assert SearchPipeline(index, device="cpu").table_kind == "displaced64"
+    assert SearchPipeline(port, device="cpu").table_kind == "displaced64"
     monkeypatch.setattr(P, "_DISPLACED_AUTO_MIN", 80_000_000)
     for mode in ("bsearch", "hash", "routed"):
         with pytest.raises(ValueError, match="unsupported for PACKSIZE=64"):
-            SearchPipeline(index, device="cpu", lookup_mode=mode)
+            SearchPipeline(port, device="cpu", lookup_mode=mode)
 
     def no_fit(*a, **k):
         raise ValueError("no geometry fits")
 
-    monkeypatch.setattr(H, "build_displaced_index64", no_fit)
+    for mod in (H, TH):
+        monkeypatch.setattr(mod, "build_displaced_index64", no_fit)
     for make in (lambda **kw: JaxPipeline(index, **kw),
-                 lambda **kw: SearchPipeline(index, device="cpu", **kw)):
+                 lambda **kw: SearchPipeline(port, device="cpu", **kw)):
         with pytest.raises(RuntimeError, match="displaced cannot be honored"):
             make(lookup_mode="displaced")
-    monkeypatch.setattr(H, "build_canonical_hash_index64", no_fit)
+    for mod in (H, TH):
+        monkeypatch.setattr(mod, "build_canonical_hash_index64", no_fit)
     for make in (lambda **kw: JaxPipeline(index, **kw),
-                 lambda **kw: SearchPipeline(index, device="cpu", **kw)):
+                 lambda **kw: SearchPipeline(port, device="cpu", **kw)):
         with pytest.raises(RuntimeError, match="needs the canonical hash table"):
             make()
 
@@ -395,10 +409,10 @@ def test_table_choice64_matches_jax(env, monkeypatch):
 def test_lowest_bin_fault_matches_jax(tmp_path):
     """The three-record DB whose lowest prefix bin holds one record that
     sorts after the next bin's first record: the reference folds it into the
-    next bin, and the shared 64-mer builders' slow path for that unsorted
-    bin raises OverflowError today (ROADMAP §C).  Both pipelines must fail
-    alike.  Once the shared module is fixed, both build their tables and
-    this test compares their bytes instead."""
+    next bin, and the 64-mer builders' slow path for that unsorted bin
+    raises OverflowError today in both packages (ROADMAP §C).  Both
+    pipelines must fail alike.  Once the builders are fixed, both build
+    their tables and this test compares their bytes instead."""
     w = np.zeros(3, W128)
     w["hi"] = [0xFF00000000, (1 << 40) | 0x10, (1 << 40) | 0x20]
     cfg = UTreeConfig(packsize=64, ixtype_bytes=4)
@@ -407,11 +421,26 @@ def test_lowest_bin_fault_matches_jax(tmp_path):
         jp = JaxPipeline(index, do_rc=True, batch_size=BATCH)
     except Exception as e:  # the fault: the port must raise the same type
         with pytest.raises(type(e)):
-            SearchPipeline(index, device="cpu", do_rc=True, batch_size=BATCH)
+            SearchPipeline(index_from_jax(index), device="cpu", do_rc=True,
+                           batch_size=BATCH)
         return
     reads = tmp_path / "r.fa"
     reads.write_bytes(b">r\n" + b"A" * 24 + b"C" * 6 + b"T" * 40 + b"\n")
     jp.search_file(str(reads), str(tmp_path / "j.txt"))
-    SearchPipeline(index, device="cpu", do_rc=True, batch_size=BATCH).search_file(
-        str(reads), str(tmp_path / "t.txt"))
+    SearchPipeline(index_from_jax(index), device="cpu", do_rc=True,
+                   batch_size=BATCH).search_file(str(reads), str(tmp_path / "t.txt"))
     assert (tmp_path / "j.txt").read_bytes() == (tmp_path / "t.txt").read_bytes()
+
+
+@pytest.mark.parametrize("case", ["auto", "displaced-replay", "long-reads"])
+def test_pipeline64_support_ranges_8(env, tmp_path, case):
+    """support_ranges=8 at PACKSIZE=64: the unpacked rows voted in Python
+    by both pipelines, over the 64-mer ladder or the displaced table, with
+    reads over hist_cap=1 replayed on the host, and with long reads."""
+    kw = {"auto": dict(reads="short.fa"),
+          "displaced-replay": dict(reads="short.fa", mode="displaced", hist_cap=1),
+          "long-reads": dict(reads="long.fa", hist_cap=2, threshold=SMALL_THRESHOLD)}[case]
+    got, want, pipe = _run_both(env, tmp_path, support_ranges=8, **kw)
+    assert pipe.layout == "unpacked" and pipe.support_ranges == 8
+    assert got == want and want.count(b"\n") > 40
+    assert max(ln.count(b"\t") for ln in want.splitlines()) == 11

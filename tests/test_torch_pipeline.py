@@ -2,8 +2,9 @@
 displaced device-vote pipeline: classifications.txt byte for byte.
 
 The DB comes from make_toy_db -> build_database -> DeviceIndexArrays.from_build
-(no oracle), and both pipelines search the same table: the port receives the
-JAX pipeline's `_table` through convert.tables_from_jax."""
+(no oracle); the port gets its own copy of that index through
+convert.index_from_jax, and both pipelines search the same table: the port
+receives the JAX pipeline's `_table` through convert.tables_from_jax."""
 
 import pathlib
 import subprocess
@@ -19,7 +20,7 @@ from utree_tpu.formats import write_ctr_from_ubt, write_ubt
 from utree_tpu.index import DeviceIndexArrays
 from utree_tpu.pipeline import SearchPipeline as JaxPipeline
 from utree_tpu.testdata import make_toy_db, make_toy_reads
-from utree_tpu_torch.convert import tables_from_jax
+from utree_tpu_torch.convert import index_from_jax, tables_from_jax
 from utree_tpu_torch.pipeline import SearchPipeline
 
 BATCH = 128
@@ -49,18 +50,19 @@ def db(tmp_path_factory):
     index = DeviceIndexArrays.from_build(res.words, res.ixs, res.labels.strings, cfg)
     write_ubt(str(wd / "db.ubt"), res.words, res.ixs, res.labels.strings, cfg)
     write_ctr_from_ubt(str(wd / "db.ubt"), str(wd / "db.ctr"), cfg)
-    return {"dir": wd, "index": index, "reads": str(wd / "reads.fa"),
-            "ctr": str(wd / "db.ctr"), "jax": {}}
+    return {"dir": wd, "index": index, "port": index_from_jax(index),
+            "reads": str(wd / "reads.fa"), "ctr": str(wd / "db.ctr"), "jax": {}}
 
 
-def _jax_run(db, do_rc, hist_cap=8, record_range=None):
+def _jax_run(db, do_rc, hist_cap=8, record_range=None, support_ranges=1):
     """The JAX pipeline's output bytes and its table (cached per config)."""
-    key = (do_rc, hist_cap, record_range)
+    key = (do_rc, hist_cap, record_range, support_ranges)
     if key not in db["jax"]:
         pipe = JaxPipeline(db["index"], do_rc=do_rc, batch_size=BATCH,
-                           hist_cap=hist_cap, lookup_mode="displaced")
-        assert pipe._devvote and pipe.table_kind == "displaced"
-        out = db["dir"] / f"jax_{do_rc}_{hist_cap}_{record_range}.txt"
+                           hist_cap=hist_cap, lookup_mode="displaced",
+                           support_ranges=support_ranges)
+        assert pipe._devvote == (support_ranges == 1) and pipe.table_kind == "displaced"
+        out = db["dir"] / f"jax_{do_rc}_{hist_cap}_{record_range}_{support_ranges}.txt"
         pipe.search_file(db["reads"], str(out), record_range=record_range)
         db["jax"][key] = (out.read_bytes(), tables_from_jax(pipe._table))
     return db["jax"][key]
@@ -68,7 +70,7 @@ def _jax_run(db, do_rc, hist_cap=8, record_range=None):
 
 def _port(db, do_rc, hist_cap=8, **kw):
     table = _jax_run(db, do_rc, hist_cap)[1]
-    return SearchPipeline(db["index"], device="cpu", do_rc=do_rc,
+    return SearchPipeline(db["port"], device="cpu", do_rc=do_rc,
                           batch_size=BATCH, hist_cap=hist_cap,
                           lookup_mode="displaced", _table=table, **kw)
 
@@ -140,7 +142,7 @@ def test_own_tables_equal_jax_tables(db):
     want_disp = _jax_run(db, True)[1]
     want_auto = tables_from_jax(JaxPipeline(db["index"], do_rc=True)._table)
     for mode, want in (("auto", want_auto), ("displaced", want_disp)):
-        got = SearchPipeline(db["index"], device="cpu", do_rc=True,
+        got = SearchPipeline(db["port"], device="cpu", do_rc=True,
                              lookup_mode=mode)._table
         assert sorted(got) == sorted(want), mode
         assert ("c1" if mode == "auto" else "d1") in got
@@ -158,49 +160,131 @@ def test_cli_search(db, tmp_path):
     assert out.read_bytes() == _jax_run(db, True)[0]
 
 
-def test_port_never_imports_jax():
-    code = ("import sys; import utree_tpu_torch.pipeline, utree_tpu_torch.cli, "
-            "utree_tpu_torch.kernels, utree_tpu_torch.convert, "
-            "utree_tpu_torch.lookup, utree_tpu_torch.classify_device, "
-            "utree_tpu_torch.hash_index, utree_tpu_torch.parallel.sharded, "
-            "utree_tpu.search_host, bench, chip_smoke; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax'))")
-    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+@pytest.mark.parametrize("host", [False, True], ids=["device", "host"])
+@pytest.mark.parametrize("support_ranges", [1, 8])
+def test_cli_support_ranges_and_host(db, tmp_path, capsys, support_ranges, host):
+    """`search --support-ranges 1|8`, on the device path (the compact
+    readback at 8) or with --host (search_host.search_file): the JAX
+    pipeline's bytes either way."""
+    from utree_tpu_torch.cli import main
+
+    out = tmp_path / "cli.txt"
+    main(["search", db["ctr"], db["reads"], str(out), "--rc", "--device", "cpu",
+          "--batch", str(BATCH), "--support-ranges", str(support_ranges), "--trace"]
+         + (["--host"] if host else []))
+    assert out.read_bytes() == _jax_run(db, True, support_ranges=support_ranges)[0]
+    printed = capsys.readouterr().out
+    assert ("layout:" in printed) != host
+    if not host:
+        assert f"layout: {'compact' if support_ranges == 8 else 'vote'}" in printed
+
+
+def test_cli_rank_specific_raises(db, tmp_path):
+    """--rank-specific (the shallow search) is the next host piece to port."""
+    from utree_tpu_torch.cli import main
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+        main(["search", db["ctr"], db["reads"], str(tmp_path / "o.txt"),
+              "--device", "cpu", "--rank-specific"])
+
+
+_REFUSING = r"""
+import importlib, importlib.abc, pathlib, pkgutil, sys
+
+REFUSED = ("utree_tpu", "bench", "jax", "jaxlib")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ModuleNotFoundError(f"refused: {name}", name=name)
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+import utree_tpu_torch
+
+mods = [m.name for m in pkgutil.walk_packages(utree_tpu_torch.__path__,
+                                              "utree_tpu_torch.")]
+for name in mods:
+    importlib.import_module(name)
+import chip_smoke
+from utree_tpu_torch.pipeline import SearchPipeline
+from utree_tpu_torch.search_host import search_file
+
+work = pathlib.Path(sys.argv[1])
+index, genome, rng = chip_smoke.make_tier(20_000, 16)
+chip_smoke.write_fasta(work / "r.fa", chip_smoke.make_reads(genome, rng, 300))
+for sr in (1, 8):
+    pipe = SearchPipeline(index, device="cpu", do_rc=True, batch_size=128,
+                          support_ranges=sr)
+    assert pipe.search_file(str(work / "r.fa"), str(work / "o.txt")) == 300
+    search_file(index.host_index(), str(work / "r.fa"), str(work / "h.txt"),
+                do_rc=True, support_ranges=sr)
+    got = (work / "o.txt").read_bytes()
+    assert got == (work / "h.txt").read_bytes() and got.count(b"\n") > 200
+assert not [m for m in sys.modules if m.split(".")[0] in REFUSED]
+print(len(mods), "modules")
+"""
+
+
+def test_port_never_imports_jax(tmp_path):
+    """In a fresh interpreter whose importer refuses utree_tpu, bench and
+    jax: every module of the port and chip_smoke import, and a tiny search
+    on chip_smoke's tier runs on the CPU and equals the port's host path."""
+    r = subprocess.run([sys.executable, "-c", _REFUSING, str(tmp_path)],
+                       capture_output=True, text=True, timeout=600,
                        cwd=pathlib.Path(__file__).resolve().parent.parent)
     assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[0]) > 20
 
 
 def test_cuda_device_without_gpu_raises(db):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: device='cuda' is valid here")
     with pytest.raises(RuntimeError, match="cuda"):
-        SearchPipeline(db["index"], device="cuda", do_rc=True)
+        SearchPipeline(db["port"], device="cuda", do_rc=True)
 
 
 @pytest.mark.parametrize("kw", [
     dict(lookup_mode="hash"), dict(lookup_mode="routed"),
     dict(devices=2), dict(support_ranges=8),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
-def test_unsupported_modes_raise(db, kw):
+def test_unsupported_modes_raise(db, tmp_path, kw):
+    """What is not ported raises NotImplementedError naming its ROADMAP
+    item.  support_ranges=8 is ported now: its case writes the JAX
+    pipeline's bytes (per-rank SUPPORT;RANGE columns) instead."""
+    if kw.get("support_ranges") == 8:
+        jax_out, port_out = tmp_path / "jax.txt", tmp_path / "port.txt"
+        JaxPipeline(db["index"], do_rc=True, batch_size=BATCH, lookup_mode="displaced",
+                    support_ranges=8).search_file(db["reads"], str(jax_out))
+        pipe = _port(db, True, support_ranges=8)
+        assert pipe.layout == "compact"
+        pipe.search_file(db["reads"], str(port_out))
+        assert port_out.read_bytes() == jax_out.read_bytes()
+        assert max(ln.count(b"\t") for ln in jax_out.read_bytes().splitlines()) == 11
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        SearchPipeline(db["index"], device="cpu", **kw)
+        SearchPipeline(db["port"], device="cpu", **kw)
 
 
 def test_explicit_lookup_mode_never_degrades(db):
     """The port's mirror of tests/test_device_pipeline.py's test of that
     name: PACKSIZE=64 has no bsearch replay, so an explicit bsearch raises
     ValueError in both pipelines rather than taking another table."""
-    from chip_smoke import index64
+    from chip_smoke import lowest_bin_drop
 
     rng = np.random.default_rng(3)
     words = np.zeros(400, [("hi", "<u8"), ("lo", "<u8")])
     words["hi"] = np.sort(rng.integers(0, 1 << 64, 400, dtype=np.uint64))
     words["lo"] = rng.integers(0, 1 << 64, 400, dtype=np.uint64)
-    idx64 = index64(words, rng.integers(0, 9, 400), [b"l%d" % i for i in range(9)])
+    drop = lowest_bin_drop(words)
+    idx64 = DeviceIndexArrays.from_build(words[drop:], rng.integers(0, 9, 400 - drop),
+                                         [b"l%d" % i for i in range(9)],
+                                         UTreeConfig(packsize=64, ixtype_bytes=4))
     for make in (lambda: JaxPipeline(idx64, lookup_mode="bsearch", batch_size=8),
-                 lambda: SearchPipeline(idx64, device="cpu", lookup_mode="bsearch",
-                                        batch_size=8)):
+                 lambda: SearchPipeline(index_from_jax(idx64), device="cpu",
+                                        lookup_mode="bsearch", batch_size=8)):
         with pytest.raises(ValueError, match="unsupported for PACKSIZE=64"):
             make()
 
@@ -235,13 +319,14 @@ def test_unsupported_databases_raise(db):
     rng = np.random.default_rng(1)
     words = np.unique(rng.integers(0, 1 << 64, 2000, dtype=np.uint64))
     n_lab = 0xFFFF
-    wide = DeviceIndexArrays.from_build(
+    wide = index_from_jax(DeviceIndexArrays.from_build(
         words, rng.integers(0, n_lab, len(words)), [b"l%d" % i for i in range(n_lab)],
-        UTreeConfig(ixtype_bytes=4))
+        UTreeConfig(ixtype_bytes=4)))
     pipe = SearchPipeline(wide, device="cpu")
     assert pipe.table_kind == "canonical" and pipe.layout == "unpacked"
     assert pipe._table["c1"].shape[1] % 4 == 0
     k64 = dataclasses.replace(db["index"], config=UTreeConfig(packsize=64))
-    for make in (lambda: JaxPipeline(k64), lambda: SearchPipeline(k64, device="cpu")):
+    for make in (lambda: JaxPipeline(k64),
+                 lambda: SearchPipeline(index_from_jax(k64), device="cpu")):
         with pytest.raises(RuntimeError, match="needs the canonical hash table"):
             make()

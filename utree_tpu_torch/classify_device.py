@@ -1,8 +1,12 @@
 """Aufbau vote on the device: counterpart of `utree_tpu/classify_device.py`.
 
-The label tables come from the shared numpy builder
-`utree_tpu.classify_device.build_aufbau_tables`; this module moves them to a
-device and runs the walk:
+The GG vote (itree.c:1028-1098) is a character-level walk over a read's
+unique hit labels sorted by taxonomy string.  Its character probes depend
+only on the label strings, so `build_aufbau_tables` (numpy, the port's copy
+of the JAX package's builder) precomputes per label: string-sort ranks, a
+range-min sparse table over adjacent-rank LCPs, ';' / '_' bitmasks, sorted
+';' positions and lengths.  This module moves them to a device and runs the
+walk:
 
   vote_rows  -> K3 `csrc/aufbau.cu` (plain: aufbau_walk + pack_vote)
 
@@ -14,9 +18,11 @@ point at padding.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
-from utree_tpu.classify_device import DV_EMPTY, DV_FULL, DV_INTERP, AufbauTables
 from utree_tpu_torch import kernels
 from utree_tpu_torch._u32 import M, floor_log2, i32, jax_index, u32
 
@@ -24,10 +30,78 @@ _U32_M1 = 0xFFFFFFFF
 _U32_M2 = 0xFFFFFFFE
 VOTE_TABLE_KEYS = ("rank", "st", "slen", "semi", "und", "spos")
 
+# dv sentinel codes returned in the packed result
+DV_INTERP = 0   # toprint = rep string cut at dv chars
+DV_EMPTY = 1    # dv == (uint32)-1: toprint = ""
+DV_FULL = 2     # dv == (uint32)-2: toprint = full rep string
+
+
+@dataclasses.dataclass
+class AufbauTables:
+    """Per-label integer metadata for the device walk (host numpy)."""
+
+    rank_of_label: np.ndarray  # (L,) int32: position in string-sorted order
+    st_tab: np.ndarray  # (nlev, L) int32 range-min sparse table over adj lcps
+    slen: np.ndarray  # (L,) int32
+    semi_mask: np.ndarray  # (L, W) uint32, bit p%32 of word p//32 = ';' at p
+    und_mask: np.ndarray  # (L, W) uint32, same for '_'
+    semi_pos: np.ndarray  # (L, R) int32 sorted ';' positions, pad = BIG
+    max_len: int
+
+    BIG = np.int32(0x3FFFFFFF)
+
+
+def build_aufbau_tables(strings: list[bytes]) -> AufbauTables:
+    """The walk's per-label tables for `strings` (label id order)."""
+    L = len(strings)
+    order = sorted(range(L), key=lambda i: strings[i])
+    rank_of_label = np.zeros(L, np.int32)
+    for r, i in enumerate(order):
+        rank_of_label[i] = r
+    max_len = max((len(s) for s in strings), default=0)
+    # adjacent-rank LCPs
+    adj = np.zeros(max(L, 1), np.int32)
+    for r in range(1, L):
+        a, b = strings[order[r - 1]], strings[order[r]]
+        m = min(len(a), len(b))
+        p = 0
+        while p < m and a[p] == b[p]:
+            p += 1
+        adj[r] = p
+    nlev = max(1, int(np.ceil(np.log2(max(L, 2)))) + 1)
+    st_tab = np.zeros((nlev, max(L, 1)), np.int32)
+    st_tab[0] = adj
+    for j in range(1, nlev):
+        h = 1 << (j - 1)
+        shifted = np.minimum(np.arange(max(L, 1)) + h, max(L, 1) - 1)
+        st_tab[j] = np.minimum(st_tab[j - 1], st_tab[j - 1][shifted])
+    slen = np.array([len(s) for s in strings], np.int32).reshape(L)
+    W = max(1, (max_len + 31) // 32)
+    semi_mask = np.zeros((L, W), np.uint32)
+    und_mask = np.zeros((L, W), np.uint32)
+    max_semis = 1
+    for i, s in enumerate(strings):
+        for p, ch in enumerate(s):
+            if ch == 0x3B:
+                semi_mask[i, p // 32] |= np.uint32(1) << np.uint32(p % 32)
+            elif ch == 0x5F:
+                und_mask[i, p // 32] |= np.uint32(1) << np.uint32(p % 32)
+        max_semis = max(max_semis, s.count(b";"))
+    R = max_semis + 1
+    semi_pos = np.full((L, R), int(AufbauTables.BIG), np.int32)
+    for i, s in enumerate(strings):
+        k = 0
+        for p, ch in enumerate(s):
+            if ch == 0x3B:
+                semi_pos[i, k] = p
+                k += 1
+    return AufbauTables(rank_of_label, st_tab, slen, semi_mask, und_mask,
+                        semi_pos, max_len)
+
 
 def aufbau_tables_to_device(tab: AufbauTables, device) -> dict[str, torch.Tensor]:
-    """The walk's tables as int32 tensors on `device`, under the keys of
-    `AufbauTables.device_put`.  The u32 bitmasks travel as their int32 bits."""
+    """The walk's tables as int32 tensors on `device`, under the keys of the
+    JAX package's `AufbauTables.device_put`.  The u32 bitmasks travel as their int32 bits."""
     return {
         "rank": torch.from_numpy(tab.rank_of_label).to(device),
         "st": torch.from_numpy(tab.st_tab).to(device),

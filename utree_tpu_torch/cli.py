@@ -1,14 +1,14 @@
-"""Command line of the port (counterpart of `utree_tpu/cli.py`, device
-search branch):
+"""Command line of the port (counterpart of `utree_tpu/cli.py`, search):
 
   python -m utree_tpu_torch.cli search <db.ctr> <reads.fa> <out.txt>
       [--rc] [--batch N] [--lookup-mode auto|canonical|displaced|bsearch]
-      [--resume] [--trace]
+      [--support-ranges 1|8] [--host] [--resume] [--trace]
       [--device cuda|cpu]
 
-The other subcommands and search flags of `utree_tpu.cli` are not ported
-yet (ROADMAP A.6); `build` and `compress` are backend-neutral and stay with
-`python -m utree_tpu.cli`.
+`--host` runs the exact host search (`search_host.search_file`); a DB of a
+PACKSIZE other than 32 or 64 takes it too.  `--rank-specific` and the other
+search flags of `utree_tpu.cli` are not ported yet (ROADMAP A.6); `build`
+and `compress` stay with `python -m utree_tpu.cli`.
 """
 
 from __future__ import annotations
@@ -17,33 +17,53 @@ import argparse
 
 
 def _cmd_search(a):
-    from utree_tpu.formats import sniff_config
-    from utree_tpu.index import DeviceIndexArrays
-    from utree_tpu.utils.trace import PhaseTimer
-    from utree_tpu_torch.pipeline import SearchPipeline
+    from utree_tpu_torch.formats import sniff_config
+    from utree_tpu_torch.utils.trace import PhaseTimer
 
-    tm = PhaseTimer(quiet=True) if a.trace else None
+    if a.rank_specific:
+        raise NotImplementedError(
+            "--rank-specific (the shallow search, native/shallow.cpp and "
+            "ShallowVoter) is not ported yet (ROADMAP A.6)")
+    tm = PhaseTimer(quiet=True)
     cfg = sniff_config(a.db)
-    if tm:
+    if cfg.packsize not in (32, 64) and not a.host:
+        # the device window extractor implements the 32/64-mer geometries;
+        # small-k DBs (PACKSIZE=16) run the exact host path instead
+        print(f"note: PACKSIZE={cfg.packsize} DB -> host search path "
+              "(device path implements k=32/64)")
+        a.host = True
+    if a.host:
+        from utree_tpu_torch.search_host import HostIndex, search_file
+
+        with tm.phase("load-db"):
+            idx = HostIndex.from_ctr(a.db, cfg)
+        with tm.phase("search"):
+            n = search_file(idx, a.reads, a.out, do_rc=a.rc,
+                            support_ranges=a.support_ranges)
+        tm.count("reads", n)
+        where = "the host"
+    else:
+        from utree_tpu_torch.index import DeviceIndexArrays
+        from utree_tpu_torch.pipeline import SearchPipeline
+
         with tm.phase("load-db"):
             idx = DeviceIndexArrays.from_ctr(a.db, cfg)
         with tm.phase("build-table"):
             pipe = SearchPipeline(idx, device=a.device, do_rc=a.rc,
                                   batch_size=a.batch, lookup_mode=a.lookup_mode,
-                                  tracer=tm)
+                                  support_ranges=a.support_ranges,
+                                  tracer=tm if a.trace else None)
         with tm.phase("search"):
             n = pipe.search_file(a.reads, a.out, resume=a.resume)
-        print(f"table_kind: {pipe.table_kind}")
+        where = pipe.device
+        if a.trace:
+            print(f"table_kind: {pipe.table_kind}, layout: {pipe.layout}")
+    if a.trace:
         for name, dt in tm.phases.items():
             print(f"{name} [{dt:.3f}s]")
         rps = tm.rate("reads", "search")
         if rps:
-            print(f"throughput: {rps:,.0f} reads/s on {pipe.device}")
-    else:
-        idx = DeviceIndexArrays.from_ctr(a.db, cfg)
-        pipe = SearchPipeline(idx, device=a.device, do_rc=a.rc,
-                              batch_size=a.batch, lookup_mode=a.lookup_mode)
-        n = pipe.search_file(a.reads, a.out, resume=a.resume)
+            print(f"throughput: {rps:,.0f} reads/s on {where}")
     print(f"Searched {n} queries -> {a.out}")
 
 
@@ -63,6 +83,14 @@ def main(argv=None):
                         "below 80M records, the displaced table from 80M; "
                         "bsearch = the exact replay over the CTR records, "
                         "PACKSIZE=32 only)")
+    s.add_argument("--support-ranges", dest="support_ranges", type=int, choices=(1, 8),
+                   default=1, help="SUPPORT;RANGE pairs per line: 1 = the reference "
+                   "binary's output (itree.c:1096), 8 = the README-documented "
+                   "per-rank variant (compact readback, voted on the host)")
+    s.add_argument("--host", action="store_true",
+                   help="the exact host (NumPy) search instead of the device")
+    s.add_argument("--rank-specific", dest="rank_specific", action="store_true",
+                   help="utree-search (non-GG) vote: not ported yet")
     s.add_argument("--resume", action="store_true",
                    help="resume an interrupted search from its .ckpt sidecar")
     s.add_argument("--trace", action="store_true",

@@ -1,10 +1,33 @@
 """Hand state from the JAX package to the port, so both compute on the same
-tables.  Takes plain host arrays, so this module imports no JAX itself."""
+database and tables.  Takes plain host arrays read by attribute, so this
+module imports nothing of the JAX package."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from utree_tpu_torch.config import UTreeConfig
+from utree_tpu_torch.index import DeviceIndexArrays
+
+
+def index_from_jax(arrays) -> DeviceIndexArrays:
+    """The port's index holding copies of a JAX package `DeviceIndexArrays`'
+    NumPy fields and config."""
+    cfg = UTreeConfig(**{f.name: getattr(arrays.config, f.name)
+                         for f in dataclasses.fields(UTreeConfig)})
+
+    def copy(a):
+        return None if a is None else np.array(a, copy=True)
+
+    return DeviceIndexArrays(
+        bin_ix=copy(arrays.bin_ix), suf_hi=copy(arrays.suf_hi),
+        suf_lo=copy(arrays.suf_lo), ix=copy(arrays.ix),
+        strings=list(arrays.strings), semicolons=copy(arrays.semicolons),
+        probe_iters=int(arrays.probe_iters), config=cfg,
+        s_hi64=copy(arrays.s_hi64), s_lo64=copy(arrays.s_lo64))
 
 
 def tables_from_jax(table: dict) -> dict[str, torch.Tensor]:

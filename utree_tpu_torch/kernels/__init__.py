@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the search step and their launch counts.
 
-Seven kernels in eleven entry points (sources in `utree_tpu_torch/csrc/`):
+Eight kernels in twelve entry points (sources in `utree_tpu_torch/csrc/`):
 
   K1 scan_probe[_wide]    packed reads -> ids, displaced table (lookup.window_ids)
   K4 ladder_probe[_wide]  packed reads -> ids, canonical ladder (lookup.window_ids)
@@ -10,6 +10,7 @@ Seven kernels in eleven entry points (sources in `utree_tpu_torch/csrc/`):
   K2 histogram            ids -> compact histograms        (lookup.histogram)
      histogram_packed     ids -> (B, cap+1) packed rows    (lookup.histogram_packed)
      histogram_unpacked   ids -> (B, 2*cap+2) rows         (lookup.histogram_unpacked)
+  K8 hist_compact         packed rows -> compact readback  (lookup.hist_compact)
   K3 aufbau_vote          histograms -> 12 B/read votes    (classify_device.vote_rows)
 
 `_wide` takes 4-column slots (IXTYPE=u32 label ids).  Each wrapper calls
@@ -24,7 +25,8 @@ from utree_tpu_torch.kernels.build import build, check, library
 
 KERNELS = ("scan_probe", "scan_probe_wide", "ladder_probe", "ladder_probe_wide",
            "bsearch_probe", "scan_probe64", "ladder_probe64",
-           "histogram", "histogram_packed", "histogram_unpacked", "aufbau_vote")
+           "histogram", "histogram_packed", "histogram_unpacked", "hist_compact",
+           "aufbau_vote")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

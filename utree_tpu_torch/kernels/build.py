@@ -55,6 +55,8 @@ SIGNATURES = {
     "utree_histogram": [P, I64, I32, I32, I32, P, P, P, P, P],
     "utree_histogram_packed": _HIST_ROWS,
     "utree_histogram_unpacked": _HIST_ROWS,
+    # rows, B, cap, over_cap, tile counts (scratch), out, stream
+    "utree_hist_compact": [P, I64, I32, I32, P, P, P],
     "utree_aufbau_vote": [P, P, P, P, I64, I32,
                           P, P, I32, I32, P, P, P, I32, P, I32,
                           I32, I32, P, P],

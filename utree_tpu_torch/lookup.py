@@ -22,6 +22,7 @@ masked to 32 bits (see `_u32`), and a wrapper:
   histogram           -> K2 `csrc/histogram.cu`    (plain: compact_histogram)
   histogram_packed    -> K2, (B, cap+1) rows       (plain: pack_hist)
   histogram_unpacked  -> K2, (B, 2*cap+2) rows     (plain: unpacked_hist)
+  hist_compact        -> K8 `csrc/hist_compact.cu` (plain: compact_rows)
 
 A wrapper takes the plain version only for tensors on the CPU.  For a CUDA
 tensor it launches the kernel or raises; nothing falls back.
@@ -550,6 +551,46 @@ def histogram_unpacked(ids: torch.Tensor, num_labels: int, cap: int) -> torch.Te
     return _hist_rows("histogram_unpacked", ids, num_labels, cap, 2 * cap + 2)
 
 
+def compact_rows(rows: torch.Tensor, over_cap: int) -> torch.Tensor:
+    """Plain version of K8: the epilogue of `search_step_hist_compact`
+    (utree_tpu/lookup.py:751-766) over (B, cap+1) `pack_hist` rows.
+    Returns one flat int32 vector of 2B + (over_cap+1)*(cap+1) entries: per
+    read (tail, lc0), then an (over_cap+1, cap+1) block whose [0, 0] is
+    n_over, the true count of reads with nuniq >= 2, and whose rows
+    1..min(n_over, over_cap) are (read_id, lc[0..cap-1]) of those reads in
+    read order; rows past over_cap are dropped."""
+    b, c1 = rows.shape
+    dev = rows.device
+    lc, tail = rows[:, :c1 - 1], rows[:, c1 - 1]
+    main = torch.stack([tail, lc[:, 0]], dim=1)
+    flag = (tail & 31) >= 2  # includes the cap+1 overflow sentinel
+    pos = torch.cumsum(flag.to(torch.int64), 0) - 1
+    dest = torch.where(flag & (pos < over_cap), pos + 1, over_cap + 1)
+    full = torch.cat([torch.arange(b, dtype=torch.int32, device=dev)[:, None], lc], dim=1)
+    over = torch.zeros((over_cap + 1, c1), dtype=torch.int32, device=dev)
+    keep = dest <= over_cap  # JAX's scatter with mode="drop"
+    over[dest[keep]] = full[keep]
+    over[0, 0] = flag.sum().to(torch.int32)
+    return torch.cat([main.reshape(-1), over.reshape(-1)])
+
+
+def hist_compact(rows: torch.Tensor, over_cap: int) -> torch.Tensor:
+    """K8 `hist_compact` on CUDA tensors; `compact_rows` on CPU tensors."""
+    if rows.device.type == "cpu":
+        return compact_rows(rows, over_cap)
+    dev = rows.device
+    kernels.require(rows, "rows", torch.int32, 2, dev)
+    b, c1 = rows.shape
+    if not 2 <= c1 <= 31 or over_cap < 1:
+        raise ValueError(f"hist_compact: cap {c1 - 1} or over_cap {over_cap} out of range")
+    out = torch.empty(2 * b + (over_cap + 1) * c1, dtype=torch.int32, device=dev)
+    tile_counts = torch.empty(max(1, -(-b // 1024)), dtype=torch.int32, device=dev)
+    kernels.launch("hist_compact", rows.data_ptr(), b, c1 - 1, over_cap,
+                   tile_counts.data_ptr(), out.data_ptr(),
+                   torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
 # ---- the device steps --------------------------------------------------------
 # `table` holds d1/ds/d3, c1/c2/c3 or bin_ix/suf_hi/suf_lo/ix (and, for the
 # vote, the vote tables under `vt_*` keys); `probe_iters` is read by the
@@ -581,6 +622,21 @@ def search_step_hist_packed(table: dict, packed, vbits, lengths, *,
                      num_labels=num_labels, true_len=true_len,
                      probe_iters=probe_iters)
     return histogram_packed(ids, num_labels, cap)
+
+
+def search_step_hist_compact(table: dict, packed, vbits, lengths, *,
+                             do_rc: bool, bad_ix: int, num_labels: int,
+                             cap: int, over_cap: int, true_len: int | None = None,
+                             probe_iters: int | None = None) -> torch.Tensor:
+    """Packed reads -> the compact readback vector (`compact_rows`): probe,
+    K2 histogram_packed, K8 hist_compact.  A batch with more than over_cap
+    reads of 2+ labels loses the rows past over_cap; its header still holds
+    the true count, and the pipeline redispatches it through
+    `search_step_hist_packed`."""
+    return hist_compact(search_step_hist_packed(
+        table, packed, vbits, lengths, do_rc=do_rc, bad_ix=bad_ix,
+        num_labels=num_labels, cap=cap, true_len=true_len,
+        probe_iters=probe_iters), over_cap)
 
 
 def search_step_hist_packed_in(table: dict, packed, vbits, lengths, *,

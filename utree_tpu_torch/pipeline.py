@@ -1,7 +1,7 @@
 """End-to-end GG search on one device: counterpart of `utree_tpu/pipeline.py`.
 
   host:   the C++ FASTA scanner packs reads to 2 bits (PACKSIZE=32) or to
-          an ASCII (B, L) matrix (PACKSIZE=64) (shared native code);
+          an ASCII (B, L) matrix (PACKSIZE=64) (`native.FastaScanner`);
   device: one step per batch over the table `lookup_mode` resolves to, as
           the JAX pipeline resolves it.  PACKSIZE=32: the canonical ladder
           (K4 ladder_probe) below 80M records under `auto`, the displaced
@@ -11,17 +11,25 @@
           fits a DB below 80M records.  PACKSIZE=64: the 64-mer ladder (K6
           ladder_probe64) below 80M records, the 64-mer displaced table (K5
           scan_probe64) from 80M or when asked for;
-  readback, by the JAX pipeline's step choice:
-          PACKSIZE=32, narrow labels of <= 2047 chars: K2 histogram + K3
-            aufbau_vote, 12 B/read vote rows (lookup.search_step_vote_compact);
-          PACKSIZE=32, narrow labels of 2048+ chars: K2 histogram_packed,
-            (B, cap+1) rows voted by the shared C `VoteEngine.vote_packed`;
-          wide labels, and PACKSIZE=64 at any label width: K2
-            histogram_unpacked, (B, 2*cap+2) rows voted by
-            `VoteEngine.vote_batch_pooled`;
+  readback (`layout`), by the JAX pipeline's step choice:
+          "vote": PACKSIZE=32, narrow labels of <= 2047 chars, support 1,
+            device_vote: K2 histogram + K3 aufbau_vote, 12 B/read vote
+            rows (lookup.search_step_vote_compact);
+          "compact": PACKSIZE=32, narrow labels, no device vote (support 8,
+            labels of 2048+ chars, or device_vote=False): K2
+            histogram_packed + K8 hist_compact, 8 B/read plus a block of
+            full rows for the reads of 2+ labels (search_step_hist_compact);
+            a batch with more such reads than the block holds is
+            redispatched through the full rows;
+          "packed": the same without compact_readback, (B, cap+1) rows;
+          "unpacked": wide labels, and PACKSIZE=64 at any label width: K2
+            histogram_unpacked, (B, 2*cap+2) rows;
   host:   reads the device flagged (more unique labels than hist_cap, or
-          fields too wide) are replayed exactly on the host; the shared C
-          formatter writes the lines.
+          fields too wide) are replayed exactly on the host.  At
+          support_ranges=1 the C formatter (`native.VoteEngine`) votes and
+          writes the lines; at support_ranges=8 (per-rank SUPPORT;RANGE
+          columns) every read is voted in Python
+          (`classify.aufbau_vote_counts`), as the JAX pipeline does.
 
 Reads over `long_read_threshold` are cut into chunks (`split_long_read`)
 whose histograms go through the histogram step, merge on the host and take
@@ -33,21 +41,23 @@ that copy's CUDA event, `queue_depth` batches later.  Output bytes equal the
 JAX pipeline's in every layout.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item (nothing falls back silently): the modes in `_TODO`, `devices > 1`
-(A.9) and `support_ranges=8` (A.6).
+item (nothing falls back silently): the modes in `_TODO` and `devices > 1`
+(A.9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import pathlib
 
 import numpy as np
 import torch
 
-from utree_tpu.index import DeviceIndexArrays
+from utree_tpu_torch.index import DeviceIndexArrays
 from utree_tpu_torch.lookup import (WIDE_LABELS, pack_reads_host,
                                     search_step_hist,
+                                    search_step_hist_compact,
                                     search_step_hist_packed,
                                     search_step_hist_packed_in,
                                     search_step_vote_compact)
@@ -88,11 +98,14 @@ def _bucket_len64(n: int, minimum: int = 64) -> int:
 class _Readback:
     """One dispatched batch: its int32 rows, on their way to the host.  On
     CUDA `rows` is a pinned host tensor filled by a non-blocking copy that
-    `event` marks done; on the CPU the rows are already there."""
+    `event` marks done; on the CPU the rows are already there.  A compact
+    batch also carries `redo`, which dispatches its inputs again through the
+    full rows (held until the batch drains)."""
 
     def __init__(self, rows: torch.Tensor, event=None):
         self.rows = rows
         self.event = event
+        self.redo = None
 
     def wait(self) -> np.ndarray:
         if self.event is not None:
@@ -109,8 +122,11 @@ class SearchPipeline:
     def __init__(self, index: DeviceIndexArrays, *, device="cuda",
                  do_rc: bool = False, batch_size: int = 8192,
                  hist_cap: int = 8, lookup_mode: str = "auto",
-                 support_ranges: int = 1, devices: int | None = None,
-                 tracer=None, _table: dict | None = None):
+                 support_ranges: int = 1, device_vote: bool = True,
+                 compact_readback: bool = True,
+                 compact_over_cap: int | None = None,
+                 devices: int | None = None, tracer=None,
+                 _table: dict | None = None):
         cfg = index.config
         if not 1 <= hist_cap <= 30:
             raise ValueError(
@@ -136,45 +152,48 @@ class SearchPipeline:
             raise NotImplementedError(
                 f"PACKSIZE={cfg.packsize}: the port runs the 32-mer and "
                 "64-mer device paths only")
-        if support_ranges != 1:
-            raise NotImplementedError(
-                "support_ranges=8 (per-rank SUPPORT;RANGE columns) is not "
-                "ported yet (ROADMAP A.6)")
+        if support_ranges not in (1, 8):
+            raise ValueError(f"support_ranges={support_ranges}: use 1 or 8")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "device='cuda' but torch.cuda.is_available() is False")
 
-        from utree_tpu.native import VoteEngine, fasta_lib
+        # the C++ scanner and formatter; a failed g++ build raises here (the
+        # port has no Python path for them)
+        from utree_tpu_torch.native import VoteEngine, fasta_lib
 
-        eng = VoteEngine(index.strings, cfg.taxacut)
-        if not eng.available or fasta_lib() is None:
-            raise RuntimeError(
-                "the native vote formatter / FASTA scanner did not build "
-                "(utree_tpu.native needs g++); the port has no Python path")
-        self._vote_engine = eng
+        fasta_lib()
+        self._vote_engine = VoteEngine(index.strings, cfg.taxacut)
         self.index = index
         self.do_rc = do_rc
         self.batch_size = batch_size
         self.hist_cap = hist_cap
         self.lookup_mode = lookup_mode
+        self.support_ranges = support_ranges
         self.tracer = tracer
         # reads travel 2-bit packed at PACKSIZE=32 and as ASCII at 64; the
         # u16-packed histogram lanes need narrow labels and packed input
         # (utree_tpu/pipeline.py:314-315)
         self._packed = cfg.packsize == 32
         packed_out = self._packed and index.num_labels < WIDE_LABELS
+        # the readback layout, resolved as utree_tpu/pipeline.py:314-410
+        # resolves its step: the device vote needs u16 label lanes, one
+        # SUPPORT;RANGE pair and labels that fit its 11-bit dv lane
         vtab = None
-        if packed_out:
-            from utree_tpu.classify_device import build_aufbau_tables
+        if packed_out and device_vote and support_ranges == 1:
+            from utree_tpu_torch.classify_device import build_aufbau_tables
 
             vtab = build_aufbau_tables(index.strings)
-        # the readback layout (utree_tpu/pipeline.py:314-394): the device vote
-        # needs u16 label lanes and labels that fit its 11-bit dv lane
+            if vtab.max_len > 2047:
+                vtab = None
         if not packed_out:
             self.layout = "unpacked"
-        elif vtab.max_len <= 2047:
+        elif vtab is not None:
             self.layout = "vote"
+        elif compact_readback:
+            self.layout = "compact"
+            self._over_cap = compact_over_cap or max(64, batch_size // 8)
         else:
             self.layout = "packed"
         if _table is None:
@@ -205,54 +224,52 @@ class SearchPipeline:
             self._step = functools.partial(search_step_vote_compact,
                                            taxacut=cfg.taxacut,
                                            max_iters=max_iters, **kw)
+        elif self.layout == "compact":
+            self._step = functools.partial(search_step_hist_compact,
+                                           over_cap=self._over_cap, **kw)
         else:
             self._step = self._step_hist
         self._table = table
 
     def _build_table(self, index: DeviceIndexArrays, mode: str) -> dict:
         """The device table `mode` resolves to, as utree_tpu/pipeline.py:180-288
-        resolves it, with its exception types and messages; the shared numpy
-        code places the hash tables."""
+        resolves it, with its exception types and messages; the numpy
+        placement of `hash_index` / `hash_index64` builds the hash tables."""
         from utree_tpu_torch import hash_index as hi
+        from utree_tpu_torch import hash_index64 as h64
 
         n = index.num_records
         want_displaced = mode == "displaced" or (
             mode == "auto" and n >= _DISPLACED_AUTO_MIN)
         if index.config.packsize == 64:
-            from utree_tpu.hash_index64 import (build_canonical_hash_index64,
-                                                build_displaced_index64)
-
             if want_displaced:
                 try:
-                    return hi.displaced64_to_device(build_displaced_index64(index),
+                    return hi.displaced64_to_device(h64.build_displaced_index64(index),
                                                     self.device)
                 except (ValueError, RuntimeError) as e:
                     if mode == "displaced":
                         raise RuntimeError(
                             f"--lookup-mode displaced cannot be honored: {e}") from e
             try:
-                return hi.canonical64_to_device(build_canonical_hash_index64(index),
+                return hi.canonical64_to_device(h64.build_canonical_hash_index64(index),
                                                 self.device)
             except (ValueError, RuntimeError) as e:
                 raise RuntimeError(
                     "PACKSIZE=64 device search needs the canonical hash "
                     f"table, which this DB cannot build ({e}); use the "
                     "host path (search --host)") from e
-        from utree_tpu.hash_index import (build_canonical_hash_index,
-                                          build_displaced_index)
-
         if mode in ("canonical", "displaced") or (
                 mode == "auto" and n < _HASH_AUTO_MAX):
             if want_displaced:
                 try:
-                    return hi.displaced_to_device(build_displaced_index(index),
+                    return hi.displaced_to_device(hi.build_displaced_index(index),
                                                   self.device)
                 except (ValueError, RuntimeError) as e:
                     if mode == "displaced":
                         raise RuntimeError(
                             f"--lookup-mode displaced cannot be honored: {e}") from e
             try:
-                return hi.canonical_to_device(build_canonical_hash_index(index),
+                return hi.canonical_to_device(hi.build_canonical_hash_index(index),
                                               self.device)
             except (ValueError, RuntimeError) as e:
                 if mode == "canonical":
@@ -310,9 +327,12 @@ class SearchPipeline:
         k = self.index.config.packsize
         tl = int(lens.max()) if len(lens) else k
         tl = min(max(k, (tl + 7) & ~7), packed.shape[1] * 4)
-        return self._readback((step or self._step)(
-            self._table, self._to_device(packed), self._to_device(vbits),
-            self._to_device(lens.astype(np.int32)), true_len=tl))
+        args = (self._table, self._to_device(packed), self._to_device(vbits),
+                self._to_device(lens.astype(np.int32)))
+        handle = self._readback((step or self._step)(*args, true_len=tl))
+        if step is None and self.layout == "compact":
+            handle.redo = lambda: self._readback(self._step_hist(*args, true_len=tl))
+        return handle
 
     def dispatch_matrix(self, reads: np.ndarray, lengths: np.ndarray,
                         step=None) -> _Readback:
@@ -333,7 +353,7 @@ class SearchPipeline:
         """Every hit label id of one read (forward + RC when do_rc), by the
         exact xtSuffixBS replay on the host arrays (itree.c:699-730); the
         104-bit suffixes of PACKSIZE=64 go through `search_host.lookup_words`."""
-        from utree_tpu.encode import search_window_words
+        from utree_tpu_torch.encode import search_window_words
 
         cfg = self.index.config
         words = search_window_words(seq, cfg.packsize, self.do_rc)
@@ -341,7 +361,7 @@ class SearchPipeline:
             return np.zeros(0, np.int64)
         idx = self.index
         if idx.s_hi64 is not None:  # PACKSIZE=64: the host index's replay
-            from utree_tpu.search_host import lookup_words
+            from utree_tpu_torch.search_host import lookup_words
 
             if not hasattr(self, "_hidx"):
                 self._hidx = idx.host_index()
@@ -369,11 +389,41 @@ class SearchPipeline:
 
     # ---- rows -> lines ----------------------------------------------------------
 
+    def _phase(self, name: str):
+        return self.tracer.phase(name) if self.tracer is not None else contextlib.nullcontext()
+
     def _wait_rows(self, handle: _Readback) -> np.ndarray:
-        if self.tracer is not None:
-            with self.tracer.phase("drain:d2h-wait"):
-                return handle.wait()
-        return handle.wait()
+        with self._phase("drain:d2h-wait"):
+            return handle.wait()
+
+    def _rows(self, handle: _Readback) -> np.ndarray:
+        """A batch's rows on the host; the compact vector is rebuilt into
+        the full (B, cap+1) rows first."""
+        arr = self._wait_rows(handle)
+        if self.layout != "compact":
+            return arr
+        with self._phase("drain:unpack"):
+            return self._decompact(handle, arr)
+
+    def _decompact(self, handle: _Readback, arr: np.ndarray) -> np.ndarray:
+        """The full (B, cap+1) rows from the compact readback vector
+        (lookup.search_step_hist_compact), as utree_tpu/pipeline.py:572-600
+        rebuilds them.  When the block was too small for this batch's reads
+        of 2+ labels, the batch is redispatched through the full rows."""
+        cap, oc = self.hist_cap, self._over_cap
+        b = (arr.size - (oc + 1) * (cap + 1)) // 2
+        main = arr[:2 * b].reshape(b, 2)
+        over = arr[2 * b:].reshape(oc + 1, cap + 1)
+        n_over = int(over[0, 0])
+        if n_over > oc:
+            return self._wait_rows(handle.redo())
+        mat = np.zeros((b, cap + 1), np.int32)
+        mat[:, cap] = main[:, 0]  # tail: nuniq | found<<5
+        mat[:, 0] = main[:, 1]    # first histogram slot
+        if n_over:
+            rows = over[1:1 + n_over]
+            mat[rows[:, 0], :cap] = rows[:, 1:]
+        return mat
 
     def _replay(self, rows: np.ndarray, seq_of):
         """Exact host histograms of the reads `rows`, as an override CSR
@@ -389,30 +439,29 @@ class SearchPipeline:
         return (offsets, np.concatenate(ls) if ls else np.zeros(0, np.int32),
                 np.concatenate(cs) if cs else np.zeros(0, np.int32))
 
-    def _vote(self, fn, *args) -> bytes:
-        if self.tracer is not None:
-            with self.tracer.phase("drain:vote"):
-                return fn(*args)
-        return fn(*args)
-
     def _format_devvote(self, count, name_pool, name_offsets, handle,
                         seq_of) -> bytes:
         """Device-vote rows: replay the flagged reads on the host into an
         override CSR, then format every line in C."""
         u = self._wait_rows(handle).view(np.uint32).reshape(-1, 3)[:count]
         flags = np.flatnonzero((u[:, 0] >> 24) & 1).astype(np.int64)
-        return self._vote(self._vote_engine.format_device_vote, count, name_pool,
-                          name_offsets, u, flags, *self._replay(flags, seq_of))
+        replay = self._replay(flags, seq_of)
+        with self._phase("drain:vote"):
+            return self._vote_engine.format_device_vote(count, name_pool, name_offsets,
+                                                        u, flags, *replay)
 
     def _vote_packed(self, count, name_pool, name_offsets, handle,
                      seq_of) -> bytes:
-        """(B, cap+1) `pack_hist` rows straight to `utree_vote_packed`
-        (unpack + vote + format in C); over-cap reads take the override CSR."""
-        u = self._wait_rows(handle).view(np.uint32)[:count]
+        """(B, cap+1) `pack_hist` rows (or the compact vector rebuilt into
+        them) straight to `utree_vote_packed` (unpack + vote + format in C);
+        over-cap reads take the override CSR."""
+        u = self._rows(handle).view(np.uint32)[:count]
         cap = self.hist_cap
         over = np.flatnonzero((u[:, cap] & 31) > cap).astype(np.int64)
-        return self._vote(self._vote_engine.vote_packed, count, name_pool,
-                          name_offsets, u, cap, over, *self._replay(over, seq_of))
+        replay = self._replay(over, seq_of)
+        with self._phase("drain:vote"):
+            return self._vote_engine.vote_packed(count, name_pool, name_offsets,
+                                                 u, cap, over, *replay)
 
     def _vote_unpacked(self, count, name_pool, name_offsets, handle,
                        seq_of) -> bytes:
@@ -444,11 +493,43 @@ class SearchPipeline:
                 else:
                     flat_l[a:b] = labels[i, : nu[i]]
                     flat_c[a:b] = counts[i, : nu[i]]
-        return self._vote(self._vote_engine.vote_batch_pooled, count, name_pool,
-                          name_offsets, offsets, flat_l, flat_c)
+        with self._phase("drain:vote"):
+            return self._vote_engine.vote_batch_pooled(count, name_pool, name_offsets,
+                                                       offsets, flat_l, flat_c)
+
+    def _vote_py(self, count, name_pool, name_offsets, handle, seq_of) -> bytes:
+        """support_ranges=8: every read voted in Python
+        (`classify.aufbau_vote_counts`), as the JAX pipeline's `finalize`
+        votes it; over-cap reads are replayed on the host.  The names are the
+        pool's NUL-terminated strings, in read order."""
+        from utree_tpu_torch.classify import aufbau_vote_counts
+
+        labels, counts, nuniq, _ = self._unpack(self._rows(handle)[:count])
+        names = name_pool.split(b"\x00")
+        strings, taxacut, cap = self.index.strings, self.index.config.taxacut, self.hist_cap
+        out = []
+        with self._phase("drain:vote"):
+            for i in range(count):
+                nu = int(nuniq[i])
+                if nu == 0:
+                    continue
+                if nu <= cap:
+                    ks, vs = labels[i, :nu], counts[i, :nu]
+                else:  # device cap overflow: this read's exact histogram
+                    cnt = np.bincount(self._host_hits(seq_of(i)))
+                    ks = np.flatnonzero(cnt)
+                    vs = cnt[ks]
+                line = aufbau_vote_counts(names[i], ks, vs, strings, taxacut,
+                                          self.support_ranges)
+                if line is not None:
+                    out.append(line + b"\n")
+        return b"".join(out)
 
     def _format(self, *args) -> bytes:
-        return {"vote": self._format_devvote, "packed": self._vote_packed,
+        if self.support_ranges != 1:
+            return self._vote_py(*args)
+        return {"vote": self._format_devvote, "compact": self._vote_packed,
+                "packed": self._vote_packed,
                 "unpacked": self._vote_unpacked}[self.layout](*args)
 
     def _unpack(self, arr: np.ndarray):
@@ -471,7 +552,7 @@ class SearchPipeline:
         yield the read's exact hit multiset), their histograms through the
         histogram step, merged on the host (an over-cap chunk replayed
         exactly), then one vote (utree_tpu/pipeline.py:824-852)."""
-        from utree_tpu.classify import aufbau_vote_counts
+        from utree_tpu_torch.classify import aufbau_vote_counts
         from utree_tpu_torch.parallel.sharded import split_long_read
 
         k = self.index.config.packsize
@@ -494,14 +575,14 @@ class SearchPipeline:
         ks = np.array(sorted(agg), np.int64)
         vs = np.array([agg[int(x)] for x in ks], np.int64)
         return aufbau_vote_counts(name, ks, vs, self.index.strings,
-                                  self.index.config.taxacut, 1)
+                                  self.index.config.taxacut, self.support_ranges)
 
     # ---- streaming search -----------------------------------------------------
 
     def _iter_fasta_pieces(self, reads_path: str, tm):
         """FastaScanner pieces covering the file in order, cut at record
         boundaries ('\\n>'); .gz inputs stream through zlib."""
-        from utree_tpu.native import FastaScanner
+        from utree_tpu_torch.native import FastaScanner
 
         chunk_bytes = max(1 << 16, self.stream_chunk_bytes)
         if str(reads_path).endswith(".gz"):
@@ -543,8 +624,8 @@ class SearchPipeline:
         committed batch (sidecar <out>.ckpt); record_range=(lo, hi) processes
         only that slice of the file's records.  Output bytes equal an
         uninterrupted run's and the JAX pipeline's."""
-        from utree_tpu.utils.checkpoint import SearchCheckpoint
-        from utree_tpu.utils.trace import PhaseTimer
+        from utree_tpu_torch.utils.checkpoint import SearchCheckpoint
+        from utree_tpu_torch.utils.trace import PhaseTimer
 
         tm = self.tracer if self.tracer is not None else PhaseTimer(quiet=True)
         ckpt = SearchCheckpoint(out_path)

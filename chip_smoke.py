@@ -50,9 +50,18 @@ Phases; each passes or the script exits non-zero:
    support 8 and every line's first five fields equal to phase 4's; the
    same with a 64-row overflow block, which redispatches every batch, byte
    for byte; support_ranges=1 with device_vote=False (compact rows, the C
-   vote), whose output must equal phase 4's byte for byte.
+   vote), whose output must equal phase 4's byte for byte;
+12. xtree: a synthetic reference set (`xtree_refs`: 64 references of
+   312,500 bp, one line each, about 20M pods at k=29) through the port's
+   build_xtree_db, a .xtr write and read back; XtreeAligner(device="cuda")
+   (the displaced table over the pods, K9 xtree_probe) and the host engine
+   (device=None); K9 against its plain version at (8192, 192); ALIGN of
+   262,144 queries of 150 bp (2% mutation, 10% random) with perq, ref, tax
+   and cov out, twice through K9 and once through the host engine, every
+   output byte-identical; the first 32,768 queries with --redistribute on
+   both; queries/s of each and where the time goes.
 
-Every path run (phases 4, 6-11) starts with every launch count at 0 and
+Every path run (phases 4, 6-12) starts with every launch count at 0 and
 reads them just after; each kernel its path needs must have launched.
 Prints the card line, a {"kernels": [...]} JSON line and, last, the
 {"ok": true, "device": {...}} line.  Imports nothing of JAX or of the JAX
@@ -63,6 +72,7 @@ port's own.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -85,6 +95,11 @@ LONG_SHORT_READS = 8192
 LONG_READS = 16
 LONG_BP = (20_000, 1_000_000)  # shortest and longest long read
 LONG64_BP = (20_000, 200_000)  # phase 9's four long reads
+XT_REFS, XT_REF_LEN = 64, 312_500  # phase 12's references (about 20M pods)
+XT_QUERIES = 262_144
+XT_REDIST_QUERIES = 32_768
+XT_K = 29
+XT_OUTS = ("perq", "ref", "tax", "cov")
 
 # launches summed over the path runs (each one counted from 0)
 PATH_LAUNCHES: dict[str, int] = {}
@@ -819,8 +834,240 @@ def phase_compact(dev, base: dict, work: pathlib.Path):
                  "readback_bytes": nbytes(vec), "full_bytes": nbytes(rows)}
 
 
+def xtree_refs(refs_fa: pathlib.Path, map_path: pathlib.Path, refs: int,
+               ref_len: int, seed: int = 5, lineages: int = 10):
+    """A synthetic xtree reference set, as utree_tpu.testdata.make_toy_db
+    lays it out: `refs` random references of ref_len bases (0.2% N), one
+    line each, every odd one sharing its first third with the one before
+    (shared pods: ambiguous runs, deep calls); a 3-column map of
+    `lineages` six-rank lineages with a species each and `func__<i % 4>`.
+    Returns the (refs, ref_len) uint8 genomes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    genomes = rng.choice(np.frombuffer(ACGT, np.uint8), (refs, ref_len))
+    genomes[rng.random(genomes.shape) < 0.002] = ord("N")
+    for i in range(1, refs, 2):
+        genomes[i, :ref_len // 3] = genomes[i - 1, :ref_len // 3]
+    with open(refs_fa, "wb") as fa, open(map_path, "wb") as mp:
+        for i in range(refs):
+            lin = i % lineages
+            tax = (b"k__Bacteria;p__phy%d;c__cls%d;o__ord%d;f__fam%d;g__gen%d;s__sp%d"
+                   % (lin % 3, lin % 5, lin, lin, lin, i))
+            fa.write(b">ref%04d\n" % i + genomes[i].tobytes() + b"\n")
+            mp.write(b"ref%04d\t" % i + tax + b"\tfunc__%d\n" % (i % 4))
+    return genomes
+
+
+def xtree_queries(path: pathlib.Path, genomes, n: int, seed: int = 6):
+    """tools/bench_align.py's query mix: 150 bp from the references, 2%
+    mutation, 10% random.  Writes `>q<i>` records; returns the (n, 150)
+    matrix."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(ACGT, np.uint8)
+    which = rng.integers(0, genomes.shape[0], n)
+    starts = rng.integers(0, genomes.shape[1] - READ_LEN, n)
+    q = genomes[which[:, None], starts[:, None] + np.arange(READ_LEN)]
+    mut = rng.random(q.shape) < 0.02
+    q[mut] = rng.choice(acgt, int(mut.sum()))
+    rand = rng.random(n) < 0.10
+    q[rand] = rng.choice(acgt, (int(rand.sum()), READ_LEN))
+    with open(path, "wb") as f:
+        f.write(b"".join(b">q%d\n" % i + q[i].tobytes() + b"\n" for i in range(n)))
+    return q
+
+
+def valid_windows(reads, lens, k: int):
+    """(B, T-k+1) bool: the windows of k ACGT bases within each length."""
+    import numpy as np
+
+    ok = np.isin(reads, np.frombuffer(b"ACGTacgt", np.uint8))
+    ok &= np.arange(reads.shape[1])[None, :] < lens[:, None]
+    bad = np.concatenate([np.zeros((len(reads), 1), np.int64),
+                          np.cumsum(~ok, axis=1)], axis=1)
+    return bad[:, k:] - bad[:, :-k] == 0
+
+
+@contextlib.contextmanager
+def timed(tm, *targets):
+    """Within the block each (owner, name, label) callable adds its
+    synchronised wall time to tm's phase `label`; restored after.  The
+    instrumentation of phase 12's breakdown."""
+    import torch
+
+    saved = [(owner, name, vars(owner).get(name)) for owner, name, _ in targets]
+
+    def wrap(fn, label):
+        def wrapper(*args, **kw):
+            with tm.phase(label):
+                out = fn(*args, **kw)
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+            return out
+        return wrapper
+
+    for owner, name, label in targets:
+        setattr(owner, name, wrap(getattr(owner, name), label))
+    try:
+        yield tm
+    finally:
+        for owner, name, old in saved:
+            if old is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, old)
+
+
+def phase_xtree(dev, work: pathlib.Path):
+    """Phase 12: xtree BUILD and ALIGN, the device front end (K9) against
+    the host engine."""
+    import numpy as np
+    import torch
+
+    from utree_tpu_torch import native
+    from utree_tpu_torch.utils.trace import PhaseTimer
+    from utree_tpu_torch.xtree.align import AlignOptions, XtreeAligner
+    from utree_tpu_torch.xtree.build import build_xtree_db, read_xtr, write_xtr
+    from utree_tpu_torch.xtree.device import xtree_step, xtree_step_plain
+
+    refs_fa, map_path = work / "xt_refs.fa", work / "xt_tax.map"
+    genomes = xtree_refs(refs_fa, map_path, XT_REFS, XT_REF_LEN)
+    queries = xtree_queries(work / "xt_queries.fa", genomes, XT_QUERIES)
+    sub_fa = work / "xt_queries_redist.fa"
+    with open(sub_fa, "wb") as f:
+        f.write(b"".join(b">q%d\n" % i + queries[i].tobytes() + b"\n"
+                         for i in range(XT_REDIST_QUERIES)))
+    t = time.perf_counter()
+    db = build_xtree_db(str(refs_fa), str(map_path), k=XT_K, comp=0)
+    build_s = time.perf_counter() - t
+    xtr = work / "xt_db.xtr"
+    t = time.perf_counter()
+    write_xtr(db, str(xtr))
+    back = read_xtr(str(xtr))
+    io_s = time.perf_counter() - t
+    size = xtr.stat().st_size
+    xtr.unlink()
+    for f in ("bin_offsets", "sfx", "rix", "ref_names", "h_strings", "num_refs",
+              "h_pairs"):
+        a, b = getattr(db, f), getattr(back, f)
+        same = (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                else all(map(np.array_equal, a, b)) if f == "h_pairs" else a == b)
+        if not same:
+            fail(f"xtree: {f} differs after the .xtr round trip")
+    log(f"xtree: {db.num_refs} refs x {XT_REF_LEN:,} bp, {db.num_kmers:,} pods at "
+        f"k={XT_K}; build {build_s:.1f} s; .xtr of {size:,} B written and read back "
+        f"in {io_s:.1f} s, identical")
+    del back
+    t = time.perf_counter()
+    host = XtreeAligner(db, device=None)
+    host_s = time.perf_counter() - t
+    t = time.perf_counter()
+    al = XtreeAligner(db, device=dev)
+    dev_s = time.perf_counter() - t
+    tab = al.tables
+    log(f"xtree: host engine set-up {host_s:.1f} s; device index {dev_s:.1f} s, "
+        f"{al._dev_index.num_entries:,} entries, "
+        + ", ".join(f"{k} {tuple(v.shape)}" for k, v in tab.items()))
+
+    # K9 at the main path's chunk shape: 8192 queries of 150 bp in rows of 192
+    b = min(al.chunk_queries, len(queries))
+    rows = np.zeros((b, 192), np.uint8)
+    rows[:, :READ_LEN] = queries[:b]
+    lens_np = np.full(b, READ_LEN, np.int32)
+    rt, lt = torch.from_numpy(rows).to(dev), torch.from_numpy(lens_np).to(dev)
+    kw = dict(k=al.k, sl=al.sl)
+    out = xtree_step(tab, rt, lt, **kw)
+    valid = torch.from_numpy(valid_windows(rows, lens_np, al.k)).to(dev)
+    nvalid = int(valid.sum())
+    misses = int((valid & (out[0] < 0) & (out[1] < 0)).sum())
+    # the queries, the four outputs, and per valid window one 32 B d1 row
+    # and one seed-word sector (the seed table read at most once), plus a
+    # d3 sector per window that misses d1 and d3 alike (a lower count of
+    # the tail's reads: a d3 hit is not told apart from a d1 hit)
+    tail = min(nbytes(tab["d3"]), SECTOR * misses) if tab["d3"].shape[0] > 8 else 0
+    moved = (nbytes(rt, lt, *out) + min(nbytes(tab["d1"]), SECTOR * nvalid)
+             + min(nbytes(tab["ds"]), SECTOR * nvalid) + tail)
+    row = check_kernel("xtree_probe", "xtree_probe.cu", "utree_tpu/xtree/device.py:178",
+                       lambda: xtree_step(tab, rt, lt, **kw),
+                       lambda: xtree_step_plain(tab, rt, lt, **kw),
+                       f"B={b}, T=192, k={al.k}", moved)
+    hits = int((out[0] >= 0).sum() + (out[1] >= 0).sum())
+    log(f"xtree K9 batch: {nvalid:,} valid windows, {hits:,} strand hits, "
+        f"{misses:,} windows missing on both strands")
+    del out, rt, lt, valid
+
+    def opts(tag, **kw):
+        return AlignOptions(**{f"{o}_out": str(work / f"xt_{tag}.{o}") for o in XT_OUTS},
+                            **kw)
+
+    def outputs(tag):
+        return [(work / f"xt_{tag}.{o}").read_bytes() for o in XT_OUTS]
+
+    def align(aligner, tag: str, label: str):
+        """One ALIGN of every query with each output; its queries/s and
+        breakdown: the record scan, the front end (the C scan, or the
+        device step: pad, h2d, K9, d2h, scan-order rebuild), the ref tally
+        and the writers; the rest is the taxonomy calls and the per-query
+        tail."""
+        tm = PhaseTimer(quiet=True)
+        targets = [(native, "xt_scan_queries", "record scan"),
+                   (aligner, "_batch_ref_tally", "ref tally"),
+                   (aligner, "_write_outputs", "writers")]
+        if aligner._dev_step is None:
+            targets.append((native, "xt_scan_hits", "front end"))
+        else:
+            targets += [(aligner, "_batch_hits_device", "front end"),
+                        (aligner, "_dev_step", "front end: K9")]
+        with timed(tm, *targets):
+            t = time.perf_counter()
+            aligner.align_file(str(work / "xt_queries.fa"), opts(tag))
+            dt = time.perf_counter() - t
+        rest = dt - sum(v for k, v in tm.phases.items() if k != "front end: K9")
+        stats[label] = {"queries_per_s": XT_QUERIES / dt, "seconds": dt,
+                        "phases": {**tm.phases, "rest": rest}}
+        log(f"xtree {label}: {XT_QUERIES} queries in {dt:.3f} s = "
+            f"{XT_QUERIES / dt:,.0f} queries/s; phases "
+            + ", ".join(f"{k} {v:.3f}s" for k, v in tm.phases.items())
+            + f", rest {rest:.3f}s")
+        return dt
+
+    stats = {}
+    align(host, "host", "host engine")
+    want = outputs("host")
+    if want[0].count(b"\n") != XT_QUERIES or b"\tNo matches found" not in want[0]:
+        fail("xtree: the host engine's perq output is not one line a query")
+    best = 0.0
+    for p in range(2):
+        dt = drive(f"xtree e2e pass {p + 1}", ("xtree_probe",),
+                   lambda: align(al, "dev", f"device pass {p + 1}"))
+        for o, g, w in zip(XT_OUTS, outputs("dev"), want):
+            if g != w:
+                fail(f"xtree pass {p + 1}: the device front end's {o} output differs "
+                     "from the host engine's")
+        log(f"xtree pass {p + 1}: perq, ref, tax, cov byte-identical to the host engine")
+        best = max(best, XT_QUERIES / dt)
+    stats["device_queries_per_s"] = best
+
+    # --redistribute on the first XT_REDIST_QUERIES queries, both engines
+    for tag, aligner, expect in (("rhost", host, ()), ("rdev", al, ("xtree_probe",))):
+        t = time.perf_counter()
+        drive(f"xtree redistribute ({tag})", expect, lambda: aligner.align_file(
+            str(sub_fa), opts(tag, do_redist=True)))
+        stats[f"redistribute {tag[1:]}"] = {"seconds": time.perf_counter() - t}
+    if outputs("rdev") != outputs("rhost"):
+        fail("xtree --redistribute: the device front end's outputs differ from the "
+             "host engine's")
+    log(f"xtree redistribute: {XT_REDIST_QUERIES} queries, perq, ref, tax, cov "
+        f"byte-identical (device {stats['redistribute dev']['seconds']:.3f} s, host "
+        f"{stats['redistribute host']['seconds']:.3f} s)")
+    stats.update(build_s=build_s, device_index_s=dev_s, pods=db.num_kmers)
+    return row, stats
+
+
 def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
-    """Phases 3-11 on `dev`; returns what main() checks and prints."""
+    """Phases 3-12 on `dev`; returns what main() checks and prints."""
     from utree_tpu_torch.classify_device import (aufbau_tables_to_device,
                                                  build_aufbau_tables)
     from utree_tpu_torch.hash_index import displaced_to_device
@@ -866,11 +1113,13 @@ def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
     kern += k64_rows
     compact_row, compact = phase_compact(dev, base, work)
     kern.append(compact_row)
+    xt_row, xtree = phase_xtree(dev, work)
+    kern.append(xt_row)
     for k in kern:
         k["launches"] = PATH_LAUNCHES.get(k["name"], 0)
     return {"kernels": kern, "displaced_rps": best, "ladder": ladder,
             "wide": wide, "long": long, "bsearch": bsearch, "k64": k64,
-            "compact": compact}
+            "compact": compact, "xtree": xtree}
 
 
 def main() -> int:
@@ -928,7 +1177,9 @@ def main() -> int:
         f"reads {res['k64']['long']['bases_per_s']:,.0f} bases/s; compact "
         f"support 8 {res['compact']['support8_reads_per_s']:,.0f}, compact C "
         f"vote {res['compact']['cvote_reads_per_s']:,.0f} reads/s; {a.kmers} "
-        f"k-mers, RC, batch {BATCH}, on {card}")
+        f"k-mers, RC, batch {BATCH}; xtree ALIGN ({res['xtree']['pods']:,} pods) "
+        f"device front end {res['xtree']['device_queries_per_s']:,.0f}, host engine "
+        f"{res['xtree']['host engine']['queries_per_s']:,.0f} queries/s; on {card}")
     print(json.dumps({"kernels": res["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from chip_smoke import (index64, make_reads, make_tier, tier64, tier_kmers,
-                        tier_labels, write_fasta)
+                        tier_labels, write_fasta, xtree_refs)
 from utree_tpu_torch import kernels
 from utree_tpu_torch import lookup as tl
 from utree_tpu_torch.classify_device import (aufbau_tables_to_device,
@@ -457,3 +457,108 @@ def test_cuda_pipeline_equals_cpu_pipeline(tmp_path, dev, labels, mode):
         assert launched == (_PATHS[labels, mode] if device == "cuda" else set())
     assert outs["cuda"] == outs["cpu"]
     assert outs["cpu"].count(b"\n") > 700
+
+
+@pytest.fixture(scope="module")
+def xt_refs(dev, tmp_path_factory):
+    """chip_smoke's xtree reference set at 8 x 3000 bp, plus one line of
+    28 bp reverse-complement palindromes (palindromic pods at every even
+    k).  Returns (dir, genomes, palindrome line)."""
+    wd = tmp_path_factory.mktemp("xt")
+    genomes = xtree_refs(wd / "refs.fa", wd / "tax.map", 8, 3000, seed=3)
+    rng = np.random.default_rng(4)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    pal = b""
+    for _ in range(30):
+        half = rng.choice(acgt, 14).tobytes()
+        pal += half + half[::-1].translate(bytes.maketrans(b"ACGT", b"TGCA")) + b"GATTACA"
+    with open(wd / "refs.fa", "ab") as f:
+        f.write(b">palref\n" + pal + b"\n")
+    with open(wd / "tax.map", "ab") as f:
+        f.write(b"palref\tk__Bacteria;p__phy0;c__cls0;o__ord0;f__fam0;g__gen0;s__pal"
+                b"\tfunc__0\n")
+    return wd, genomes, np.frombuffer(pal, np.uint8)
+
+
+def _xt_batch(genomes, pal, n, seed, dev, width=192, padded=5):
+    """ASCII queries of 150 bp (a tenth over the palindromes) with N's,
+    lower case, random rows and ragged lengths; the last `padded` rows have
+    length 0, as a chunk's padding rows do."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    which = rng.integers(0, len(genomes), n)
+    starts = rng.integers(0, genomes.shape[1] - 150, n)
+    reads = np.zeros((n, width), np.uint8)
+    reads[:, :150] = genomes[which[:, None], starts[:, None] + np.arange(150)]
+    on_pal = rng.random(n) < 0.1
+    ps = rng.integers(0, len(pal) - 150, int(on_pal.sum()))
+    reads[on_pal, :150] = pal[ps[:, None] + np.arange(150)]
+    reads[rng.random(reads.shape) < 0.005] = ord("N")
+    reads[rng.random(reads.shape) < 0.02] |= 0x20
+    rand = rng.random(n) < 0.1
+    reads[rand, :150] = rng.choice(acgt, (int(rand.sum()), 150))
+    lens = np.full(n, 150, np.int32)
+    lens[::4] = rng.integers(10, 150, len(lens[::4]))
+    lens[n - padded:] = 0
+    reads[np.arange(width)[None, :] >= lens[:, None]] = 0
+    return torch.from_numpy(reads).to(dev), torch.from_numpy(lens).to(dev)
+
+
+@pytest.mark.parametrize("k", [14, 16, 20, 28, 29])
+def test_k9_xtree_probe_matches_plain(xt_refs, dev, k):
+    """K9 equals its plain version on all four matrices, on a built DB's
+    table (hits on both strands, palindromes at even k) and on random
+    tables whose d3 tail is probed by every window."""
+    from utree_tpu_torch.xtree.align import XtreeAligner
+    from utree_tpu_torch.xtree.build import build_xtree_db
+    from utree_tpu_torch.xtree.device import xtree_step, xtree_step_plain
+
+    wd, genomes, pal = xt_refs
+    al = XtreeAligner(build_xtree_db(str(wd / "refs.fa"), str(wd / "tax.map"), k=k),
+                      device=dev)
+    reads, lens = _xt_batch(genomes, pal, 3000, k, dev)
+    rng = np.random.default_rng(k)
+    rand = {name: torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, shape)
+                                   .astype(np.int32)).to(dev)
+            for name, shape in (("d1", (4096, 8)), ("ds", (1024,)), ("d3", (64, 16)))}
+    kw = dict(k=k, sl=k - 13)
+    for tables in (al.tables, rand):
+        n0 = kernels.launches["xtree_probe"]
+        got = xtree_step(tables, reads, lens, **kw)
+        assert kernels.launches["xtree_probe"] == n0 + 1
+        want = xtree_step_plain(tables, reads, lens, **kw)
+        assert all(g.shape == (3000, 192 - k + 1) and torch.equal(g, w)
+                   for g, w in zip(got, want))
+    sf, sr, pf, pr = xtree_step(al.tables, reads, lens, **kw)
+    assert int((sf >= 0).sum()) > 1000
+    assert bool(((sf == sr) & (sf >= 0) & (pf == pr)).any()) == (k % 2 == 0)
+
+
+@pytest.mark.parametrize("redist", [False, True])
+def test_xtree_align_cuda_equals_host(xt_refs, dev, tmp_path, redist):
+    """ALIGN through K9 writes the host engine's perq, ref, tax and cov
+    bytes, 97 queries a chunk, with and without redistribution; every chunk
+    launched K9."""
+    from utree_tpu_torch.xtree.align import AlignOptions, XtreeAligner
+    from utree_tpu_torch.xtree.build import build_xtree_db
+
+    wd, genomes, pal = xt_refs
+    reads, lens = _xt_batch(genomes, pal, 1000, 11, dev, padded=0)
+    reads, lens = reads.cpu().numpy(), lens.cpu().numpy()
+    with open(tmp_path / "q.fa", "wb") as f:
+        for i in range(len(reads)):
+            f.write(b">q%d extra words\n" % i + reads[i, :lens[i]].tobytes() + b"\n")
+    db = build_xtree_db(str(wd / "refs.fa"), str(wd / "tax.map"), k=29)
+    outs = {}
+    for device in (None, dev):
+        al = XtreeAligner(db, device=device)
+        al.chunk_queries = 97
+        n0 = kernels.launches["xtree_probe"]
+        al.align_file(str(tmp_path / "q.fa"), AlignOptions(
+            confidence=0.9, do_redist=redist,
+            **{f"{o}_out": str(tmp_path / f"{device}.{o}") for o in ("perq", "ref", "tax", "cov")}))
+        assert kernels.launches["xtree_probe"] - n0 == (0 if device is None else 11)
+        outs[device] = [(tmp_path / f"{device}.{o}").read_bytes()
+                        for o in ("perq", "ref", "tax", "cov")]
+    assert outs[dev] == outs[None]
+    assert outs[None][0].count(b"\n") == 1000

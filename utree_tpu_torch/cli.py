@@ -1,14 +1,22 @@
-"""Command line of the port (counterpart of `utree_tpu/cli.py`, search):
+"""Command line of the port (counterpart of `utree_tpu/cli.py`, search and
+the xtree tool):
 
   python -m utree_tpu_torch.cli search <db.ctr> <reads.fa> <out.txt>
       [--rc] [--batch N] [--lookup-mode auto|canonical|displaced|bsearch]
       [--support-ranges 1|8] [--host] [--resume] [--trace]
       [--device cuda|cpu]
+  python -m utree_tpu_torch.cli xtree-build --seqs fa --db-out db
+      [--map m --comp c --k k]
+  python -m utree_tpu_torch.cli xtree-align --db db --seqs q
+      [--confidence f --perq-out --ref-out --tax-out --cov-out --orthog-out
+       --redistribute --fast-redistribute --shallow-lca]
+      [--device cuda|cpu] [--host]
 
-`--host` runs the exact host search (`search_host.search_file`); a DB of a
-PACKSIZE other than 32 or 64 takes it too.  `--rank-specific` and the other
-search flags of `utree_tpu.cli` are not ported yet (ROADMAP A.6); `build`
-and `compress` stay with `python -m utree_tpu.cli`.
+`--host` runs the exact host search (`search_host.search_file`) or the
+xtree host engine (no device front end); a DB of a PACKSIZE other than 32
+or 64 takes the host search too.  `--rank-specific` and the other search
+flags of `utree_tpu.cli` are not ported yet (ROADMAP A.6); `build` and
+`compress` stay with `python -m utree_tpu.cli`.
 """
 
 from __future__ import annotations
@@ -67,6 +75,36 @@ def _cmd_search(a):
     print(f"Searched {n} queries -> {a.out}")
 
 
+def _cmd_xtree_build(a):
+    from utree_tpu_torch.xtree.build import build_xtree_db, write_xtr
+
+    db = build_xtree_db(a.seqs, a.map, k=a.k, comp=a.comp)
+    write_xtr(db, a.db_out)
+    print(f"Built xtree DB: {db.num_refs} refs, {db.num_kmers} k-mers -> {a.db_out}")
+
+
+def _cmd_xtree_align(a):
+    from utree_tpu_torch.xtree.align import AlignOptions, XtreeAligner
+    from utree_tpu_torch.xtree.build import read_xtr
+
+    conf, n_uniq = 0.33, 0
+    if a.confidence is not None:
+        if a.confidence <= 1:
+            conf = a.confidence
+        else:
+            n_uniq = int(a.confidence)
+    al = XtreeAligner(read_xtr(a.db), device=None if a.host else a.device)
+    al.align_file(a.seqs, AlignOptions(
+        confidence=conf, n_uniq_matches=n_uniq,
+        do_full_lca=not a.shallow_lca,
+        do_redist=a.redistribute or a.fast_redistribute,
+        do_fast_redist=a.fast_redistribute,
+        perq_out=a.perq_out, ref_out=a.ref_out, tax_out=a.tax_out,
+        cov_out=a.cov_out, orthog_out=a.orthog_out,
+    ))
+    print("All outputs written.")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="utree_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -98,6 +136,30 @@ def main(argv=None):
     s.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda runs the CUDA kernels; cpu their plain versions")
     s.set_defaults(fn=_cmd_search)
+
+    xb = sub.add_parser("xtree-build", help="xtree BUILD equivalent")
+    xb.add_argument("--seqs", required=True)
+    xb.add_argument("--map")
+    xb.add_argument("--db-out", dest="db_out", required=True)
+    xb.add_argument("--k", type=int, default=29)
+    xb.add_argument("--comp", type=int, default=0)
+    xb.set_defaults(fn=_cmd_xtree_build)
+
+    xa = sub.add_parser("xtree-align", help="xtree ALIGN equivalent on a GPU")
+    xa.add_argument("--db", required=True)
+    xa.add_argument("--seqs", required=True)
+    xa.add_argument("--confidence", type=float)
+    for flag in ("perq", "ref", "tax", "cov", "orthog"):
+        xa.add_argument(f"--{flag}-out", dest=f"{flag}_out")
+    xa.add_argument("--redistribute", action="store_true")
+    xa.add_argument("--fast-redistribute", dest="fast_redistribute", action="store_true")
+    xa.add_argument("--shallow-lca", dest="shallow_lca", action="store_true")
+    xa.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="the k-mer front end: cuda runs kernel K9, cpu its "
+                         "plain version (host voting either way)")
+    xa.add_argument("--host", action="store_true",
+                    help="the host engine (C++ scan) instead of the device front end")
+    xa.set_defaults(fn=_cmd_xtree_align)
     a = p.parse_args(argv)
     a.fn(a)
 

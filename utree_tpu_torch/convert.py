@@ -1,5 +1,5 @@
 """Hand state from the JAX package to the port, so both compute on the same
-database and tables.  Takes plain host arrays read by attribute, so this
+database and tables (the utree index, the xtree DB, the device tables).  Takes plain host arrays read by attribute, so this
 module imports nothing of the JAX package."""
 
 from __future__ import annotations
@@ -42,3 +42,20 @@ def tables_from_jax(table: dict) -> dict[str, torch.Tensor]:
             a = a.view(np.int32)
         out[k] = torch.from_numpy(np.array(a, copy=True))
     return out
+
+
+def xtree_db_from_jax(db):
+    """The port's XtreeDB holding copies of a JAX package `XtreeDB`'s
+    arrays, names and hierarchies (an `.xtr` written by either reads in
+    either)."""
+    from utree_tpu_torch.xtree.build import XtreeDB
+
+    def copy(v):
+        if isinstance(v, np.ndarray):
+            return np.array(v, copy=True)
+        if isinstance(v, (list, tuple)):
+            return type(v)(copy(x) for x in v)
+        return v
+
+    return XtreeDB(**{f.name: copy(getattr(db, f.name))
+                      for f in dataclasses.fields(XtreeDB)})

@@ -1,12 +1,14 @@
 // The front half shared by the probe kernels (K1 scan_probe, K4
-// ladder_probe): one (read, window) -> its canonical 32-mer key, the 32-bit
-// mixes the table placement uses, the slot compare over one gathered row, and
-// the dual-value decode into per-window label ids.
+// ladder_probe, K9 xtree_probe): one (read, window) -> its canonical 32-mer
+// key, the 32-bit mixes the table placement uses, the slot compare over one
+// gathered row, the displaced-table probe, and the dual-value decode into
+// per-window label ids.
 //
 // Twins (utree_tpu/lookup.py): base_codes_packed :39 + extract_windows :83
 // (window_at), _rev2_32 :113, rc_word_lanes :123 and canonical_keys :243
 // (canonical), _mix_jnp :188 (mix32), probe_rows :292 / probe_rows_wide :306
-// (probe_row), decode_canonical_vals :335 / decode_canonical_wide :322 and
+// (probe_row), displaced_probe_raw :887 (displaced_probe),
+// decode_canonical_vals :335 / decode_canonical_wide :322 and
 // the [ix_a | ix_b] concat of _canonical_family_ix :921 (write_ids).
 // Arithmetic is true uint32, wrapping exactly as the jnp.uint32 code.
 #pragma once
@@ -103,6 +105,29 @@ __device__ __forceinline__ Raw probe_row(const int32_t* row, int nslots, const K
     int32_t a = e[2];
     int32_t b = CPS == 4 ? e[3] : 0;
     if (e[0] == k.klo && e[1] == k.khi && (a | b) != 0) r = Raw{a, b};
+  }
+  return r;
+}
+
+// One probe of the seeded-displacement table (displaced_probe_raw): the u8
+// seed of the key's bucket, one 2-slot d1 row at the seeded slot, then on a
+// miss the d3 tail, unless d3 is the 8-row "absent" sentinel.
+template <int CPS>
+__device__ __forceinline__ Raw displaced_probe(const Key& k, const int32_t* d1,
+                                               int64_t nslots, const int32_t* ds,
+                                               int64_t nseed, const int32_t* d3,
+                                               int64_t n3, int32_t s3) {
+  uint32_t bkt = fold_hash(k) & static_cast<uint32_t>(nseed - 1);
+  uint32_t seed = (static_cast<uint32_t>(ds[bkt >> 2]) >> ((bkt & 3u) << 3)) & 0xFFu;
+  uint32_t u2 = mix32(k.pre, k.hi8, k.lo ^ 0x94D049BBu);
+  uint32_t ub = mix32(k.pre, k.hi8 ^ 0xA5u, k.lo ^ 0x7FEB352Du);
+  uint32_t h = ((u2 ^ (seed * 0x85EBCA6Bu)) * 0xC2B2AE35u) ^
+               ((ub ^ (seed * 0xC2B2AE35u)) * 0x85EBCA6Bu);
+  uint32_t slot = h % static_cast<uint32_t>(nslots);
+  Raw r = probe_row<CPS>(d1 + static_cast<int64_t>(slot >> 1) * 2 * CPS, 2, k);
+  if (r.miss() && n3 > 8) {
+    uint32_t b3 = mix32(k.pre, k.hi8, k.lo ^ 0x27D4EB2Fu) & static_cast<uint32_t>(n3 - 1);
+    r = probe_row<CPS>(d3 + static_cast<int64_t>(b3) * CPS * s3, s3, k);
   }
   return r;
 }

@@ -4,8 +4,9 @@
 //
 // Replaces (utree_tpu/lookup.py): displaced_bucket/seed/slot_jnp :850-884,
 // canonical_bucket3 :281 and displaced_probe_raw :887 (both branches), with
-// the shared front half of kmer.cuh (windows, canonical keys, mixes, slot
-// compare, decode), including _packed_window_ix's true_len trim.
+// the shared front half of kmer.cuh (windows, canonical keys, mixes, the
+// displaced probe, slot compare, decode), including _packed_window_ix's
+// true_len trim.
 //
 // Bound: each window is one chain of dependent loads -- the u8 seed word
 // (the seed table is <= 32 MB, so it stays in the 50 MB L2), then one random
@@ -47,19 +48,7 @@ __global__ void scan_probe_kernel(
   kmer::Raw r{0, 0};
   if (valid) {
     fwd_le = kmer::canonical(hi32, lo32, k);
-    uint32_t bkt = kmer::fold_hash(k) & static_cast<uint32_t>(nseed - 1);
-    uint32_t seed = (static_cast<uint32_t>(ds[bkt >> 2]) >> ((bkt & 3u) << 3)) & 0xFFu;
-    uint32_t u2 = kmer::mix32(k.pre, k.hi8, k.lo ^ 0x94D049BBu);
-    uint32_t ub = kmer::mix32(k.pre, k.hi8 ^ 0xA5u, k.lo ^ 0x7FEB352Du);
-    uint32_t h = ((u2 ^ (seed * 0x85EBCA6Bu)) * 0xC2B2AE35u) ^
-                 ((ub ^ (seed * 0xC2B2AE35u)) * 0x85EBCA6Bu);
-    uint32_t slot = h % static_cast<uint32_t>(nslots);
-    r = kmer::probe_row<CPS>(d1 + static_cast<int64_t>(slot >> 1) * 2 * CPS, 2, k);
-    if (r.miss() && n3 > 8) {
-      uint32_t b3 = kmer::mix32(k.pre, k.hi8, k.lo ^ 0x27D4EB2Fu) &
-                    static_cast<uint32_t>(n3 - 1);
-      r = kmer::probe_row<CPS>(d3 + static_cast<int64_t>(b3) * CPS * s3, s3, k);
-    }
+    r = kmer::displaced_probe<CPS>(k, d1, nslots, ds, nseed, d3, n3, s3);
   }
   kmer::write_ids<CPS>(out, b, W, w, valid, fwd_le, r, do_rc, bad_ix);
 }

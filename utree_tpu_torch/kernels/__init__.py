@@ -1,6 +1,7 @@
-"""Hand-written Hopper kernels of the search step and their launch counts.
+"""Hand-written Hopper kernels of the search step and of xtree ALIGN, and
+their launch counts.
 
-Eight kernels in twelve entry points (sources in `utree_tpu_torch/csrc/`):
+Nine kernels in thirteen entry points (sources in `utree_tpu_torch/csrc/`):
 
   K1 scan_probe[_wide]    packed reads -> ids, displaced table (lookup.window_ids)
   K4 ladder_probe[_wide]  packed reads -> ids, canonical ladder (lookup.window_ids)
@@ -12,6 +13,8 @@ Eight kernels in twelve entry points (sources in `utree_tpu_torch/csrc/`):
      histogram_unpacked   ids -> (B, 2*cap+2) rows         (lookup.histogram_unpacked)
   K8 hist_compact         packed rows -> compact readback  (lookup.hist_compact)
   K3 aufbau_vote          histograms -> 12 B/read votes    (classify_device.vote_rows)
+  K9 xtree_probe          ASCII queries -> xtree seeds and prefix bins
+                          (xtree.device.xtree_step)
 
 `_wide` takes 4-column slots (IXTYPE=u32 label ids).  Each wrapper calls
 `launch`, which adds one to the entry point's count in `launches` after a
@@ -26,7 +29,7 @@ from utree_tpu_torch.kernels.build import build, check, library
 KERNELS = ("scan_probe", "scan_probe_wide", "ladder_probe", "ladder_probe_wide",
            "bsearch_probe", "scan_probe64", "ladder_probe64",
            "histogram", "histogram_packed", "histogram_unpacked", "hist_compact",
-           "aufbau_vote")
+           "aufbau_vote", "xtree_probe")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

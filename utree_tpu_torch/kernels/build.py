@@ -60,6 +60,10 @@ SIGNATURES = {
     "utree_aufbau_vote": [P, P, P, P, I64, I32,
                           P, P, I32, I32, P, P, P, I32, P, I32,
                           I32, I32, P, P],
+    # ASCII queries, lens, B, T, W, k, sl; d1, nslots, ds, nseed, d3, n3, s3;
+    # out (4, B, W), stream
+    "utree_xtree_probe": [P, P, I64, I64, I32, I32, I32,
+                          P, I64, P, I64, P, I64, I32, P, P],
 }
 
 

@@ -1,7 +1,8 @@
-"""ctypes bridge to the host C++ of the search (the port's copy of the FASTA
-scanner and vote formatter of `utree_tpu/native.py`).
+"""ctypes bridge to the host C++ of the search and of xtree ALIGN (the port's
+copy of the FASTA scanner, the vote formatter and the xtree engine of
+`utree_tpu/native.py`).
 
-The sources are `utree_tpu_torch/csrc/host/{fasta,vote}.cpp`.  Each compiles
+The sources are `utree_tpu_torch/csrc/host/{fasta,vote,xtree}.cpp`.  Each compiles
 with g++ at first use into `.cuda_build/` beside the package, named by a
 hash of its source, so an edited source never loads a stale build.  A failed
 build raises: the port has no Python path for what these do.
@@ -11,6 +12,9 @@ build raises: the port has no Python path for what these do.
   VoteEngine    the aufbau vote and line formatting of a batch: from CSR
                 histograms, from packed (B, cap+1) rows, or from the
                 device's 12 B vote rows
+  xtree_lib     the xtree ALIGN engine: query scan, LBS_k hit scan (alone
+                or fused with the ref vote), ref and taxon tallies, the
+                deep taxonomy call and the perq formatter (xt_* below)
 """
 
 from __future__ import annotations
@@ -216,3 +220,220 @@ class VoteEngine:
                           np.ascontiguousarray(rows, np.uint32),
                           *self._override(over_rows, over_offsets, over_labels,
                                           over_counts))
+
+
+# ---- xtree ALIGN engine (csrc/host/xtree.cpp) -------------------------------
+
+@functools.cache
+def xtree_lib() -> ctypes.CDLL:
+    """libxtree (the ALIGN scan, tallies and formatter), built first if
+    needed.  `utree_tpu.native.xtree_lib` returns None when g++ fails and
+    its aligner falls back to NumPy; the port's raises instead."""
+    lib = ctypes.CDLL(str(_compile("xtree.cpp")))
+    I64, I32, D, CHR, VP = (ctypes.c_int64, ctypes.c_int32, ctypes.c_double,
+                            ctypes.c_char_p, ctypes.c_void_p)
+    A = _nd(np.int64)
+    lib.xt_scan_hits.argtypes = [I64, CHR, A, A, I32, I32, A, A, A, A, A, A]
+    lib.xt_scan_queries.argtypes = [CHR, I64, A, I64]
+    lib.xt_scan_queries.restype = I64
+    lib.xt_scan_hits_tally.argtypes = [I64, CHR, A, A, I32, I32, A, A, A, A, I64,
+                                       A, A, A, A, A, A, A]
+    lib.xt_ref_tally.argtypes = [A, A, A, A, A, A, I64, I64, A, A, A, A, A, A, A, A, A]
+    lib.xt_h_tally.argtypes = [A, A, A, A, A, A, VP, I64, I64, A, A, A, A, A, A]
+    lib.xt_tally_bounds.argtypes = [A, A, A, A, I64, A, I64, A]
+    lib.xt_format_perq.argtypes = [
+        I64,
+        CHR, A, A,            # head pool + [start, end) spans
+        CHR, A,               # ref names
+        CHR, A,               # h_strings[0]
+        CHR, A,               # h_strings[1]
+        _nd(np.uint8),
+        A, A, A, A,           # mix, mx, mx2, tix
+        A, A,                 # ft_ix, ft_lv (Q,2) row-major
+        CHR, I64,
+    ]
+    lib.xt_format_perq.restype = I64
+    lib.xt_deep_call.argtypes = [
+        A, I64, A, A, A, A, A, A,
+        VP, I64, VP, I64, VP, I64, VP, I64,
+        I64, I64,
+        A, D, I64, I64,
+        A, A, A,
+    ]
+    for fn in (lib.xt_scan_hits, lib.xt_scan_hits_tally, lib.xt_ref_tally,
+               lib.xt_h_tally, lib.xt_tally_bounds, lib.xt_deep_call):
+        fn.restype = None
+    return lib
+
+
+def _compact_spans(qoff, counts, *arrays):
+    """Each query wrote counts[q] items at qoff[q] of its pre-sized span:
+    the arrays with those items only, in query order."""
+    if int(counts.sum()) == int(qoff[-1]):
+        return arrays
+    from utree_tpu_torch.hash_index import _ranges_to_indices
+
+    nz = counts > 0  # _ranges_to_indices assumes nonempty ranges
+    idx = _ranges_to_indices(qoff[:-1][nz], counts[nz])
+    return tuple(a[idx] for a in arrays)
+
+
+def _hit_spans(qs, qe, k: int):
+    """Per-query output offsets sized for 2 hits a window (fwd and RC)."""
+    wn = np.maximum((qe - qs) - k + 1, 0)
+    qoff = np.zeros(len(qs) + 1, np.int64)
+    np.cumsum(2 * wn, out=qoff[1:])
+    return qoff
+
+
+def xt_scan_hits_tally(lib, pool, qs, qe, k: int, pl: int, bins, sfx,
+                       run_end_ext, rix, R: int):
+    """Fused scan + ref vote (csrc/host/xtree.cpp:xt_scan_hits_tally):
+    (qid, prefix, seed, tix, mx, mx2, mix) for a query chunk — the fast
+    path's whole pre-taxonomy stage in one C pass."""
+    nq = len(qs)
+    qoff = _hit_spans(qs, qe, k)
+    pre_out = np.empty(int(qoff[-1]), np.int64)
+    seed_out = np.empty(int(qoff[-1]), np.int64)
+    counts, mx, mx2, mix = (np.zeros(nq, np.int64) for _ in range(4))
+    lib.xt_scan_hits_tally(
+        nq, pool, np.ascontiguousarray(qs, np.int64),
+        np.ascontiguousarray(qe, np.int64), k, pl, bins, sfx,
+        run_end_ext, rix, R, qoff, pre_out, seed_out, counts, mx, mx2, mix)
+    qid = np.repeat(np.arange(nq, dtype=np.int64), counts)
+    pre_out, seed_out = _compact_spans(qoff, counts, pre_out, seed_out)
+    return qid, pre_out, seed_out, counts, mx, mx2, mix
+
+
+def xt_scan_queries(lib, data: bytes) -> np.ndarray:
+    """(n, 4) record quads [hstart, hend, sstart, send] for a FASTA/FASTQ
+    buffer — the C twin of xtree/io.iter_queries (full-header names)."""
+    max_recs = max(16, data.count(b"\n") // 2 + 2)
+    recs = np.zeros(max_recs * 4, np.int64)
+    n = lib.xt_scan_queries(data, len(data), recs, max_recs)
+    if n < 0:
+        raise ValueError("query record table overflow")
+    return recs[: n * 4].reshape(n, 4)
+
+
+def xt_scan_hits(lib, pool, qs: np.ndarray, qe: np.ndarray, k: int, pl: int,
+                 bins: np.ndarray, sfx: np.ndarray):
+    """(qid, prefix, seed) hit triples for a query chunk, scan order —
+    the C++ twin of xtree.align.XtreeAligner._batch_hits.  `qs`/`qe` are
+    per-query [start, end) spans into `pool` (the file buffer on the fast
+    path — no per-query copies)."""
+    nq = len(qs)
+    qoff = _hit_spans(qs, qe, k)
+    pre_out = np.empty(int(qoff[-1]), np.int64)
+    seed_out = np.empty(int(qoff[-1]), np.int64)
+    counts = np.zeros(nq, np.int64)
+    lib.xt_scan_hits(nq, pool, np.ascontiguousarray(qs, np.int64),
+                     np.ascontiguousarray(qe, np.int64),
+                     k, pl, bins, sfx, qoff, pre_out, seed_out, counts)
+    qid = np.repeat(np.arange(nq, dtype=np.int64), counts)
+    return (qid, *_compact_spans(qoff, counts, pre_out, seed_out))
+
+
+def _xt_spans(lib, qid, seed, pre, bins, run_end_ext, Q, cap_per_q):
+    """Per-query hit bounds + output upper-bound offsets for the tally
+    kernels: qstart from the qid-ascending hit order; qoff bounds distinct
+    outputs by min(expanded pods of q, cap_per_q) (computed in C)."""
+    qstart = np.searchsorted(qid, np.arange(Q + 1)).astype(np.int64)
+    qoff = np.zeros(Q + 1, np.int64)
+    lib.xt_tally_bounds(pre, seed, bins, run_end_ext, Q, qstart, cap_per_q,
+                        qoff[1:])
+    np.cumsum(qoff[1:], out=qoff[1:])
+    return qstart, qoff
+
+
+def xt_ref_tally(lib, qid, pre, seed, bins, run_end_ext, rix, Q, R):
+    """C++ twin of align.py:_batch_ref_tally's tally core.  Returns
+    (mx, mx2, mix, qu, rxu, counts, first, nd) with the CSR compacted and
+    sorted by (query, ref)."""
+    qstart, qoff = _xt_spans(lib, qid, seed, pre, bins, run_end_ext, Q, R)
+    mx, mx2, mix, nd = (np.zeros(Q, np.int64) for _ in range(4))
+    out_r, out_c, out_first = (np.empty(int(qoff[-1]), np.int64) for _ in range(3))
+    lib.xt_ref_tally(qid, pre, seed, bins, run_end_ext, rix, Q, R,
+                     qstart, qoff, mx, mx2, mix, out_r, out_c, out_first, nd)
+    qu = np.repeat(np.arange(Q, dtype=np.int64), nd)
+    out_r, out_c, out_first = _compact_spans(qoff, nd, out_r, out_c, out_first)
+    return mx, mx2, mix, qu, out_r, out_c, out_first, nd
+
+
+def xt_h_tally(lib, qid, pre, seed, bins, run_end_ext, rix, hmap, Hn, Q,
+               lbin=None):
+    """C++ twin of align.py:_batch_h_tally: (q2, h2, c2, ins2) CSR."""
+    qstart, qoff = _xt_spans(lib, qid, seed, pre, bins, run_end_ext, Q, Hn)
+    out_h, out_c, out_ins = (np.empty(int(qoff[-1]), np.int64) for _ in range(3))
+    nd = np.zeros(Q, np.int64)
+    lb = lbin.ctypes.data_as(ctypes.c_void_p) if lbin is not None else None
+    lib.xt_h_tally(pre, seed, bins, run_end_ext, rix, hmap, lb, Q, Hn,
+                   qstart, qoff, out_h, out_c, out_ins, nd)
+    q2 = np.repeat(np.arange(Q, dtype=np.int64), nd)
+    return (q2, *_compact_spans(qoff, nd, out_h, out_c, out_ins))
+
+
+class StringPool:
+    """Concatenated byte-string table + offsets for C consumption."""
+
+    def __init__(self, strings: list[bytes]):
+        self.pool = b"".join(strings)
+        off = np.zeros(len(strings) + 1, np.int64)
+        np.cumsum([len(s) for s in strings], out=off[1:])
+        self.off = off
+        self.max_len = int(np.diff(off).max()) if len(strings) else 0
+
+
+def xt_format_perq(lib, head_pool, head_s, head_e, pools, matched, mix, mx,
+                   mx2, tix, ft_ix, ft_lv) -> bytes:
+    """Chunk perq lines, '\\n'-joined with no trailing newline — byte twin of
+    align.py:_align_chunk's per-query formatting tail.  Heads come as
+    [start, end) spans into `head_pool` (the file buffer on the fast path).
+    `pools` = (ref_names, h_strings[0], h_strings[1]) StringPools."""
+    Q = len(head_s)
+    head_s = np.ascontiguousarray(head_s, np.int64)
+    head_e = np.ascontiguousarray(head_e, np.int64)
+    rn, h0, h1 = pools
+    nmatch = int(np.count_nonzero(matched))
+    cap = (int((head_e - head_s).sum()) + 75 * Q + 8
+           + nmatch * (rn.max_len + h0.max_len + h1.max_len))
+
+    def i64(a):
+        return np.ascontiguousarray(a, np.int64)
+
+    while True:
+        out = ctypes.create_string_buffer(cap)
+        wrote = lib.xt_format_perq(
+            Q, head_pool, head_s, head_e,
+            rn.pool, rn.off, h0.pool, h0.off, h1.pool, h1.off,
+            np.ascontiguousarray(matched, np.uint8),
+            i64(mix), i64(mx), i64(mx2), i64(tix),
+            i64(ft_ix).reshape(-1), i64(ft_lv).reshape(-1),
+            out, cap)
+        if wrote == -1:
+            cap *= 4
+            continue
+        if wrote < 0:
+            raise RuntimeError(f"xt_format_perq error {wrote}")
+        return out.raw[:wrote]
+
+
+def xt_deep_call(lib, deepq, qstart, pre, seed, bins, run_end_ext, rix,
+                 pack, tix, conf, full_lca, tax_out, ft_ix, ft_lv, mb):
+    """Fused deep taxonomy call (csrc/host/xtree.cpp:xt_deep_call): full-string
+    tally + LBins level walk per ambiguous query, writing ft_ix/ft_lv/mb
+    rows in place.  `pack` = XtreeAligner._deep_pack (cached int64 hmaps +
+    row-major lbins stacks)."""
+    hm0, Hn0, lb0, L0, hm1, Hn1, lb1, L1, has0, has1 = pack
+
+    def vp(a):
+        return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+    lib.xt_deep_call(
+        np.ascontiguousarray(deepq, np.int64), len(deepq), qstart,
+        np.ascontiguousarray(pre, np.int64),
+        np.ascontiguousarray(seed, np.int64), bins, run_end_ext, rix,
+        vp(hm0), Hn0, vp(lb0), L0, vp(hm1), Hn1, vp(lb1), L1,
+        has0, has1, np.ascontiguousarray(tix, np.int64), float(conf),
+        1 if full_lca else 0, 1 if tax_out else 0,
+        ft_ix.reshape(-1), ft_lv.reshape(-1), mb.reshape(-1))

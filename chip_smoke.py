@@ -59,9 +59,20 @@ Phases; each passes or the script exits non-zero:
    262,144 queries of 150 bp (2% mutation, 10% random) with perq, ref, tax
    and cov out, twice through K9 and once through the host engine, every
    output byte-identical; the first 32,768 queries with --redistribute on
-   both; queries/s of each and where the time goes.
+   both; queries/s of each and where the time goes;
+13. hash: the phase-4 tier under lookup_mode="hash" (the legacy two-table
+   hash, placed on the host and copied to the card, timed); K10 hash_probe
+   against its plain version at phase 3's shapes; the reads end to end
+   twice (K10, K2, K3), the output equal to phase 4's byte for byte; then
+   phase 7's 2M-k-mer tier of 70,000 labels under "hash" (K10, K2
+   unpacked), its output equal to phase 7's displaced run byte for byte;
+14. rank-specific: search_file_shallow with RC (the host search; the
+   g++/OpenMP build of csrc/host/shallow.cpp) over the phase-4 tier's host
+   index and reads, reads/s; the first 2048 reads' hits from
+   shallow_scan_batch equal scan_shallow_literal's, and their lines the
+   Python-driven vote's (ShallowVoter over those hits).
 
-Every path run (phases 4, 6-12) starts with every launch count at 0 and
+Every path run (phases 4, 6-13) starts with every launch count at 0 and
 reads them just after; each kernel its path needs must have launched.
 Prints the card line, a {"kernels": [...]} JSON line and, last, the
 {"ok": true, "device": {...}} line.  Imports nothing of JAX or of the JAX
@@ -1066,8 +1077,114 @@ def phase_xtree(dev, work: pathlib.Path):
     return row, stats
 
 
+def phase_hash(dev, base: dict, work: pathlib.Path):
+    """Phase 13: the legacy two-table hash (K10) on the phase-4 tier, then
+    on phase 7's 2M-k-mer tier of 70,000 labels."""
+    import torch
+
+    from utree_tpu_torch import lookup
+    from utree_tpu_torch.pipeline import SearchPipeline
+
+    index, reads = base["index"], base["reads"]
+    t = time.perf_counter()
+    pipe = SearchPipeline(index, device=dev, do_rc=True, batch_size=BATCH,
+                          hist_cap=HIST_CAP, lookup_mode="hash")
+    place_s = time.perf_counter() - t
+    if pipe.table_kind != "hash" or pipe.layout != "vote":
+        fail(f"hash: resolved to {pipe.table_kind}, layout {pipe.layout}")
+    tab = pipe._table
+    log(f"hash: build_hash_index and the copy to the card in {place_s:.1f} s; "
+        f"t1 {tuple(tab['t1'].shape)} ({nbytes(tab['t1']):,} B), "
+        f"t2 {tuple(tab['t2'].shape)} ({nbytes(tab['t2']):,} B)")
+    packed, vbits, lens = batch_tensors(dev, reads)
+    kw = dict(do_rc=True, bad_ix=0xFFFF, true_len=(READ_LEN + 7) & ~7,
+              num_labels=index.num_labels)
+    ids = lookup.window_ids(tab, packed, vbits, lens, **kw)
+    # the words that read a t2 row: the valid ones t1 does not answer,
+    # counted by the plain version over t1 alone (an empty 8-row t2)
+    t1_only = {"t1": tab["t1"], "t2": torch.full((8, 24), -1, dtype=torch.int32,
+                                                 device=dev)}
+    words = 2 * windows(lens, 32)
+    t1_miss = int((lookup.window_ids_plain(t1_only, packed, vbits, lens, **kw)
+                   == 0xFFFF).sum()) - (ids.numel() - words)
+    # every valid word reads one 96 B t1 row (3 sectors), and each t1 miss a
+    # t2 row, the t2 read at most once
+    moved = (probe_bytes(packed, vbits, lens, ids, 32, 6)
+             + min(nbytes(tab["t2"]), 3 * SECTOR * t1_miss))
+    log(f"hash batch: {words:,} words, {t1_miss:,} missing t1 "
+        f"({t1_miss / words:.1%}), {int((ids != 0xFFFF).sum()):,} hits")
+    row = check_kernel("hash_probe", "hash_probe.cu", "utree_tpu/lookup.py:205",
+                       lambda: lookup.window_ids(tab, packed, vbits, lens, **kw),
+                       lambda: lookup.window_ids_plain(tab, packed, vbits, lens, **kw),
+                       f"B={packed.shape[0]}", moved)
+    del t1_only, ids, packed, vbits, lens
+    out_txt = work / "smoke_hash.txt"
+    rps = e2e(pipe, base["reads_fa"], out_txt, len(reads), "hash e2e",
+              ("hash_probe", "histogram", "aufbau_vote"))
+    if out_txt.read_bytes() != base["out_txt"].read_bytes():
+        fail("the legacy hash's output differs from the displaced table's")
+    log("hash: whole output byte-identical to the displaced run (phase 4)")
+    del pipe, tab
+
+    t = time.perf_counter()
+    windex, _, _ = make_tier(WIDE_DISPLACED_KMERS, WIDE_LABELS, ixtype_bytes=4)
+    wpipe = SearchPipeline(windex, device=dev, do_rc=True, batch_size=BATCH,
+                           hist_cap=HIST_CAP, lookup_mode="hash")
+    wide_s = time.perf_counter() - t
+    if wpipe.table_kind != "hash" or wpipe.layout != "unpacked":
+        fail(f"wide hash: resolved to {wpipe.table_kind}, layout {wpipe.layout}")
+    log(f"wide hash: {windex.num_labels} labels, {WIDE_DISPLACED_KMERS} k-mers, "
+        f"set-up {wide_s:.1f} s, t1 {tuple(wpipe._table['t1'].shape)}, "
+        f"t2 {tuple(wpipe._table['t2'].shape)}")
+    out_w = work / "smoke_wide_hash.txt"
+    wrps = e2e(wpipe, work / "smoke_wide_reads.fa", out_w, len(reads), "wide hash e2e",
+               ("hash_probe", "histogram_unpacked"))
+    if out_w.read_bytes() != (work / "smoke_wide_displaced.txt").read_bytes():
+        fail("wide hash: output differs from the wide displaced run (phase 7)")
+    log("wide hash: whole output byte-identical to the wide displaced run (phase 7)")
+    del wpipe
+    return row, {"reads_per_s": rps, "place_s": place_s, "wide_reads_per_s": wrps,
+                 "t1_miss_share": t1_miss / words}
+
+
+def phase_shallow(base: dict, work: pathlib.Path) -> dict:
+    """Phase 14: the rank-specific search (host only: the g++/OpenMP build
+    of csrc/host/shallow.cpp) over the phase-4 tier's host index and reads."""
+    from utree_tpu_torch.classify import ShallowVoter
+    from utree_tpu_torch.encode import encode_bases, revcomp_text
+    from utree_tpu_torch.native import shallow_scan_batch
+    from utree_tpu_torch.search_host import scan_shallow_literal, search_file_shallow
+
+    host, reads = base["host"], base["reads"]
+    out_txt = work / "smoke_shallow.txt"
+    t = time.perf_counter()
+    n = search_file_shallow(host, str(base["reads_fa"]), str(out_txt), do_rc=True)
+    dt = time.perf_counter() - t
+    if n != len(reads):
+        fail(f"rank-specific: {n} of {len(reads)} reads")
+    lines = out_txt.read_bytes().splitlines(keepends=True)
+    head = [ln for ln in lines if int(ln.split(b"\t", 1)[0][1:]) < CHECK_READS]
+    if not head:
+        fail(f"rank-specific: no line for the first {CHECK_READS} reads")
+    seqs = [reads[i].tobytes() for i in range(CHECK_READS)]
+    t = time.perf_counter()
+    hits = shallow_scan_batch(host, [encode_bases(s + b"N" + revcomp_text(s))
+                                     for s in seqs])
+    if hits != [scan_shallow_literal(host, s, True) for s in seqs]:
+        fail("rank-specific: shallow_scan_batch differs from scan_shallow_literal")
+    voter = ShallowVoter(host.strings, host.config.tolerance, host.config.slack)
+    py = [voter.vote(b"r%d" % i, h) for i, h in enumerate(hits)]
+    if b"".join(x + b"\n" for x in py if x is not None) != b"".join(head):
+        fail("rank-specific: the native lines differ from the Python-driven vote")
+    log(f"rank-specific: {n} reads in {dt:.3f} s = {n / dt:,.0f} reads/s, "
+        f"{len(lines)} lines; the first {CHECK_READS} reads' hits equal "
+        f"scan_shallow_literal and their {len(head)} lines the Python-driven vote "
+        f"({time.perf_counter() - t:.1f} s)")
+    return {"reads_per_s": n / dt, "seconds": dt, "lines": len(lines)}
+
+
 def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
-    """Phases 3-12 on `dev`; returns what main() checks and prints."""
+    """Phases 3-14 on `dev`; returns what main() checks and prints."""
     from utree_tpu_torch.classify_device import (aufbau_tables_to_device,
                                                  build_aufbau_tables)
     from utree_tpu_torch.hash_index import displaced_to_device
@@ -1115,11 +1232,15 @@ def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
     kern.append(compact_row)
     xt_row, xtree = phase_xtree(dev, work)
     kern.append(xt_row)
+    hash_row, hashed = phase_hash(dev, base, work)
+    kern.append(hash_row)
+    shallow = phase_shallow(base, work)
     for k in kern:
         k["launches"] = PATH_LAUNCHES.get(k["name"], 0)
     return {"kernels": kern, "displaced_rps": best, "ladder": ladder,
             "wide": wide, "long": long, "bsearch": bsearch, "k64": k64,
-            "compact": compact, "xtree": xtree}
+            "compact": compact, "xtree": xtree, "hash": hashed,
+            "shallow": shallow}
 
 
 def main() -> int:
@@ -1179,7 +1300,10 @@ def main() -> int:
         f"vote {res['compact']['cvote_reads_per_s']:,.0f} reads/s; {a.kmers} "
         f"k-mers, RC, batch {BATCH}; xtree ALIGN ({res['xtree']['pods']:,} pods) "
         f"device front end {res['xtree']['device_queries_per_s']:,.0f}, host engine "
-        f"{res['xtree']['host engine']['queries_per_s']:,.0f} queries/s; on {card}")
+        f"{res['xtree']['host engine']['queries_per_s']:,.0f} queries/s; hash "
+        f"{res['hash']['reads_per_s']:,.0f}, wide hash (2M) "
+        f"{res['hash']['wide_reads_per_s']:,.0f}, rank-specific (host) "
+        f"{res['shallow']['reads_per_s']:,.0f} reads/s; on {card}")
     print(json.dumps({"kernels": res["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

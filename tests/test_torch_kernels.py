@@ -399,6 +399,64 @@ def test_k8_hist_compact_matches_plain(tier, dev, cap):
             assert int(got[2 * rows.shape[0]]) == n_over
 
 
+@pytest.mark.parametrize("labels", ["narrow", "wide"])
+def test_k10_hash_probe_matches_plain(tier, dev, labels):
+    """K10 on the legacy hash of a built DB (narrow labels, and the wide
+    tier, whose ids are full int32 too), RC on and off, with the true_len
+    trim, N's, ragged lengths and padding rows; every histogram layout on
+    its ids."""
+    from utree_tpu_torch.hash_index import build_hash_index, hash_to_device
+
+    index, genome = (tier["index"], tier["genome"]) if labels == "narrow" else _wide_tier()[:2]
+    table = hash_to_device(build_hash_index(index), dev)
+    packed, vbits, lens = _packed_reads(genome, 3000, 11, dev, padded=50)
+    _probe_and_hists(table, packed, vbits, lens, index.num_labels, "hash_probe")
+
+
+def _placed_tables(packed, vbits, lens, seed):
+    """Random t1 (256 rows) and t2 (64 rows) of 8 slots whose other slots
+    hold random keys and ids, and into which a third of the batch's valid
+    forward words (and a few RC words) are placed at their own buckets,
+    some with ix -1: the slot rule, the t1-over-t2 rule and the negative ix
+    are all exercised.  Built on the CPU with the plain version's mixes."""
+    rng = np.random.default_rng(seed)
+    t = [rng.integers(-(1 << 31), 1 << 31, (n, 24)).astype(np.int32) for n in (256, 64)]
+    cpu = [x.cpu() for x in (packed, vbits, lens)]
+    qpre, qhi, qlo, valid = tl.extract_windows(tl.base_codes_packed(*cpu))
+    rpre, rhi, rlo = tl.rc_word_lanes(qpre, qhi, qlo)
+    words = torch.cat([torch.stack([qpre, qhi, qlo], -1)[valid],
+                       torch.stack([rpre, rhi, rlo], -1)[valid][:200]]).numpy()
+    words = words[rng.random(len(words)) < 0.35]
+    for pre, hi, lo in words:
+        level = int(rng.random() < 0.3)  # a third go to t2 only
+        mixed = tl.mix(torch.tensor(pre), torch.tensor(hi),
+                       torch.tensor(lo ^ (0x5BD1E995 if level else 0)))
+        row = int(mixed) & (t[level].shape[0] - 1)
+        s = int(rng.integers(0, 8))
+        ix = -1 if rng.random() < 0.1 else int(rng.integers(0, 60))
+        t[level][row, 3 * s:3 * s + 3] = np.array([lo, (pre << 8) | hi, ix],
+                                                  np.int64).astype(np.uint32).view(np.int32)
+    return {"t1": torch.from_numpy(t[0]), "t2": torch.from_numpy(t[1])}
+
+
+def test_k10_on_random_tables(tier, dev):
+    """K10 on tables of random slots with the batch's own words placed in
+    them (see _placed_tables), RC on and off; and the table checks."""
+    packed, vbits, lens = _packed_reads(tier["genome"], 2000, 12, dev, padded=20)
+    table = {k: v.to(dev) for k, v in _placed_tables(packed, vbits, lens, 3).items()}
+    for do_rc in (True, False):
+        kw = dict(do_rc=do_rc, bad_ix=BAD, num_labels=64)
+        n0 = kernels.launches["hash_probe"]
+        ids = tl.window_ids(table, packed, vbits, lens, **kw)
+        assert kernels.launches["hash_probe"] == n0 + 1
+        assert torch.equal(ids, tl.window_ids_plain(table, packed, vbits, lens, **kw))
+        assert int((ids < 60).sum()) > 1000
+    for bad in (dict(t1=table["t1"][:, :21].contiguous()), dict(t2=table["t2"][:48])):
+        with pytest.raises(ValueError, match="hash tables"):
+            tl.window_ids({**table, **bad}, packed, vbits, lens, do_rc=True, bad_ix=BAD,
+                          num_labels=64)
+
+
 def _pipeline_reads(path, genome, rng):
     """900 tier reads, 40 chimeras of three 50 bp pieces (3 labels a read:
     hist_cap=2 overflows) and three long reads."""
@@ -421,6 +479,9 @@ _PATHS = {
     ("narrow", "auto"): {"ladder_probe", "histogram", "aufbau_vote", "histogram_packed"},
     ("narrow", "displaced"): {"scan_probe", "histogram", "aufbau_vote", "histogram_packed"},
     ("narrow", "bsearch"): {"bsearch_probe", "histogram", "aufbau_vote", "histogram_packed"},
+    ("narrow", "hash"): {"hash_probe", "histogram", "aufbau_vote", "histogram_packed"},
+    ("cvote", "hash"): {"hash_probe", "histogram_packed", "hist_compact"},
+    ("wide", "hash"): {"hash_probe", "histogram_unpacked"},
     ("support8", "displaced"): {"scan_probe", "histogram_packed", "hist_compact"},
     ("cvote", "auto"): {"ladder_probe", "histogram_packed", "hist_compact"},
     ("wide", "auto"): {"ladder_probe_wide", "histogram_unpacked"},

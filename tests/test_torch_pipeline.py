@@ -180,12 +180,21 @@ def test_cli_support_ranges_and_host(db, tmp_path, capsys, support_ranges, host)
 
 
 def test_cli_rank_specific_raises(db, tmp_path):
-    """--rank-specific (the shallow search) is the next host piece to port."""
+    """--rank-specific (the shallow search) is ported; what still raises is
+    --support-ranges 8 with it, which exits with utree_tpu's message in both
+    CLIs (the rank-specific output has no SUPPORT;RANGE columns).  Its
+    output bytes are held to utree_tpu's in tests/test_torch_shallow.py."""
+    from utree_tpu.cli import main as jax_main
     from utree_tpu_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        main(["search", db["ctr"], db["reads"], str(tmp_path / "o.txt"),
-              "--device", "cpu", "--rank-specific"])
+    msgs = []
+    for run in (jax_main, main):
+        with pytest.raises(SystemExit) as e:
+            run(["search", db["ctr"], db["reads"], str(tmp_path / "o.txt"),
+                 "--rank-specific", "--support-ranges", "8"])
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and "GG vote only" in msgs[0]
+    assert not (tmp_path / "o.txt").exists()
 
 
 _REFUSING = r"""
@@ -252,8 +261,22 @@ def test_cuda_device_without_gpu_raises(db):
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_modes_raise(db, tmp_path, kw):
     """What is not ported raises NotImplementedError naming its ROADMAP
-    item.  support_ranges=8 is ported now: its case writes the JAX
-    pipeline's bytes (per-rank SUPPORT;RANGE columns) instead."""
+    item.  support_ranges=8 and lookup_mode="hash" are ported now: their
+    cases write the JAX pipeline's bytes instead (per-rank SUPPORT;RANGE
+    columns; the legacy two-table hash, whose t1/t2 the port places itself)."""
+    if kw.get("lookup_mode") == "hash":
+        jax_out, port_out = tmp_path / "jax.txt", tmp_path / "port.txt"
+        jp = JaxPipeline(db["index"], do_rc=True, batch_size=BATCH, lookup_mode="hash")
+        jp.search_file(db["reads"], str(jax_out))
+        pipe = SearchPipeline(db["port"], device="cpu", do_rc=True, batch_size=BATCH,
+                              **kw)
+        assert pipe.table_kind == jp.table_kind == "hash" and pipe.layout == "vote"
+        want = tables_from_jax(jp._table)
+        assert all(torch.equal(pipe._table[k], want[k]) for k in ("t1", "t2"))
+        pipe.search_file(db["reads"], str(port_out))
+        assert port_out.read_bytes() == jax_out.read_bytes()
+        assert jax_out.read_bytes().count(b"\n") > 500
+        return
     if kw.get("support_ranges") == 8:
         jax_out, port_out = tmp_path / "jax.txt", tmp_path / "port.txt"
         JaxPipeline(db["index"], do_rc=True, batch_size=BATCH, lookup_mode="displaced",

@@ -148,7 +148,7 @@ def test_iter_queries_equal_jax(xdata, tmp_path):
     assert list(t_io.iter_queries(str(fq))) == list(j_io.iter_queries(str(fq))) == recs
 
 
-@pytest.mark.parametrize("name", ["fasta.cpp", "vote.cpp", "xtree.cpp"])
+@pytest.mark.parametrize("name", ["fasta.cpp", "vote.cpp", "xtree.cpp", "shallow.cpp"])
 def test_host_cpp_is_a_byte_copy(name):
     """The port's host C++ is the JAX package's, byte for byte."""
     port = REPO / "utree_tpu_torch" / "csrc" / "host" / name

@@ -7,7 +7,8 @@ walk is string logic with quirky boundary rules (blank-rank '_' promotion,
 prefix promotion, cutoff re-bumps), so this module mirrors the C statement
 for statement.  It votes the reads that the device does not (support_ranges
 8, over-cap replays on that path, long reads) and is the oracle of the
-device walk (`classify_device.aufbau_walk`).
+device walk (`classify_device.aufbau_walk`).  `ShallowVoter` is the
+rank-specific (non-GG) search's majority vote (itree.c:969-1006).
 """
 
 from __future__ import annotations
@@ -164,3 +165,76 @@ def _aufbau_walk(tax_cnt: list[tuple[bytes, int]], found_uniq: int, taxacut: int
     else:
         toprint = tax_cnt[ed - 1][0][:dv]
     return toprint, sl, ol, levels
+
+
+class ShallowVoter:
+    """Rank-specific (non-GG) vote, itree.c:969-1006 — stateful, because the
+    reference has a read-one-past bug we must reproduce: `if (!kingsMen++)`
+    (itree.c:982) post-increments before the tally loops run with the
+    incremented count, so the vote always includes ONE phantom entry —
+    AllTheKingsHorses[kingsMen], which holds the previous read's hit at that
+    slot (or 0 from the calloc-like fresh mmap pages of the 64MB malloc,
+    itree.c:970).  Single-threaded this is fully deterministic; we keep the
+    same persistent buffer."""
+
+    def __init__(self, strings: list[bytes], tolerance: int = 2, slack: int = 2):
+        self.strings = strings
+        self.tolerance = tolerance
+        self.slack = slack
+        self.buffer: list[int] = []  # persistent AllTheKingsHorses; absent slots read 0
+
+    def _slot(self, i: int) -> int:
+        return self.buffer[i] if i < len(self.buffer) else 0
+
+    def vote(self, name: bytes, hit_ixs: list[int]) -> bytes | None:
+        """`hit_ixs`: SPARSITY-subsampled hits in scan order (itree.c:948-951)."""
+        if not hit_ixs:
+            return None
+        # write this read's hits over the persistent buffer
+        for i, ix in enumerate(hit_ixs):
+            if i < len(self.buffer):
+                self.buffer[i] = int(ix)
+            else:
+                self.buffer.append(int(ix))
+        kings_men = len(hit_ixs) + 1  # the post-increment bug
+        entries = [self._slot(i) for i in range(kings_men)]
+        hashes: dict[int, int] = {}
+        for ix in entries:
+            hashes[ix] = hashes.get(ix, 0) + 1
+        most = second = 0
+        most_ix = None
+        for ix in entries:
+            c = hashes.get(ix, 0)
+            if c > most:
+                second = most
+                most_ix = ix
+                most = c
+            elif c > second:
+                second = c
+            hashes[ix] = 0  # Hashes zeroed as read (itree.c:996)
+        if most < self.tolerance or most < self.slack * second:
+            return None
+        conf = 1.0 - second / most
+        return (
+            name + b"\t" + self.strings[most_ix] + b"\t" + (b"%f" % conf)
+            + b"\t" + str(most).encode()
+        )
+
+
+def subsample_hits(starts: np.ndarray, ixs: np.ndarray, max_ix: int, packsize: int, sparsity: int):
+    """Apply the shallow scan's skip-after-hit rule (XT_SHALLOWVOTE,
+    itree.c:948-951): after a hit at window start s, the next
+    packsize/sparsity - 1 windows are not even looked up.
+
+    `starts`/`ixs`: positions and lookup results of all VALID windows in scan
+    order.  Returns the recorded hit ids in order."""
+    step = packsize // sparsity
+    out = []
+    next_allowed = 0
+    for s, ix in zip(starts, ixs):
+        if s < next_allowed:
+            continue
+        if ix < max_ix:
+            out.append(int(ix))
+            next_allowed = int(s) + step
+    return out

@@ -2,8 +2,8 @@
 the xtree tool):
 
   python -m utree_tpu_torch.cli search <db.ctr> <reads.fa> <out.txt>
-      [--rc] [--batch N] [--lookup-mode auto|canonical|displaced|bsearch]
-      [--support-ranges 1|8] [--host] [--resume] [--trace]
+      [--rc] [--batch N] [--lookup-mode auto|canonical|displaced|bsearch|hash]
+      [--support-ranges 1|8] [--host] [--rank-specific] [--resume] [--trace]
       [--device cuda|cpu]
   python -m utree_tpu_torch.cli xtree-build --seqs fa --db-out db
       [--map m --comp c --k k]
@@ -14,9 +14,10 @@ the xtree tool):
 
 `--host` runs the exact host search (`search_host.search_file`) or the
 xtree host engine (no device front end); a DB of a PACKSIZE other than 32
-or 64 takes the host search too.  `--rank-specific` and the other search
-flags of `utree_tpu.cli` are not ported yet (ROADMAP A.6); `build` and
-`compress` stay with `python -m utree_tpu.cli`.
+or 64 takes the host search too.  `--rank-specific` runs the rank-specific
+(non-GG) search on the host (`search_host.search_file_shallow`), as
+`utree_tpu` does.  `build`, `compress` and the multi-device and multi-host
+flags of `utree_tpu.cli` are not ported yet (ROADMAP A.6b, A.9).
 """
 
 from __future__ import annotations
@@ -28,19 +29,27 @@ def _cmd_search(a):
     from utree_tpu_torch.formats import sniff_config
     from utree_tpu_torch.utils.trace import PhaseTimer
 
-    if a.rank_specific:
-        raise NotImplementedError(
-            "--rank-specific (the shallow search, native/shallow.cpp and "
-            "ShallowVoter) is not ported yet (ROADMAP A.6)")
     tm = PhaseTimer(quiet=True)
     cfg = sniff_config(a.db)
-    if cfg.packsize not in (32, 64) and not a.host:
+    if cfg.packsize not in (32, 64) and not a.host and not a.rank_specific:
         # the device window extractor implements the 32/64-mer geometries;
         # small-k DBs (PACKSIZE=16) run the exact host path instead
         print(f"note: PACKSIZE={cfg.packsize} DB -> host search path "
               "(device path implements k=32/64)")
         a.host = True
-    if a.host:
+    if a.rank_specific:
+        if a.support_ranges != 1:
+            raise SystemExit("--support-ranges applies to the GG vote only "
+                             "(the rank-specific output has no SUPPORT;RANGE columns)")
+        from utree_tpu_torch.search_host import HostIndex, search_file_shallow
+
+        with tm.phase("load-db"):
+            idx = HostIndex.from_ctr(a.db, cfg)
+        with tm.phase("search"):
+            n = search_file_shallow(idx, a.reads, a.out, do_rc=a.rc)
+        tm.count("reads", n)
+        where = "the host"
+    elif a.host:
         from utree_tpu_torch.search_host import HostIndex, search_file
 
         with tm.phase("load-db"):
@@ -116,11 +125,12 @@ def main(argv=None):
     s.add_argument("--rc", action="store_true", help="also scan reverse complement")
     s.add_argument("--batch", type=int, default=8192)
     s.add_argument("--lookup-mode", dest="lookup_mode", default="auto",
-                   choices=("auto", "canonical", "displaced", "bsearch"),
+                   choices=("auto", "canonical", "displaced", "bsearch", "hash"),
                    help="device table layout (auto = the canonical ladder "
                         "below 80M records, the displaced table from 80M; "
                         "bsearch = the exact replay over the CTR records, "
-                        "PACKSIZE=32 only)")
+                        "hash = the legacy two-table hash, each PACKSIZE=32 "
+                        "only)")
     s.add_argument("--support-ranges", dest="support_ranges", type=int, choices=(1, 8),
                    default=1, help="SUPPORT;RANGE pairs per line: 1 = the reference "
                    "binary's output (itree.c:1096), 8 = the README-documented "
@@ -128,7 +138,7 @@ def main(argv=None):
     s.add_argument("--host", action="store_true",
                    help="the exact host (NumPy) search instead of the device")
     s.add_argument("--rank-specific", dest="rank_specific", action="store_true",
-                   help="utree-search (non-GG) vote: not ported yet")
+                   help="utree-search (non-GG) rank-specific vote, on the host")
     s.add_argument("--resume", action="store_true",
                    help="resume an interrupted search from its .ckpt sidecar")
     s.add_argument("--trace", action="store_true",

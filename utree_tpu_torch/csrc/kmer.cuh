@@ -1,8 +1,9 @@
 // The front half shared by the probe kernels (K1 scan_probe, K4
-// ladder_probe, K9 xtree_probe): one (read, window) -> its canonical 32-mer
-// key, the 32-bit mixes the table placement uses, the slot compare over one
-// gathered row, the displaced-table probe, and the dual-value decode into
-// per-window label ids.
+// ladder_probe, K7 bsearch_probe, K9 xtree_probe, K10 hash_probe; K7 takes
+// window_at and rev2 only, K10 those and mix32): one (read, window) -> its
+// canonical 32-mer key, the 32-bit mixes the table placement uses, the slot
+// compare over one gathered row, the displaced-table probe, and the
+// dual-value decode into per-window label ids.
 //
 // Twins (utree_tpu/lookup.py): base_codes_packed :39 + extract_windows :83
 // (window_at), _rev2_32 :113, rc_word_lanes :123 and canonical_keys :243

@@ -15,18 +15,22 @@ orientations' values in one slot:
                               row per probe, a u8 seed per bucket) and its
                               cached spill tail d3
 
-Both move to a device as int32 tensors under the JAX pytree's keys:
+The legacy two-table hash (`build_hash_index`) keys the forward word
+itself: one 8-slot t1 row per bucket, its overflow in a differently mixed
+t2, one label id a slot.
+
+All move to a device as int32 tensors under the JAX pytree's keys:
 
   displaced_to_device    {d1, ds, d3}
   canonical_to_device    {c1, c2, c3}
+  hash_to_device         {t1, t2}
   displaced64_to_device  {d64_1, d64_s, d64_3}   (hash_index64)
   canonical64_to_device  {c64_1, c64_2, c64_3}   (hash_index64)
   bsearch_to_device      {bin_ix, suf_hi, suf_lo, ix} (the CTR records)
 
 Narrow and wide (4-column slot) rows travel alike.  The geometry constants
 were tuned on a TPU (ROADMAP A.11); any geometry is exact, since a probe
-reads the stored shape.  The legacy two-table hash (`build_hash_index`) is
-not copied (ROADMAP A.8).
+reads the stored shape.
 """
 
 from __future__ import annotations
@@ -87,6 +91,16 @@ def _mix_np(pre: np.ndarray, hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
     return h
 
 
+@dataclasses.dataclass
+class HashIndexArrays:
+    """Two flat bucket tables; each bucket is S slots of (key_lo, key_hi, ix).
+    key_lo = suffix bits 31..0; key_hi = prefix24<<8 | suffix bits 39..32.
+    Empty slots have ix == -1."""
+
+    t1: np.ndarray  # int32 (B1, S*3)
+    t2: np.ndarray  # int32 (B2, S*3)
+    slots: int
+    num_entries: int
 
 
 def _reference_hits(index: DeviceIndexArrays):
@@ -459,6 +473,61 @@ def _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
                                slots2=slots2, slots3=max(slots3, 1),
                                num_entries=ng)
 
+
+def build_hash_index(index: DeviceIndexArrays, slots: int = 8, load: float = 0.4) -> HashIndexArrays:
+    pre, hi, lo, ix = _reference_hits(index)
+    n = len(ix)
+    if np.any(ix >= 2**31):
+        raise ValueError("hash path requires label ids < 2^31")
+    b1 = max(8, 1 << int(np.ceil(np.log2(max(1, n / (slots * load))))))
+    h = _mix_np(pre, hi, lo)
+    bucket = (h & np.uint32(b1 - 1)).astype(np.int64)
+    key_lo = lo.astype(np.uint32).view(np.int32)
+    key_hi = ((pre.astype(np.int64) << 8) | hi).astype(np.uint32).view(np.int32)
+
+    t1 = np.full((b1, slots * 3), -1, np.int32)
+    order = np.argsort(bucket, kind="stable")
+    sb = bucket[order]
+    new = np.ones(len(sb), bool)
+    if len(sb) > 1:
+        new[1:] = sb[1:] != sb[:-1]
+    grp_start = np.maximum.accumulate(np.where(new, np.arange(len(sb)), 0))
+    pos_in = np.arange(len(sb)) - grp_start
+    fits = pos_in < slots
+    rows = sb[fits]
+    cols = pos_in[fits]
+    src = order[fits]
+    t1[rows, cols * 3] = key_lo[src]
+    t1[rows, cols * 3 + 1] = key_hi[src]
+    t1[rows, cols * 3 + 2] = ix[src].astype(np.int32)
+    spill = order[~fits]
+
+    h2 = _mix_np(pre[spill], hi[spill], lo[spill] ^ np.int64(0x5BD1E995))
+    b2 = max(8, 1 << int(np.ceil(np.log2(max(1, len(spill) / max(1, slots // 2))))))
+    # grow until every spill bucket fits in `slots` (Poisson tails make the
+    # first size overflow routinely at tens of millions of entries)
+    while True:
+        bucket2 = (h2 & np.uint32(b2 - 1)).astype(np.int64)
+        order2 = np.argsort(bucket2, kind="stable")
+        sb2 = bucket2[order2]
+        new2 = np.ones(len(sb2), bool)
+        if len(sb2) > 1:
+            new2[1:] = sb2[1:] != sb2[:-1]
+        grp2 = np.maximum.accumulate(np.where(new2, np.arange(len(sb2)), 0))
+        pos2 = np.arange(len(sb2)) - grp2
+        if len(pos2) == 0 or int(pos2.max()) < slots:
+            break
+        b2 *= 2
+        if b2 > max(8, 2 * b1):
+            raise RuntimeError("hash spill table overflow; lower load factor")
+    t2 = np.full((b2, slots * 3), -1, np.int32)
+    rows2 = sb2
+    cols2 = pos2
+    src2 = spill[order2]
+    t2[rows2, cols2 * 3] = key_lo[src2]
+    t2[rows2, cols2 * 3 + 1] = key_hi[src2]
+    t2[rows2, cols2 * 3 + 2] = ix[src2].astype(np.int32)
+    return HashIndexArrays(t1=t1, t2=t2, slots=slots, num_entries=n)
 
 
 # --------------------------------------------------------------------------
@@ -847,6 +916,12 @@ def canonical_to_device(canon: CanonicalHashArrays, device) -> dict[str, torch.T
     """{"c1", "c2", "c3"} int32 tensors on `device` (the JAX pytree's keys);
     an 8-row c2 or c3 is the placement's "absent" sentinel."""
     return _to_device((("c1", canon.t1), ("c2", canon.t2), ("c3", canon.t3)), device)
+
+
+def hash_to_device(h: HashIndexArrays, device) -> dict[str, torch.Tensor]:
+    """{"t1", "t2"} int32 tensors on `device` (the JAX pytree's keys): rows
+    of `slots` (key_lo, key_hi, ix) triples, power-of-two row counts."""
+    return _to_device((("t1", h.t1), ("t2", h.t2)), device)
 
 
 def displaced64_to_device(disp: Displaced64Arrays, device) -> dict[str, torch.Tensor]:

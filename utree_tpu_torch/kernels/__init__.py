@@ -1,11 +1,12 @@
 """Hand-written Hopper kernels of the search step and of xtree ALIGN, and
 their launch counts.
 
-Nine kernels in thirteen entry points (sources in `utree_tpu_torch/csrc/`):
+Ten kernels in fourteen entry points (sources in `utree_tpu_torch/csrc/`):
 
   K1 scan_probe[_wide]    packed reads -> ids, displaced table (lookup.window_ids)
   K4 ladder_probe[_wide]  packed reads -> ids, canonical ladder (lookup.window_ids)
   K7 bsearch_probe        packed reads -> ids, bsearch replay  (lookup.window_ids)
+  K10 hash_probe          packed reads -> ids, legacy hash     (lookup.window_ids)
   K5 scan_probe64         ASCII reads -> ids, 64-mer displaced (lookup.window_ids64)
   K6 ladder_probe64       ASCII reads -> ids, 64-mer ladder    (lookup.window_ids64)
   K2 histogram            ids -> compact histograms        (lookup.histogram)
@@ -27,7 +28,7 @@ from __future__ import annotations
 from utree_tpu_torch.kernels.build import build, check, library
 
 KERNELS = ("scan_probe", "scan_probe_wide", "ladder_probe", "ladder_probe_wide",
-           "bsearch_probe", "scan_probe64", "ladder_probe64",
+           "bsearch_probe", "hash_probe", "scan_probe64", "ladder_probe64",
            "histogram", "histogram_packed", "histogram_unpacked", "hist_compact",
            "aufbau_vote", "xtree_probe")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)

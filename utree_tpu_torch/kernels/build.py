@@ -46,6 +46,9 @@ SIGNATURES = {
     "utree_bsearch_probe": [P, P, P, I64, I64, I64, I32,
                             P, P, P, P, I64,  # bin_ix, suf_hi, suf_lo, ix, n
                             I32, I32, P, P],
+    "utree_hash_probe": [P, P, P, I64, I64, I64, I32,
+                         P, I64, P, I64,  # t1, b1, t2, b2
+                         I32, I32, P, P],
     # ASCII reads, lens, B, L, W; the tables as K1 / K4; do_rc, miss, out, stream
     "utree_scan_probe64": [P, P, I64, I64, I32, P, I64, P, I64, P, I64, I32,
                            I32, I32, P, P],

@@ -1,11 +1,13 @@
 """Search step of the port: reads -> label ids -> histograms -> votes.
 
 Counterpart of `utree_tpu/lookup.py`.  At PACKSIZE=32 the reads arrive
-2-bit packed and probe one of three tables: the seeded-displacement table
+2-bit packed and probe one of four tables: the seeded-displacement table
 (d1/ds/d3) or the canonical ladder (c1/c2/c3), each with narrow (u16-packed,
 3-column slots) or wide (IXTYPE=u32, 4-column slots) entries (wide when
-num_labels >= 0xFFFF, as in JAX), or the sorted CTR records themselves
-(bin_ix/suf_hi/suf_lo/ix), searched by the literal xtSuffixBS replay.  At
+num_labels >= 0xFFFF, as in JAX), the legacy two-table hash (t1/t2, one
+int32 id a slot, forward and RC words probed apart), or the sorted CTR
+records themselves (bin_ix/suf_hi/suf_lo/ix), searched by the literal
+xtSuffixBS replay.  At
 PACKSIZE=64 the reads arrive as ASCII and probe the 64-mer ladder
 (c64_1/2/3) or the 64-mer displaced table (d64_1/d64_s/d64_3), whose slots
 are 6 columns wide at any label width.  Each device function has a plain
@@ -15,6 +17,7 @@ masked to 32 bits (see `_u32`), and a wrapper:
   window_ids          -> K1 `csrc/scan_probe.cu`    (d1: scan_probe[_wide])
                          K4 `csrc/ladder_probe.cu`  (c1: ladder_probe[_wide])
                          K7 `csrc/bsearch_probe.cu` (bin_ix: bsearch_probe)
+                         K10 `csrc/hash_probe.cu`   (t1: hash_probe)
                          (plain: window_ids_plain)
   window_ids64        -> K5 `csrc/scan_probe64.cu`   (d64_1: scan_probe64)
                          K6 `csrc/ladder_probe64.cu` (c64_1: ladder_probe64)
@@ -349,17 +352,58 @@ def lookup_kmers(table: dict, qpre, qhi, qlo, valid, probe_iters: int,
     return torch.where(found, ix_arr[p], bad_ix).to(torch.int32)
 
 
-def _bsearch_ix(table: dict, qpre, qhi, qlo, valid, *, do_rc: bool,
-                probe_iters: int | None, bad_ix: int):
+def _append_rc(qpre, qhi, qlo, valid, do_rc: bool):
     """_packed_window_ix's non-canonical branch: with RC the arithmetic RC
     words follow the forward words ([fwd | rc]) and each is probed alone."""
-    if probe_iters is None:
-        raise ValueError("the bsearch replay needs probe_iters")
     if do_rc:
         rpre, rhi, rlo = rc_word_lanes(qpre, qhi, qlo)
         qpre, qhi = torch.cat([qpre, rpre], dim=1), torch.cat([qhi, rhi], dim=1)
         qlo, valid = torch.cat([qlo, rlo], dim=1), torch.cat([valid, valid], dim=1)
-    return lookup_kmers(table, qpre, qhi, qlo, valid, probe_iters, bad_ix)
+    return qpre, qhi, qlo, valid
+
+
+def _bsearch_ix(table: dict, qpre, qhi, qlo, valid, *, do_rc: bool,
+                probe_iters: int | None, bad_ix: int):
+    if probe_iters is None:
+        raise ValueError("the bsearch replay needs probe_iters")
+    return lookup_kmers(table, *_append_rc(qpre, qhi, qlo, valid, do_rc),
+                        probe_iters, bad_ix)
+
+
+# ---- the legacy two-table hash (t1/t2) -----------------------------------------
+
+def lookup_kmers_hash(tables: dict, qpre, qhi, qlo, valid, *, slots: int,
+                      bad_ix: int) -> torch.Tensor:
+    """Plain version of K10: one t1 row and one t2 row per word, keyed on
+    the forward word's int32 bits.  A slot matches on both key words and
+    ix >= 0, a later slot wins, a t1 match wins over t2; a miss or an
+    invalid window gives bad_ix (int32; bad_ix 2^32-1 wraps to -1)."""
+    t1, t2 = tables["t1"], tables["t2"]
+    b1, b2 = t1.shape[0], t2.shape[0]
+    key_lo, key_hi = i32(qlo), i32((qpre << 8) | qhi)
+
+    def probe(table, bucket):
+        rows = table[bucket]
+        ix = torch.zeros(bucket.shape, dtype=torch.int32, device=rows.device)
+        found = torch.zeros(bucket.shape, dtype=torch.bool, device=rows.device)
+        for s in range(slots):
+            v = rows[..., s * 3 + 2]
+            m = (rows[..., s * 3] == key_lo) & (rows[..., s * 3 + 1] == key_hi) & (v >= 0)
+            ix = torch.where(m, v, ix)
+            found |= m
+        return found, ix
+
+    # invalid windows probe bucket 0, as JAX's do
+    f1, ix1 = probe(t1, torch.where(valid, mix(qpre, qhi, qlo) & (b1 - 1), 0))
+    h2 = mix(qpre, qhi, qlo ^ 0x5BD1E995)
+    f2, ix2 = probe(t2, torch.where(valid, h2 & (b2 - 1), 0))
+    out = torch.where(f1, ix1.to(torch.int64), torch.where(f2, ix2.to(torch.int64), bad_ix))
+    return i32(torch.where(valid, out, bad_ix))
+
+
+def _hash_ix(tables: dict, qpre, qhi, qlo, valid, *, do_rc: bool, bad_ix: int):
+    return lookup_kmers_hash(tables, *_append_rc(qpre, qhi, qlo, valid, do_rc),
+                             slots=8, bad_ix=bad_ix)
 
 
 def _trim(packed, vbits, true_len):
@@ -371,12 +415,15 @@ def _trim(packed, vbits, true_len):
 def window_ids_plain(tables: dict, packed, vbits, lengths, *, do_rc: bool,
                      bad_ix: int, num_labels: int, true_len: int | None = None,
                      probe_iters: int | None = None) -> torch.Tensor:
-    """Plain version of K1, K4 and K7 (`_packed_window_ix`): packed reads ->
-    (B, 2W) ids with RC ([ix_a | ix_b] on the canonical tables, [fwd | rc]
-    on the bsearch replay, which needs `probe_iters`), else (B, W)."""
+    """Plain version of K1, K4, K7 and K10 (`_packed_window_ix`): packed
+    reads -> (B, 2W) ids with RC ([ix_a | ix_b] on the canonical tables,
+    [fwd | rc] on the legacy hash and on the bsearch replay, which needs
+    `probe_iters`), else (B, W)."""
     packed, vbits = _trim(packed, vbits, true_len)
     codes = base_codes_packed(packed, vbits, lengths)
     qpre, qhi, qlo, valid = extract_windows(codes)
+    if "t1" in tables:
+        return _hash_ix(tables, qpre, qhi, qlo, valid, do_rc=do_rc, bad_ix=bad_ix)
     if "bin_ix" in tables:
         return _bsearch_ix(tables, qpre, qhi, qlo, valid, do_rc=do_rc,
                            probe_iters=probe_iters, bad_ix=bad_ix)
@@ -396,9 +443,11 @@ def window_ids(tables: dict, packed, vbits, lengths, *, do_rc: bool,
                bad_ix: int, num_labels: int, true_len: int | None = None,
                probe_iters: int | None = None) -> torch.Tensor:
     """On CUDA tensors K1 `scan_probe[_wide]` (displaced table, 'd1'), K4
-    `ladder_probe[_wide]` (ladder, 'c1') or K7 `bsearch_probe` (the CTR
-    records, 'bin_ix'); the plain version on CPU tensors.  K7 loops until
-    every search range is empty, so it needs no `probe_iters`."""
+    `ladder_probe[_wide]` (ladder, 'c1'), K7 `bsearch_probe` (the CTR
+    records, 'bin_ix') or K10 `hash_probe` (the legacy hash, 't1', whose
+    full int32 ids serve narrow and wide labels alike); the plain version
+    on CPU tensors.  K7 loops until every search range is empty, so it
+    needs no `probe_iters`."""
     if packed.device.type == "cpu":
         return window_ids_plain(tables, packed, vbits, lengths, do_rc=do_rc,
                                 bad_ix=bad_ix, num_labels=num_labels,
@@ -434,6 +483,13 @@ def window_ids(tables: dict, packed, vbits, lengths, *, do_rc: bool,
                              "suf_lo, ix one record each plus the sentinel")
         kernels.launch("bsearch_probe", *front, *(a.data_ptr() for a in arrs), n,
                        *back)
+    elif "t1" in tables:
+        levels = [_level(tables[k], k, 3, dev) for k in ("t1", "t2")]
+        if any(s != 8 or n & (n - 1) or tt.data_ptr() % 16 for tt, n, s in levels):
+            raise ValueError("hash tables must have 8-slot rows (24 columns), "
+                             "power-of-two row counts and 16 B alignment")
+        kernels.launch("hash_probe", *front,
+                       *(x for tt, n, _ in levels for x in (tt.data_ptr(), n)), *back)
     elif "d1" in tables:
         t1, _, _ = _level(tables["d1"], "d1", cps, dev)
         t3, n3, s3 = _level(tables["d3"], "d3", cps, dev)
@@ -592,7 +648,7 @@ def hist_compact(rows: torch.Tensor, over_cap: int) -> torch.Tensor:
 
 
 # ---- the device steps --------------------------------------------------------
-# `table` holds d1/ds/d3, c1/c2/c3 or bin_ix/suf_hi/suf_lo/ix (and, for the
+# `table` holds d1/ds/d3, c1/c2/c3, t1/t2 or bin_ix/suf_hi/suf_lo/ix (and, for the
 # vote, the vote tables under `vt_*` keys); `probe_iters` is read by the
 # bsearch replay's plain version only.
 

@@ -1,17 +1,22 @@
 """ctypes bridge to the host C++ of the search and of xtree ALIGN (the port's
-copy of the FASTA scanner, the vote formatter and the xtree engine of
-`utree_tpu/native.py`).
+copy of the FASTA scanner, the vote formatter, the rank-specific search and
+the xtree engine of `utree_tpu/native.py`).
 
-The sources are `utree_tpu_torch/csrc/host/{fasta,vote,xtree}.cpp`.  Each compiles
-with g++ at first use into `.cuda_build/` beside the package, named by a
-hash of its source, so an edited source never loads a stale build.  A failed
-build raises: the port has no Python path for what these do.
+The sources are `utree_tpu_torch/csrc/host/{fasta,vote,shallow,xtree}.cpp`.
+Each compiles with g++ at first use into `.cuda_build/` beside the package,
+named by a hash of its source, so an edited source never loads a stale
+build.  A failed build raises: the port has no Python path for what these
+do (`utree_tpu` returns None there and takes its Python paths).
 
   FastaScanner  record table of a FASTA piece; batch packing to 2 bits
                 (PACKSIZE=32) or to an ASCII matrix (PACKSIZE=64)
   VoteEngine    the aufbau vote and line formatting of a batch: from CSR
                 histograms, from packed (B, cap+1) rows, or from the
                 device's 12 B vote rows
+  shallow_lib   the rank-specific (non-GG) search: the literal word state
+                machine of the shallow scan, alone (shallow_scan_batch) or
+                fused with the vote and the formatter over a whole file
+                (shallow_classify_file)
   xtree_lib     the xtree ALIGN engine: query scan, LBS_k hit scan (alone
                 or fused with the ref vote), ref and taxon tallies, the
                 deep taxonomy call and the perq formatter (xt_* below)
@@ -90,6 +95,90 @@ def fasta_lib() -> ctypes.CDLL:
     for fn in (lib.utree_scan_fasta, lib.utree_pack_batch, lib.utree_pack_batch_2bit):
         fn.restype = I64
     return lib
+
+
+@functools.cache
+def shallow_lib() -> ctypes.CDLL:
+    """libshallow (the literal non-GG word state machine, itree.c:903-951,
+    at C speed), built first if needed."""
+    lib = ctypes.CDLL(str(_compile("shallow.cpp")))
+    I64, U64, CHR = ctypes.c_int64, ctypes.c_uint64, ctypes.c_char_p
+    A = _nd(np.int64)
+    index = [A, _nd(np.uint64), A, I64, U64, I64, I64, I64, I64, I64]
+    lib.utree_shallow_scan_batch.restype = None
+    lib.utree_shallow_scan_batch.argtypes = [*index, _nd(np.uint8), A, I64, A, A, A]
+    lib.utree_shallow_classify_batch.restype = I64
+    lib.utree_shallow_classify_batch.argtypes = [*index, CHR, A, I64, I64, I64, CHR, A,
+                                                 I64, I64, A, I64, CHR, I64]
+    return lib
+
+
+def shallow_classify_file(index, reads_path: str, out_path: str,
+                          do_rc: bool, chunk: int = 65536) -> int:
+    """Whole-file shallow search with zero per-read Python: native FASTA
+    scan + fused scan/vote/format batches (utree_shallow_classify_batch).
+    Raises ValueError if the file is not linearized FASTA (the caller then
+    drives the batches from Python)."""
+    lib = shallow_lib()
+    cfg = index.config
+    with open(reads_path, "rb") as f:
+        data = f.read()
+    sc = FastaScanner(data)
+    n = sc.num_records
+    recs_flat = np.ascontiguousarray(sc.recs.reshape(-1))
+    seq_lens = sc.seq_lengths()
+    ext = 2 * seq_lens + 1 if do_rc else seq_lens
+    max_wins = int(max(0, int((ext - (cfg.packsize - 1)).max()))) if n else 0
+    # persistent AllTheKingsHorses analog: zero-init ONCE per file; the
+    # phantom-slot semantics then survive batch boundaries (see shallow.cpp)
+    vote_buffer = np.zeros(max_wins + 2, np.int64)
+    label_pool = b"".join(index.strings)
+    label_offsets = np.zeros(len(index.strings) + 1, np.int64)
+    np.cumsum([len(s) for s in index.strings], out=label_offsets[1:])
+    max_label = max((len(s) for s in index.strings), default=0)
+    with open(out_path, "wb") as fo:
+        for f0 in range(0, n, chunk):
+            count = min(chunk, n - f0)
+            name_bytes = int((sc.recs[f0:f0 + count, 1]
+                              - sc.recs[f0:f0 + count, 0]).sum())
+            cap = name_bytes + count * (max_label + 48) + 64
+            out = ctypes.create_string_buffer(cap)
+            used = lib.utree_shallow_classify_batch(
+                index.bin_ix, index.s_lo, index.ixs,
+                cfg.ctr_suffix_bits, cfg.suffix_mask, cfg.bad_ix,
+                cfg.packsize, cfg.sparsity, cfg.word_bits, index.num_labels,
+                data, recs_flat, f0, count, 1 if do_rc else 0,
+                label_pool, label_offsets, cfg.tolerance, cfg.slack,
+                vote_buffer, len(vote_buffer), out, cap)
+            if used < 0:
+                raise RuntimeError(f"shallow classify batch failed: {used}")
+            fo.write(out.raw[:used])
+    return n
+
+
+def shallow_scan_batch(index, ext_codes: list[np.ndarray]) -> list[list[int]]:
+    """Batch scan_shallow over pre-extended encoded reads (seq [+N+rc]).
+    `index` is a search_host.HostIndex with packsize <= 32 (s_hi all zero)."""
+    lib = shallow_lib()
+    cfg = index.config
+    n = len(ext_codes)
+    lens = np.array([len(c) for c in ext_codes], np.int64)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    codes = np.concatenate(ext_codes) if n else np.zeros(0, np.uint8)
+    wins = np.maximum(lens - (cfg.packsize - 1), 0)
+    hit_offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(wins, out=hit_offsets[1:])
+    hits = np.zeros(max(1, int(hit_offsets[-1])), np.int64)
+    counts = np.zeros(max(1, n), np.int64)
+    lib.utree_shallow_scan_batch(
+        index.bin_ix, index.s_lo, index.ixs,
+        cfg.ctr_suffix_bits, cfg.suffix_mask, cfg.bad_ix,
+        cfg.packsize, cfg.sparsity, cfg.word_bits, index.num_labels,
+        codes, offsets, n, hits, hit_offsets, counts,
+    )
+    return [hits[hit_offsets[r] : hit_offsets[r] + counts[r]].tolist()
+            for r in range(n)]
 
 
 class FastaScanner:

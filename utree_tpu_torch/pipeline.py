@@ -8,9 +8,11 @@
           table (K1 scan_probe) from 80M, `_wide` kernels for IXTYPE=u32
           labels, and the bsearch replay over the CTR records (K7
           bsearch_probe) when asked for or when `auto` finds neither table
-          fits a DB below 80M records.  PACKSIZE=64: the 64-mer ladder (K6
-          ladder_probe64) below 80M records, the 64-mer displaced table (K5
-          scan_probe64) from 80M or when asked for;
+          fits a DB below 80M records, and the legacy two-table hash (K10
+          hash_probe) only when asked for (`lookup_mode="hash"`).
+          PACKSIZE=64: the 64-mer ladder (K6 ladder_probe64) below 80M
+          records, the 64-mer displaced table (K5 scan_probe64) from 80M or
+          when asked for;
   readback (`layout`), by the JAX pipeline's step choice:
           "vote": PACKSIZE=32, narrow labels of <= 2047 chars, support 1,
             device_vote: K2 histogram + K3 aufbau_vote, 12 B/read vote
@@ -63,10 +65,9 @@ from utree_tpu_torch.lookup import (WIDE_LABELS, pack_reads_host,
                                     search_step_vote_compact)
 
 _TODO = {
-    "hash": "the legacy two-table hash (ROADMAP A.8)",
     "routed": "routed shards across GPUs (ROADMAP A.9)",
 }
-_MODES = ("auto", "canonical", "displaced", "bsearch")
+_MODES = ("auto", "canonical", "displaced", "bsearch", "hash")
 # `auto` table choice, as utree_tpu.pipeline resolves it: the displaced
 # table from _DISPLACED_AUTO_MIN records (the ladder below); at PACKSIZE=32
 # the device tables only below _HASH_AUTO_MAX records, and the bsearch
@@ -77,7 +78,7 @@ _HASH_AUTO_MAX = 400_000_000
 _REPLAY_AUTO_MAX = 80_000_000
 _TABLE_KINDS = (("d1", "displaced"), ("c1", "canonical"),
                 ("c64_1", "canonical64"), ("d64_1", "displaced64"),
-                ("bin_ix", "bsearch"))
+                ("t1", "hash"), ("bin_ix", "bsearch"))
 
 
 def _bucket_len(n: int, minimum: int = 64) -> int:
@@ -258,6 +259,8 @@ class SearchPipeline:
                     "PACKSIZE=64 device search needs the canonical hash "
                     f"table, which this DB cannot build ({e}); use the "
                     "host path (search --host)") from e
+        if mode == "hash":  # only when asked for, at any record count
+            return hi.hash_to_device(hi.build_hash_index(index), self.device)
         if mode in ("canonical", "displaced") or (
                 mode == "auto" and n < _HASH_AUTO_MAX):
             if want_displaced:
@@ -296,7 +299,7 @@ class SearchPipeline:
 
     @property
     def table_kind(self) -> str:
-        """'displaced', 'canonical', 'canonical64', 'displaced64' or
+        """'displaced', 'canonical', 'canonical64', 'displaced64', 'hash' or
         'bsearch', as utree_tpu.pipeline names the table it resolved to."""
         return next(kind for key, kind in _TABLE_KINDS if key in self._table)
 

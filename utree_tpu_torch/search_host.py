@@ -8,6 +8,11 @@ below the label count are histogrammed, and the aufbau vote emits the output
 line.  Output equals the reference binary's classifications.txt run with one
 thread.  `chip_smoke.py` holds the device path to it, and the pipeline
 replays over-cap PACKSIZE=64 reads through `lookup_words`.
+
+The rank-specific search (utree-search, `search_file_shallow`) runs on the
+host only, as in `utree_tpu`: the literal word state machine of the shallow
+scan (`scan_shallow_literal`, its batched twin `scan_shallow_fast`, and the
+C++ `native.shallow_*`) and the stateful `classify.ShallowVoter`.
 """
 
 from __future__ import annotations
@@ -134,4 +139,244 @@ def search_file(
             line = classify_read(index, name, seq, do_rc, support_ranges)
             if line is not None:
                 fo.write(line + b"\n")
+    return n
+
+
+def _lookup_one(index: HostIndex, word: int) -> int:
+    """Single-word XT_getIX32 replay (itree.c:699-730); `word` is a Python
+    int of any width (64-bit or 128-bit)."""
+    cfg = index.config
+    qpre = word >> cfg.ctr_suffix_bits
+    qsuf = word & cfg.suffix_mask
+    start = int(index.bin_ix[qpre])
+    end = int(index.bin_ix[qpre + 1])
+    if start >= end:
+        return cfg.bad_ix
+
+    def suffix_at(j: int) -> int:
+        return (int(index.s_hi[j]) << 64) | int(index.s_lo[j])
+
+    p, size = start, end - start - 1
+    while size:
+        w = size >> 1
+        if suffix_at(p + w + 1) <= qsuf:
+            p += w + 1
+            size -= w + 1
+        else:
+            size = w
+    return int(index.ixs[p]) if suffix_at(p) == qsuf else cfg.bad_ix
+
+
+def scan_shallow_literal(index: HostIndex, seq: bytes, do_rc: bool) -> list[int]:
+    """Literal replay of XT_WORD_SEARCH + XT_SHALLOWVOTE (itree.c:903-951).
+
+    The shallow vote's skip-after-hit (`i += PACKSIZE/SPARSITY - 1`) re-enters
+    the incremental encoder with a gap > 1, and its catch-up shift
+    `w <<= (i-z-1)<<1` plus the per-base append shifts OVER-shifts the word
+    (itree.c:920-924) — the reference then looks up corrupted k-mers until the
+    corruption rolls out or a bad character forces a re-encode.  Bit-exact
+    output requires replaying that word state machine literally, so this path
+    is a sequential scan (the GG search never skips and is unaffected)."""
+    from utree_tpu_torch.encode import INVALID, encode_bases, revcomp_text
+
+    cfg = index.config
+    k1 = cfg.packsize - 1
+    kv = k1
+    step = cfg.packsize // cfg.sparsity - 1
+    mask = (1 << cfg.word_bits) - 1
+    if do_rc:
+        seq = seq + b"N" + revcomp_text(seq)
+    codes = encode_bases(seq)
+    length = len(codes)
+    max_ix = index.num_labels
+    hits: list[int] = []
+    w = 0
+    i = kv
+    z = -4
+    while i < length:
+        if i < z + kv:
+            w = (w << ((i - z - 1) << 1)) & mask
+            j = z + 1
+        else:
+            w = 0
+            j = i - k1
+        p = j
+        broke = False
+        while j <= i:
+            c = int(codes[j])
+            if c == INVALID or c > 3:
+                i += j - p
+                z = 0
+                broke = True
+                break
+            w = ((w << 2) | c) & mask
+            j += 1
+        if broke:
+            i += 1
+            continue
+        z = i
+        ix = _lookup_one(index, w)
+        if ix < max_ix:
+            hits.append(ix)
+            i += step
+        i += 1
+    return hits
+
+
+def scan_shallow_fast(index: HostIndex, seq: bytes, do_rc: bool) -> list[int]:
+    """Exact scan_shallow_literal with the per-window Python work removed
+    from every no-hit span.
+
+    All CLEAN window words are batch-looked-up once (lookup_words, the
+    vectorized XT_getIX32 replay).  From any provably-clean machine state —
+    the start, after a bad-char re-encode (z=0 forces a fresh word), or a
+    clean-word miss — every window the machine would visit up to the next
+    precomputed hit is a clean miss (no state to replay), so the scan jumps
+    straight to that hit with one binsearch.  Only the stretch AFTER a hit
+    runs the literal word state machine, because the skip-after-hit
+    over-shift (itree.c:920-924) corrupts the word there and corrupted
+    k-mers can themselves hit; the stretch ends at the first window whose
+    machine word equals the clean word and misses.  Output identical to the
+    literal replay by construction on every path."""
+    from utree_tpu_torch.encode import (INVALID, encode_bases, revcomp_text,
+                                  search_window_words_positions)
+
+    cfg = index.config
+    k1 = cfg.packsize - 1
+    kv = k1
+    step = cfg.packsize // cfg.sparsity - 1
+    mask = (1 << cfg.word_bits) - 1
+    words, positions = search_window_words_positions(seq, cfg.packsize, do_rc)
+    max_ix = index.num_labels
+    if len(words):
+        pre_ix = lookup_words(index, words)
+        if words.dtype.names:  # W128 -> python ints matching the machine's w
+            wlist = [(int(h) << 64) | int(l)
+                     for h, l in zip(words["hi"], words["lo"])]
+        else:
+            wlist = words.tolist()  # python ints: fast == against w
+        ilist = pre_ix.tolist()
+        hit_t = np.flatnonzero(pre_ix < max_ix)
+        hitpos = positions[hit_t]  # window starts of clean hits, ascending
+    else:
+        wlist, ilist = [], []
+        hit_t = hitpos = np.zeros(0, np.int64)
+    ext = seq + b"N" + revcomp_text(seq) if do_rc else seq
+    codes = encode_bases(ext)
+    length = len(codes)
+    pos_to_j = np.full(length + 1, -1, np.int64)
+    if len(words):
+        pos_to_j[positions] = np.arange(len(words))
+    hits: list[int] = []
+    w = 0
+    i = kv
+    z = -4
+    clean = True  # machine word provably equals the clean window word
+    while i < length:
+        if clean:
+            # every valid window with start in [i-k1, next hit) is a clean
+            # miss and invalid spans re-encode fresh: jump to the next hit
+            t = int(np.searchsorted(hitpos, i - k1))
+            if t >= len(hitpos):
+                break
+            tj = int(hit_t[t])
+            hits.append(ilist[tj])
+            w = wlist[tj]  # machine word at the hit = its clean window word
+            z = int(hitpos[t]) + k1
+            i = z + step + 1
+            clean = False
+            continue
+        if i < z + kv:
+            w = (w << ((i - z - 1) << 1)) & mask
+            j = z + 1
+        else:
+            w = 0
+            j = i - k1
+        p = j
+        broke = False
+        while j <= i:
+            c = int(codes[j])
+            if c == INVALID or c > 3:
+                i += j - p
+                z = 0
+                broke = True
+                break
+            w = ((w << 2) | c) & mask
+            j += 1
+        if broke:
+            i += 1
+            clean = True  # z=0: the next window re-encodes from scratch
+            continue
+        z = i
+        pj = int(pos_to_j[i - k1])
+        if pj >= 0 and wlist[pj] == w:
+            ix = ilist[pj]
+            if ix < max_ix:
+                hits.append(ix)
+                i += step
+            else:
+                clean = True  # clean miss: back to the jump cadence
+        else:  # over-shift-corrupted word: literal scalar replay
+            ix = _lookup_one(index, w)
+            if ix < max_ix:
+                hits.append(ix)
+                i += step
+        i += 1
+    return hits
+
+
+def search_file_shallow(
+    index: HostIndex, reads_path: str, out_path: str, do_rc: bool = False,
+    chunk: int = 4096,
+) -> int:
+    """Rank-specific search (utree-search, doCollapse=0 path itree.c:969-1006):
+    SPARSITY-subsampled hits, majority vote with TOLERANCE/SLACK rejection.
+
+    When the word fits u64, the whole per-read pipeline (encode, scan,
+    stateful vote, formatting) runs in one native call per batch
+    (csrc/host/shallow.cpp utree_shallow_classify_batch); a file the native
+    scanner cannot read as linearized FASTA takes the native scan with the
+    Python vote instead.  Wider words take scan_shallow_fast.  A failed g++
+    build raises (utree_tpu falls back to Python there)."""
+    from utree_tpu_torch.classify import ShallowVoter
+    from utree_tpu_torch.encode import encode_bases, revcomp_text
+    from utree_tpu_torch.native import shallow_classify_file, shallow_scan_batch
+
+    cfg = index.config
+    use_native = cfg.word_bits <= 64 and not index.s_hi.any()
+    if use_native:
+        try:
+            return shallow_classify_file(index, reads_path, out_path, do_rc)
+        except ValueError:  # not linearized FASTA for the native scanner
+            pass
+    voter = ShallowVoter(index.strings, cfg.tolerance, cfg.slack)
+    n = 0
+    pend_names: list[bytes] = []
+    pend_ext: list[np.ndarray] = []
+
+    with open(out_path, "wb") as fo:
+        def flush():
+            for name, hits in zip(pend_names, shallow_scan_batch(index, pend_ext)):
+                line = voter.vote(name, hits)
+                if line is not None:
+                    fo.write(line + b"\n")
+            pend_names.clear()
+            pend_ext.clear()
+
+        for header, seq in iter_fasta_records(reads_path):
+            n += 1
+            name = header.split(b" ")[0]
+            if use_native:
+                ext = seq + b"N" + revcomp_text(seq) if do_rc else seq
+                pend_names.append(name)
+                pend_ext.append(encode_bases(ext))
+                if len(pend_names) >= chunk:
+                    flush()
+            else:
+                hits = scan_shallow_fast(index, seq, do_rc)
+                line = voter.vote(name, hits)
+                if line is not None:
+                    fo.write(line + b"\n")
+        if pend_names:
+            flush()
     return n

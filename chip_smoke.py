@@ -85,6 +85,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -111,6 +112,9 @@ XT_QUERIES = 262_144
 XT_REDIST_QUERIES = 32_768
 XT_K = 29
 XT_OUTS = ("perq", "ref", "tax", "cov")
+ROUTED_SHARDS = 4  # phase 15's shards, all on the one card
+DP_SHARDS = 2  # phase 16's
+WIDE_ROUTED_CHECK = 4096  # phase 15's wide reads held to the CPU shards
 
 # launches summed over the path runs (each one counted from 0)
 PATH_LAUNCHES: dict[str, int] = {}
@@ -340,7 +344,7 @@ def phase_ladder(dev, base: dict, work: pathlib.Path):
     build_s = time.perf_counter() - t0
     if pipe.table_kind != "canonical":
         fail(f"auto resolved to {pipe.table_kind} at {index.num_records} records")
-    t = pipe._table
+    t = pipe._tables[0]
     geo = {k: tuple(t[k].shape) for k in ("c1", "c2", "c3")}
     log(f"ladder: auto -> canonical at {index.num_records:,} records; built in "
         f"{build_s:.1f} s; slots {geo['c1'][1] // 3}/{geo['c2'][1] // 3}/"
@@ -510,7 +514,7 @@ def phase_wide(dev, kmers: int, base: dict, work: pathlib.Path):
             fail(f"wide {kind}: resolved to {pipe.table_kind}")
         if pipe.layout != "unpacked":
             fail(f"wide {kind}: layout {pipe.layout}, expected unpacked")
-        t = pipe._table
+        t = pipe._tables[0]
         log(f"wide {kind}: {index.num_labels} labels, {n_kmers} k-mers, set-up "
             f"{build_s:.1f} s, " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in t.items()))
         if kind == "ladder":
@@ -593,7 +597,7 @@ def phase_long(dev, pipe, base: dict, work: pathlib.Path):
     packed, vbits, lens = (torch.from_numpy(a).to(dev)
                            for a in lookup.pack_reads_host(chunks, clens))
     L = index.num_labels
-    ids = lookup.window_ids(pipe._table, packed, vbits, lens, do_rc=True,
+    ids = lookup.window_ids(pipe._tables[0], packed, vbits, lens, do_rc=True,
                             bad_ix=0xFFFF, num_labels=L)
     row = check_kernel("histogram_packed", "histogram.cu", "utree_tpu/lookup.py:811",
                        lambda: lookup.histogram_packed(ids, L, HIST_CAP),
@@ -656,7 +660,7 @@ def phase_k64(dev, kmers: int, nreads: int, work: pathlib.Path):
         build_s = time.perf_counter() - t
         if pipe.table_kind != kind or pipe.layout != "unpacked":
             fail(f"k64 {mode}: resolved to {pipe.table_kind}, layout {pipe.layout}")
-        tab = pipe._table
+        tab = pipe._tables[0]
         log(f"k64 {kind}: table built in {build_s:.1f} s, "
             + ", ".join(f"{k} {tuple(v.shape)}" for k, v in tab.items()))
         what = f"B={b} ASCII reads, L=192, {L} labels"
@@ -736,7 +740,7 @@ def phase_bsearch(dev, base: dict, work: pathlib.Path):
                           hist_cap=HIST_CAP, lookup_mode="bsearch")
     if pipe.table_kind != "bsearch" or pipe.layout != "vote":
         fail(f"bsearch: resolved to {pipe.table_kind}, layout {pipe.layout}")
-    tab = pipe._table
+    tab = pipe._tables[0]
     log(f"bsearch: records on the card in {time.perf_counter() - t:.1f} s, probe_iters "
         f"{index.probe_iters}, " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in tab.items()
                                              if not k.startswith("vt_")))
@@ -1092,7 +1096,7 @@ def phase_hash(dev, base: dict, work: pathlib.Path):
     place_s = time.perf_counter() - t
     if pipe.table_kind != "hash" or pipe.layout != "vote":
         fail(f"hash: resolved to {pipe.table_kind}, layout {pipe.layout}")
-    tab = pipe._table
+    tab = pipe._tables[0]
     log(f"hash: build_hash_index and the copy to the card in {place_s:.1f} s; "
         f"t1 {tuple(tab['t1'].shape)} ({nbytes(tab['t1']):,} B), "
         f"t2 {tuple(tab['t2'].shape)} ({nbytes(tab['t2']):,} B)")
@@ -1134,8 +1138,8 @@ def phase_hash(dev, base: dict, work: pathlib.Path):
     if wpipe.table_kind != "hash" or wpipe.layout != "unpacked":
         fail(f"wide hash: resolved to {wpipe.table_kind}, layout {wpipe.layout}")
     log(f"wide hash: {windex.num_labels} labels, {WIDE_DISPLACED_KMERS} k-mers, "
-        f"set-up {wide_s:.1f} s, t1 {tuple(wpipe._table['t1'].shape)}, "
-        f"t2 {tuple(wpipe._table['t2'].shape)}")
+        f"set-up {wide_s:.1f} s, t1 {tuple(wpipe._tables[0]['t1'].shape)}, "
+        f"t2 {tuple(wpipe._tables[0]['t2'].shape)}")
     out_w = work / "smoke_wide_hash.txt"
     wrps = e2e(wpipe, work / "smoke_wide_reads.fa", out_w, len(reads), "wide hash e2e",
                ("hash_probe", "histogram_unpacked"))
@@ -1181,6 +1185,251 @@ def phase_shallow(base: dict, work: pathlib.Path) -> dict:
         f"scan_shallow_literal and their {len(head)} lines the Python-driven vote "
         f"({time.perf_counter() - t:.1f} s)")
     return {"reads_per_s": n / dt, "seconds": dt, "lines": len(lines)}
+
+
+def routed_checks(sharded, tables, mesh, packed, vbits, lens, tag: str) -> list[dict]:
+    """K11, K12 and K13 (narrow or wide by the table) against their plain
+    versions at the routed step's shapes for this batch: shard 0's rows
+    (B/S reads), owner 0's receive buffer, shard 0's records and replies;
+    then the time of the copies between the shards."""
+    from utree_tpu_torch.parallel import routed as R
+
+    S = mesh.size
+    b, w = packed.shape[0] // S, packed.shape[1] * 4 - 31
+    # the step's capacity
+    c = max(128, math.ceil(b * w / S * R.CAPACITY_FACTOR / 128) * 128)
+    # the step's sequence (parallel.routed.routed_displaced_search_step):
+    # each shard's K11, the receive buffers, the owners' K12, the replies
+    routed = [R.route_displaced(packed[s * b:(s + 1) * b], vbits[s * b:(s + 1) * b],
+                                lens[s * b:(s + 1) * b], nseed=sharded.nseed,
+                                num_shards=S, capacity=c) for s in range(S)]
+    recv = mesh.all_to_all([r[0] for r in routed])
+    vals = [R.owner_probe(tables[o]["t1"], tables[o]["ds"], recv[o].reshape(S * c, 3),
+                          base=0, per_seed=sharded.nseed // S, wide=sharded.wide)
+            for o in range(S)]
+    vals = [v.reshape((S, c, 2) if sharded.wide else (S, c)) for v in vals]
+    reply = mesh.all_to_all(vals)
+    p0, v0, l0 = packed[:b], vbits[:b], lens[:b]
+    send, rec, counts = routed[0]
+    k11 = dict(nseed=sharded.nseed, num_shards=S, capacity=c)
+    sfx = "_wide" if sharded.wide else ""
+    what = f"{tag}: B/S={b} reads, W={w}, {S} shards, C={c}"
+    lanes = recv[0].reshape(S * c, 3)
+    k12 = dict(base=0, per_seed=sharded.nseed // S, wide=sharded.wide)
+    # the lanes senders wrote to owner 0 read a d1 row each; the unwritten
+    # slots all read bucket 0's row once; the seed words at most once each
+    written = sum(min(int(r[2][0]), c) for r in routed)
+    t1, ds, t3 = tables[0]["t1"], tables[0]["ds"], tables[0]["t3"]
+    k13 = dict(b=b, w=w, do_rc=True, bad_ix=0x7FFFFFFF if sharded.wide else 0xFFFF,
+               wide=sharded.wide)
+    ids = R.routed_finish(rec, reply[0], t3, **k13)
+    # a valid lane whose routed value misses reads one d3 row (t3 at most once)
+    slot = rec[:, 0].long()
+    got = reply[0].reshape(S * c, -1)[slot.clamp(min=0)]
+    miss = int((((rec[:, 3] & 1) == 1) & ((slot < 0) | (got == 0).all(1))).sum())
+    rows = []
+    if not sharded.wide:
+        rows.append(check_kernel(
+            "route_displaced", "route_displaced.cu", "utree_tpu/parallel/routed.py:422",
+            lambda: R.route_displaced(p0, v0, l0, **k11),
+            lambda: R.route_displaced_plain(p0, v0, l0, **k11), what,
+            nbytes(p0, v0, l0, send, rec, counts)))
+    rows.append(check_kernel(
+        "owner_probe" + sfx, "owner_probe.cu", "utree_tpu/parallel/routed.py:405",
+        lambda: R.owner_probe(t1, ds, lanes, **k12),
+        lambda: R.owner_probe_plain(t1, ds, lanes, **k12), what,
+        nbytes(lanes, vals[0]) + SECTOR * (written + 1) + min(nbytes(ds), SECTOR * written)))
+    rows.append(check_kernel(
+        "routed_finish" + sfx, "routed_finish.cu", "utree_tpu/parallel/routed.py:462",
+        lambda: R.routed_finish(rec, reply[0], t3, **k13),
+        lambda: R.routed_finish_plain(rec, reply[0], t3, **k13), what,
+        nbytes(rec, reply[0], ids) + min(nbytes(t3), SECTOR * miss)))
+    a2a = cuda_ms(lambda: mesh.all_to_all([r[0] for r in routed]), 20)
+    back = cuda_ms(lambda: mesh.all_to_all(vals), 20)
+    flags = [r[2][S:] for r in routed]
+    ps = cuda_ms(lambda: mesh.psum(flags), 20)
+    log(f"{tag} copies per batch: all_to_all out {a2a:.4f} ms "
+        f"({nbytes(*(r[0] for r in routed)):,} B), back {back:.4f} ms "
+        f"({nbytes(*vals):,} B), overflow psum {ps:.4f} ms; "
+        f"{sum(int(r[2][:S].sum()) for r in routed):,} valid lanes, {miss:,} of "
+        f"shard 0's miss d1; overflow {[int(r[2][S]) for r in routed]}")
+    return rows
+
+
+def phase_routed(dev, base: dict, work: pathlib.Path):
+    """Phase 15: the phase-4 tier sharded ROUTED_SHARDS ways by seed bucket,
+    the shards on one card (`_shard_devices`); then the wide 2M tier's
+    routed step, held to the same step over CPU shards."""
+    import torch
+
+    from utree_tpu_torch.parallel import routed as R
+    from utree_tpu_torch.parallel.mesh import ShardMesh
+    from utree_tpu_torch.pipeline import SearchPipeline
+
+    index, reads, S = base["index"], base["reads"], ROUTED_SHARDS
+    t = time.perf_counter()
+    pipe = SearchPipeline(index, device=dev, do_rc=True, batch_size=BATCH,
+                          hist_cap=HIST_CAP, devices=S, lookup_mode="routed",
+                          _shard_devices=[dev] * S)
+    place_s = time.perf_counter() - t
+    if pipe.table_kind != "routed-displaced" or pipe.layout != "packed":
+        fail(f"routed: resolved to {pipe.table_kind}, layout {pipe.layout}")
+    sh, mesh, tabs = pipe._sharded, pipe._mesh, pipe._tables
+    log(f"routed: ShardedDisplacedIndex.build ({S} shards) and the copy to the card "
+        f"in {place_s:.1f} s; nseed {sh.nseed}, t1 {tuple(sh.t1.shape)}, seeds "
+        f"{tuple(sh.seeds.shape)}, t3 {tuple(sh.t3.shape)}")
+    rows = routed_checks(sh, tabs, mesh, *batch_tensors(dev, reads), "routed")
+    out_txt = work / "smoke_routed.txt"
+    expect = ("route_displaced", "owner_probe", "routed_finish", "histogram_packed")
+    rps = e2e(pipe, base["reads_fa"], out_txt, len(reads), "routed e2e", expect)
+    if out_txt.read_bytes() != base["out_txt"].read_bytes():
+        fail("routed: output differs from the displaced run (phase 4)")
+    log("routed: whole output byte-identical to the displaced run (phase 4)")
+
+    # capacity 8: every batch overflows and goes through the fallback
+    step = pipe._step_routed
+    pipe._step_routed = R.routed_displaced_search_step(
+        mesh, sh, do_rc=True, num_labels=index.num_labels, cap=HIST_CAP,
+        bad_ix=index.config.bad_ix, capacity=8)
+    calls, fallback = [], pipe._fallback_step
+    pipe._fallback_step = lambda *a: calls.append(1) or fallback(*a)
+    fb_txt = work / "smoke_routed_fallback.txt"
+    fb_rps = e2e(pipe, base["reads_fa"], fb_txt, len(reads), "routed fallback e2e",
+                 expect, passes=1)
+    batches = -(-len(reads) // BATCH)
+    if len(calls) != batches or fb_txt.read_bytes() != base["out_txt"].read_bytes():
+        fail(f"routed fallback: {len(calls)} of {batches} batches redispatched, or "
+             "its output differs from phase 4's")
+    log(f"routed fallback: all {batches} batches flagged and redispatched; whole "
+        "output byte-identical to phase 4's")
+    pipe._step_routed, pipe._fallback_step = step, fallback
+    del pipe, tabs
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        k = min(n, S)
+        pipe = SearchPipeline(index, device=dev, do_rc=True, batch_size=BATCH,
+                              hist_cap=HIST_CAP, devices=k, lookup_mode="routed")
+        cards_txt = work / "smoke_routed_cards.txt"
+        e2e(pipe, base["reads_fa"], cards_txt, len(reads), f"routed on {k} cards",
+            expect, passes=1)
+        if cards_txt.read_bytes() != base["out_txt"].read_bytes():
+            fail(f"routed on {k} cards: output differs from phase 4's")
+        del pipe
+    else:
+        log(f"routed on distinct cards: skipped, {n} card on this machine")
+
+    # the wide tier (IXTYPE=u32): the step only (the pipeline refuses wide
+    # routed DBs, as utree_tpu's does), held to the same step on CPU shards
+    windex, genome, rng = make_tier(WIDE_DISPLACED_KMERS, WIDE_LABELS, ixtype_bytes=4)
+    wsh = R.ShardedDisplacedIndex.build(windex, S)
+    wmesh, cpu = ShardMesh([dev] * S), ShardMesh(["cpu"] * S)
+    wtabs = wsh.to_devices(wmesh)
+    wbatch = batch_tensors(dev, make_reads(genome, rng, BATCH))
+    rows += routed_checks(wsh, wtabs, wmesh, *wbatch, "routed wide")
+    kw = dict(do_rc=True, num_labels=windex.num_labels, cap=HIST_CAP,
+              bad_ix=windex.config.bad_ix)
+    wstep = R.routed_displaced_search_step(wmesh, wsh, **kw)
+    got = drive("routed wide step", ("route_displaced", "owner_probe_wide",
+                                     "routed_finish_wide", "histogram_packed"),
+                lambda: torch.cat(wstep(wtabs, *wbatch)))
+    sub = [x[:WIDE_ROUTED_CHECK].cpu() for x in wbatch]
+    want = torch.cat(R.routed_displaced_search_step(cpu, wsh, **kw)(
+        wsh.to_devices(cpu), *sub))
+    if not torch.equal(got[:WIDE_ROUTED_CHECK].cpu(), want):
+        fail("routed wide step: the card's rows differ from the CPU shards' "
+             f"(first {WIDE_ROUTED_CHECK} reads)")
+    hits = int(((got[:, 0] & 0xFFFF) != 0).sum())
+    log(f"routed wide step: {windex.num_labels} labels, rows of the first "
+        f"{WIDE_ROUTED_CHECK} reads equal the CPU shards'; {hits} of {BATCH} reads "
+        f"hit; overflow column {int(got[0, -1])}")
+    return rows, {"reads_per_s": rps, "fallback_reads_per_s": fb_rps, "place_s": place_s}
+
+
+def phase_data_parallel(dev, base: dict, work: pathlib.Path) -> dict:
+    """Phase 16: devices=DP_SHARDS over the phase-4 table replicated on
+    one card (`_shard_devices`), the batch rows split over the shards."""
+    from utree_tpu_torch.pipeline import SearchPipeline
+
+    pipe = SearchPipeline(base["index"], device=dev, do_rc=True, batch_size=BATCH,
+                          hist_cap=HIST_CAP, lookup_mode="displaced", _table=base["table"],
+                          devices=DP_SHARDS, _shard_devices=[dev] * DP_SHARDS)
+    if pipe.layout != "vote" or len(pipe._tables) != DP_SHARDS:
+        fail(f"data parallel: layout {pipe.layout}, {len(pipe._tables)} shards")
+    out_txt = work / "smoke_dp.txt"
+    rps = e2e(pipe, base["reads_fa"], out_txt, len(base["reads"]), "data-parallel e2e",
+              ("scan_probe", "histogram", "aufbau_vote"))
+    if out_txt.read_bytes() != base["out_txt"].read_bytes():
+        fail("data parallel: output differs from the displaced run (phase 4)")
+    log(f"data parallel ({DP_SHARDS} shards): whole output byte-identical to phase 4's")
+    return {"reads_per_s": rps}
+
+
+def multihost_worker(rank: int, port: int, kmers: int, reads_fa: str, out: str,
+                     device: str) -> int:
+    """One process of phase 17: the phase-4 tier and its cached table, the
+    gloo process group on 127.0.0.1, search_file_multihost."""
+    import torch
+
+    from utree_tpu_torch.hash_index import displaced_to_device
+    from utree_tpu_torch.parallel.distributed import (init_distributed,
+                                                      search_file_multihost)
+    from utree_tpu_torch.pipeline import SearchPipeline
+
+    index, _, _ = make_tier(kmers, LABELS)
+    disp = load_or_build_displaced(index, kmers, LABELS, ROOT / ".bench_cache")
+    init_distributed(f"127.0.0.1:{port}", 2, rank)
+    pipe = SearchPipeline(index, device=device, do_rc=True, batch_size=BATCH,
+                          hist_cap=HIST_CAP, lookup_mode="displaced",
+                          _table=displaced_to_device(disp, "cpu"))
+    t = time.perf_counter()
+    n = search_file_multihost(pipe, reads_fa, out)
+    log(f"worker {rank}: {n} reads in {time.perf_counter() - t:.3f} s")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_multihost(dev, base: dict, kmers: int, work: pathlib.Path) -> dict:
+    """Phase 17: two processes share the card, meet over gloo and run
+    search_file_multihost; the merged output must be phase 4's and the
+    merged tally (reads, lines)."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    out = work / "smoke_multihost.txt"
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(pathlib.Path(__file__).resolve()),
+                               "--multihost-worker", str(r), str(port), str(kmers),
+                               str(base["reads_fa"]), str(out), str(dev)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=600)
+            outs.append(o)
+            if p.returncode != 0:
+                fail(f"multihost worker exited {p.returncode}: {e[-2000:]}")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    dt = time.perf_counter() - t
+    for o in outs:
+        for ln in o.splitlines():
+            log(f"  {ln}")
+    nreads, lines = len(base["reads"]), base["out_txt"].read_bytes().count(b"\n")
+    want = f"multihost: {nreads} reads searched, {lines} classified across 2 hosts"
+    if want not in outs[0]:
+        fail(f"multihost: rank 0 did not report the merged tally '{want}'")
+    if out.read_bytes() != base["out_txt"].read_bytes():
+        fail("multihost: the merged output differs from phase 4's")
+    log(f"multihost: two processes on one card, merged output byte-identical to phase "
+        f"4's, tally ({nreads}, {lines}); {dt:.1f} s with both workers' set-up")
+    return {"seconds": dt}
 
 
 def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
@@ -1235,12 +1484,23 @@ def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
     hash_row, hashed = phase_hash(dev, base, work)
     kern.append(hash_row)
     shallow = phase_shallow(base, work)
+    secs = {}
+    t = time.perf_counter()
+    routed_rows, routed = phase_routed(dev, base, work)
+    kern += routed_rows
+    secs["routed"] = time.perf_counter() - t
+    t = time.perf_counter()
+    dp = phase_data_parallel(dev, base, work)
+    secs["data parallel"] = time.perf_counter() - t
+    multihost = phase_multihost(dev, base, kmers, work)
+    secs["multihost"] = multihost["seconds"]
+    log("phases 15-17 took " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
     for k in kern:
         k["launches"] = PATH_LAUNCHES.get(k["name"], 0)
     return {"kernels": kern, "displaced_rps": best, "ladder": ladder,
             "wide": wide, "long": long, "bsearch": bsearch, "k64": k64,
             "compact": compact, "xtree": xtree, "hash": hashed,
-            "shallow": shallow}
+            "shallow": shallow, "routed": routed, "dp": dp}
 
 
 def main() -> int:
@@ -1249,7 +1509,12 @@ def main() -> int:
     ap.add_argument("--kmers", type=int, default=20_000_000,
                     help="tier size (bench.py's headline tier is 150000000)")
     ap.add_argument("--reads", type=int, default=262_144)
+    ap.add_argument("--multihost-worker", nargs=6, help=argparse.SUPPRESS)
     a = ap.parse_args()
+    if a.multihost_worker:  # phase 17's processes: rank, port, kmers, reads, out, device
+        sys.path.insert(0, str(ROOT))
+        r, port, kmers, reads_fa, out, device = a.multihost_worker
+        return multihost_worker(int(r), int(port), int(kmers), reads_fa, out, device)
 
     import torch
 
@@ -1303,7 +1568,10 @@ def main() -> int:
         f"{res['xtree']['host engine']['queries_per_s']:,.0f} queries/s; hash "
         f"{res['hash']['reads_per_s']:,.0f}, wide hash (2M) "
         f"{res['hash']['wide_reads_per_s']:,.0f}, rank-specific (host) "
-        f"{res['shallow']['reads_per_s']:,.0f} reads/s; on {card}")
+        f"{res['shallow']['reads_per_s']:,.0f} reads/s; routed ({ROUTED_SHARDS} shards "
+        f"on one card) {res['routed']['reads_per_s']:,.0f}, its forced fallback "
+        f"{res['routed']['fallback_reads_per_s']:,.0f}, data parallel ({DP_SHARDS} "
+        f"shards) {res['dp']['reads_per_s']:,.0f} reads/s; on {card}")
     print(json.dumps({"kernels": res["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -240,8 +240,8 @@ def test_hash_pipeline_equals_jax(env, tmp_path, layout, do_rc, reads, hist_cap)
                           batch_size=BATCH, hist_cap=hist_cap, lookup_mode="hash", **kw)
     assert jp.table_kind == pipe.table_kind == "hash" and pipe.layout == layout
     want_tab = tables_from_jax(jp._table)
-    assert sorted(pipe._table) == sorted(want_tab)
-    assert all(torch.equal(pipe._table[k], want_tab[k]) for k in want_tab)
+    assert sorted(pipe._tables[0]) == sorted(want_tab)
+    assert all(torch.equal(pipe._tables[0][k], want_tab[k]) for k in want_tab)
     if reads == "long.fa":
         for p in (jp, pipe):
             p.long_read_threshold, p.long_chunk = 400, 128

@@ -623,3 +623,131 @@ def test_xtree_align_cuda_equals_host(xt_refs, dev, tmp_path, redist):
                         for o in ("perq", "ref", "tax", "cov")]
     assert outs[dev] == outs[None]
     assert outs[None][0].count(b"\n") == 1000
+
+
+# ---- K11-K13: the routed displaced shards ------------------------------------------
+
+@pytest.fixture(scope="module")
+def routed(dev):
+    """The 40,000-k-mer tier sharded 4 ways, narrow and wide (load 0.98, so
+    the merged t3 is exercised), with the shard tables on the card."""
+    from utree_tpu_torch.parallel.mesh import ShardMesh
+    from utree_tpu_torch.parallel.routed import ShardedDisplacedIndex
+
+    index, genome, _ = make_tier(40_000, 64)
+    widx, _, _ = _wide_tier(40_000, 64)
+    out = {"genome": genome, "mesh": ShardMesh([dev] * 4), "cpu": ShardMesh(["cpu"] * 4)}
+    for key, ix in (("narrow", index), ("wide", widx)):
+        sh = ShardedDisplacedIndex.build(ix, 4, load=0.98, spill_budget=ix.num_records)
+        assert sh.t3.shape[0] > 8
+        out[key] = (sh, sh.to_devices(out["mesh"]), sh.to_devices(out["cpu"]),
+                    ix.num_labels)
+    return out
+
+
+def _on_cpu(*ts):
+    return [t.cpu() for t in ts]
+
+
+@pytest.mark.parametrize("case", ["auto", "overflow", "padded", "one-read-8-shards",
+                                  "fallback"])
+def test_k11_route_displaced_matches_plain(routed, dev, case):
+    """Ranks in lane order even when a batch overflows (capacity 8), padding
+    rows and owners that get no lane (one read of five windows over 8
+    shards), and the one-shard pass of the fallback."""
+    from utree_tpu_torch.parallel import routed as R
+
+    sh = routed["narrow"][0]
+    n, padded, S = {"padded": (600, 200, 4), "one-read-8-shards": (1, 0, 8)}.get(
+        case, (3000, 0, 4))
+    packed, vbits, lens = _packed_reads(routed["genome"], n, 31, dev, padded=padded)
+    if case == "one-read-8-shards":
+        lens[:] = 36  # five windows: three owners or more get no lane
+    w = packed.shape[1] * 4 - 31
+    cap = {"overflow": 8, "fallback": n * w}.get(case, max(128, -(-n * w // S // 128) * 128))
+    if case == "fallback":
+        S = 1
+    nseed = sh.nseed * 2 if case == "one-read-8-shards" else sh.nseed
+    kw = dict(nseed=nseed, num_shards=S, capacity=cap)
+    n0 = kernels.launches["route_displaced"]
+    got = R.route_displaced(packed, vbits, lens, **kw)
+    assert kernels.launches["route_displaced"] == n0 + 1
+    want = R.route_displaced_plain(*_on_cpu(packed, vbits, lens), **kw)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    counts = want[2]
+    assert int(counts[S]) == (case == "overflow")
+    if case == "one-read-8-shards":
+        assert int((counts[:S] == 0).sum()) >= 1
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_k12_k13_match_plain(routed, dev, wide):
+    """K12 on a routed receive buffer (base 0) and on fallback lanes (base
+    s*per_seed, with an empty shard: lanes of shard 0's buckets only); K13
+    on the records and replies, with and without RC."""
+    from utree_tpu_torch.parallel import routed as R
+
+    sh, tabs, ctabs, _ = routed["wide" if wide else "narrow"]
+    per_seed = sh.nseed // 4
+    packed, vbits, lens = _packed_reads(routed["genome"], 2000, 37, dev, padded=3)
+    b, w = packed.shape[0], packed.shape[1] * 4 - 31
+    send, rec, _ = R.route_displaced(packed, vbits, lens, nseed=sh.nseed, num_shards=4,
+                                     capacity=b * w)
+    # the fallback's lanes: one shard with room for all, global buckets
+    glanes = R.route_displaced(packed, vbits, lens, nseed=sh.nseed, num_shards=1,
+                               capacity=b * w)[0].reshape(-1, 3)
+    name = "owner_probe" + ("_wide" if wide else "")
+    for s in range(4):
+        for lanes, base in ((send[s], 0), (glanes, s * per_seed)):
+            n0 = kernels.launches[name]
+            got = R.owner_probe(tabs[s]["t1"], tabs[s]["ds"], lanes.contiguous(), base=base,
+                                per_seed=per_seed, wide=wide)
+            assert kernels.launches[name] == n0 + 1
+            want = R.owner_probe_plain(ctabs[s]["t1"], ctabs[s]["ds"], lanes.cpu(),
+                                       base=base, per_seed=per_seed, wide=wide)
+            assert torch.equal(got.cpu(), want) and int((want != 0).sum()) > 100
+    zeros = torch.zeros((100, 3), dtype=torch.int32, device=dev)
+    empty = R.owner_probe(tabs[3]["t1"], tabs[3]["ds"], zeros, base=3 * per_seed,
+                          per_seed=per_seed, wide=wide)
+    assert int((empty != 0).sum()) == 0  # shard 3 owns none of bucket 0's lanes
+    reply = torch.stack([R.owner_probe(tabs[o]["t1"], tabs[o]["ds"], send[o].contiguous(),
+                                       base=0, per_seed=per_seed, wide=wide)
+                         for o in range(4)])
+    name = "routed_finish" + ("_wide" if wide else "")
+    for do_rc in (True, False):
+        kw = dict(b=b, w=w, do_rc=do_rc, bad_ix=BAD if not wide else 0x7FFFFFFF, wide=wide)
+        n0 = kernels.launches[name]
+        got = R.routed_finish(rec, reply.contiguous(), tabs[0]["t3"], **kw)
+        assert kernels.launches[name] == n0 + 1
+        want = R.routed_finish_plain(rec.cpu(), reply.cpu(), ctabs[0]["t3"], **kw)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("capacity", [None, 8], ids=["cap-auto", "cap-8"])
+def test_routed_steps_on_one_card_equal_cpu(routed, dev, capacity):
+    """The routed step and its fallback over four shards on one card equal
+    the same steps on four CPU shards, every int32 (overflow column too)."""
+    from utree_tpu_torch.parallel import routed as R
+
+    sh, tabs, ctabs, nl = routed["narrow"]
+    packed, vbits, lens = _packed_reads(routed["genome"], 1000, 41, dev)
+    kw = dict(do_rc=True, num_labels=nl, cap=8, bad_ix=BAD)
+
+    def run(mesh, tables, args):
+        return [torch.cat(R.routed_displaced_search_step(
+                    mesh, sh, capacity=capacity, **kw)(tables, *args)).cpu(),
+                torch.cat(R.routed_displaced_fallback_step(mesh, sh, **kw)(tables, *args)).cpu()]
+
+    gpu = run(routed["mesh"], tabs, (packed, vbits, lens))
+    cpu = run(routed["cpu"], ctabs, _on_cpu(packed, vbits, lens))
+    assert all(torch.equal(a, b) for a, b in zip(gpu, cpu))
+    assert int(gpu[0][0, -1]) == (4 if capacity == 8 else 0)
+
+
+def test_devices_beyond_the_cards_raise(dev):
+    from utree_tpu_torch.pipeline import SearchPipeline
+
+    n = torch.cuda.device_count()
+    index, _, _ = make_tier(20_000, 64)
+    with pytest.raises(ValueError, match=f"--devices {n + 1} requested but only {n} present"):
+        SearchPipeline(index, device="cuda", devices=n + 1, batch_size=64 * (n + 1))

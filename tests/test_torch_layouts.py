@@ -147,7 +147,7 @@ def test_auto_builds_the_jax_ladder(env):
     """Without _table the port places the same ladder and vote tables."""
     index = _index(env, "narrow")
     want = tables_from_jax(JaxPipeline(index, do_rc=True)._table)
-    got = SearchPipeline(index_from_jax(index), device="cpu", do_rc=True)._table
+    got = SearchPipeline(index_from_jax(index), device="cpu", do_rc=True)._tables[0]
     assert sorted(got) == sorted(want) and "c1" in got
     for k in want:
         assert torch.equal(got[k], want[k]), k
@@ -163,7 +163,7 @@ def test_wide_labels(env, tmp_path, mode, hist_cap):
                                 hist_cap=hist_cap,
                                 port_hook=lambda p: seen.append(_replays(p)))
     assert pipe.layout == "unpacked" and pipe.table_kind == mode
-    assert pipe._table["c1" if mode == "canonical" else "d1"].shape[1] % 4 == 0
+    assert pipe._tables[0]["c1" if mode == "canonical" else "d1"].shape[1] % 4 == 0
     assert got == want and want.count(b"\n") > 300
     assert bool(seen[0]) == (hist_cap == 2)
 

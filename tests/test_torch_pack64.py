@@ -366,7 +366,7 @@ def test_own_tables_equal_jax_tables(env):
     pipeline, under `auto` and `displaced`."""
     for mode, key in (("auto", "c64_1"), ("displaced", "d64_1")):
         want = tables_from_jax(JaxPipeline(env[4], lookup_mode=mode)._table)
-        got = SearchPipeline(env["port", 4], device="cpu", lookup_mode=mode)._table
+        got = SearchPipeline(env["port", 4], device="cpu", lookup_mode=mode)._tables[0]
         assert sorted(got) == sorted(want) and key in got
         assert all(torch.equal(got[k], want[k]) for k in want)
 

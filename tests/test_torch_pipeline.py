@@ -143,7 +143,7 @@ def test_own_tables_equal_jax_tables(db):
     want_auto = tables_from_jax(JaxPipeline(db["index"], do_rc=True)._table)
     for mode, want in (("auto", want_auto), ("displaced", want_disp)):
         got = SearchPipeline(db["port"], device="cpu", do_rc=True,
-                             lookup_mode=mode)._table
+                             lookup_mode=mode)._tables[0]
         assert sorted(got) == sorted(want), mode
         assert ("c1" if mode == "auto" else "d1") in got
         for k in want:
@@ -260,10 +260,18 @@ def test_cuda_device_without_gpu_raises(db):
     dict(devices=2), dict(support_ranges=8),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_modes_raise(db, tmp_path, kw):
-    """What is not ported raises NotImplementedError naming its ROADMAP
-    item.  support_ranges=8 and lookup_mode="hash" are ported now: their
-    cases write the JAX pipeline's bytes instead (per-rank SUPPORT;RANGE
-    columns; the legacy two-table hash, whose t1/t2 the port places itself)."""
+    """Every mode of this grid is ported now, so none raises
+    NotImplementedError: lookup_mode="routed" alone raises JAX's ValueError
+    in both pipelines (it needs devices > 1), and the other cases write the
+    JAX pipeline's bytes (the legacy two-table hash, whose t1/t2 the port
+    places itself; two data-parallel shards of a replicated table;
+    per-rank SUPPORT;RANGE columns)."""
+    if kw.get("lookup_mode") == "routed":
+        for make in (lambda: JaxPipeline(db["index"], **kw),
+                     lambda: SearchPipeline(db["port"], device="cpu", **kw)):
+            with pytest.raises(ValueError, match=r"requires --devices N > 1"):
+                make()
+        return
     if kw.get("lookup_mode") == "hash":
         jax_out, port_out = tmp_path / "jax.txt", tmp_path / "port.txt"
         jp = JaxPipeline(db["index"], do_rc=True, batch_size=BATCH, lookup_mode="hash")
@@ -272,23 +280,31 @@ def test_unsupported_modes_raise(db, tmp_path, kw):
                               **kw)
         assert pipe.table_kind == jp.table_kind == "hash" and pipe.layout == "vote"
         want = tables_from_jax(jp._table)
-        assert all(torch.equal(pipe._table[k], want[k]) for k in ("t1", "t2"))
+        assert all(torch.equal(pipe._tables[0][k], want[k]) for k in ("t1", "t2"))
         pipe.search_file(db["reads"], str(port_out))
         assert port_out.read_bytes() == jax_out.read_bytes()
         assert jax_out.read_bytes().count(b"\n") > 500
         return
-    if kw.get("support_ranges") == 8:
+    if kw.get("devices") == 2:
         jax_out, port_out = tmp_path / "jax.txt", tmp_path / "port.txt"
-        JaxPipeline(db["index"], do_rc=True, batch_size=BATCH, lookup_mode="displaced",
-                    support_ranges=8).search_file(db["reads"], str(jax_out))
-        pipe = _port(db, True, support_ranges=8)
-        assert pipe.layout == "compact"
+        jp = JaxPipeline(db["index"], do_rc=True, batch_size=BATCH, **kw)
+        jp.search_file(db["reads"], str(jax_out))
+        pipe = SearchPipeline(db["port"], device="cpu", do_rc=True, batch_size=BATCH,
+                              **kw)
+        assert jp._mesh is not None and len(pipe._tables) == 2
+        assert pipe.table_kind == jp.table_kind and pipe.layout == "vote"
         pipe.search_file(db["reads"], str(port_out))
         assert port_out.read_bytes() == jax_out.read_bytes()
-        assert max(ln.count(b"\t") for ln in jax_out.read_bytes().splitlines()) == 11
+        assert jax_out.read_bytes().count(b"\n") > 500
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        SearchPipeline(db["port"], device="cpu", **kw)
+    jax_out, port_out = tmp_path / "jax.txt", tmp_path / "port.txt"
+    JaxPipeline(db["index"], do_rc=True, batch_size=BATCH, lookup_mode="displaced",
+                support_ranges=8).search_file(db["reads"], str(jax_out))
+    pipe = _port(db, True, support_ranges=8)
+    assert pipe.layout == "compact"
+    pipe.search_file(db["reads"], str(port_out))
+    assert port_out.read_bytes() == jax_out.read_bytes()
+    assert max(ln.count(b"\t") for ln in jax_out.read_bytes().splitlines()) == 11
 
 
 def test_explicit_lookup_mode_never_degrades(db):
@@ -347,7 +363,7 @@ def test_unsupported_databases_raise(db):
         UTreeConfig(ixtype_bytes=4)))
     pipe = SearchPipeline(wide, device="cpu")
     assert pipe.table_kind == "canonical" and pipe.layout == "unpacked"
-    assert pipe._table["c1"].shape[1] % 4 == 0
+    assert pipe._tables[0]["c1"].shape[1] % 4 == 0
     k64 = dataclasses.replace(db["index"], config=UTreeConfig(packsize=64))
     for make in (lambda: JaxPipeline(k64),
                  lambda: SearchPipeline(index_from_jax(k64), device="cpu")):

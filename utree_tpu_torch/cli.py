@@ -2,7 +2,9 @@
 the xtree tool):
 
   python -m utree_tpu_torch.cli search <db.ctr> <reads.fa> <out.txt>
-      [--rc] [--batch N] [--lookup-mode auto|canonical|displaced|bsearch|hash]
+      [--rc] [--batch N]
+      [--lookup-mode auto|canonical|displaced|bsearch|hash|routed]
+      [--devices N] [--num-hosts H --host-id h --coordinator host:port]
       [--support-ranges 1|8] [--host] [--rank-specific] [--resume] [--trace]
       [--device cuda|cpu]
   python -m utree_tpu_torch.cli xtree-build --seqs fa --db-out db
@@ -16,8 +18,15 @@ the xtree tool):
 xtree host engine (no device front end); a DB of a PACKSIZE other than 32
 or 64 takes the host search too.  `--rank-specific` runs the rank-specific
 (non-GG) search on the host (`search_host.search_file_shallow`), as
-`utree_tpu` does.  `build`, `compress` and the multi-device and multi-host
-flags of `utree_tpu.cli` are not ported yet (ROADMAP A.6b, A.9).
+`utree_tpu` does.  `--devices N` runs N shards from one process (cuda:0..
+N-1, or N entries of the CPU): the table replicated and the batch split by
+rows, or, with `--lookup-mode routed`, the displaced table sharded by
+seed-bucket range.  `--num-hosts H` runs the multi-host driver
+(`parallel.distributed.search_file_multihost`): each process searches its
+range of the reads, the processes meet in a gloo process group at
+`--coordinator`, and host 0 writes the merged output; `--num-hosts 1`
+needs no process group.  `build` and `compress` of `utree_tpu.cli` are not
+ported yet (ROADMAP A.6b).
 """
 
 from __future__ import annotations
@@ -61,17 +70,28 @@ def _cmd_search(a):
         where = "the host"
     else:
         from utree_tpu_torch.index import DeviceIndexArrays
+        from utree_tpu_torch.parallel.distributed import (init_distributed,
+                                                          search_file_multihost)
         from utree_tpu_torch.pipeline import SearchPipeline
 
+        if a.num_hosts > 1 and (a.host_id is None or not a.coordinator):
+            raise SystemExit(
+                "search --num-hosts N (N>1) requires --host-id and --coordinator")
+        if a.num_hosts > 1:
+            init_distributed(a.coordinator, a.num_hosts, a.host_id)
         with tm.phase("load-db"):
             idx = DeviceIndexArrays.from_ctr(a.db, cfg)
         with tm.phase("build-table"):
             pipe = SearchPipeline(idx, device=a.device, do_rc=a.rc,
                                   batch_size=a.batch, lookup_mode=a.lookup_mode,
                                   support_ranges=a.support_ranges,
+                                  devices=a.devices or None,
                                   tracer=tm if a.trace else None)
         with tm.phase("search"):
-            n = pipe.search_file(a.reads, a.out, resume=a.resume)
+            if a.num_hosts:
+                n = search_file_multihost(pipe, a.reads, a.out, resume=a.resume)
+            else:
+                n = pipe.search_file(a.reads, a.out, resume=a.resume)
         where = pipe.device
         if a.trace:
             print(f"table_kind: {pipe.table_kind}, layout: {pipe.layout}")
@@ -125,12 +145,26 @@ def main(argv=None):
     s.add_argument("--rc", action="store_true", help="also scan reverse complement")
     s.add_argument("--batch", type=int, default=8192)
     s.add_argument("--lookup-mode", dest="lookup_mode", default="auto",
-                   choices=("auto", "canonical", "displaced", "bsearch", "hash"),
+                   choices=("auto", "canonical", "displaced", "bsearch", "hash",
+                            "routed"),
                    help="device table layout (auto = the canonical ladder "
                         "below 80M records, the displaced table from 80M; "
                         "bsearch = the exact replay over the CTR records, "
-                        "hash = the legacy two-table hash, each PACKSIZE=32 "
-                        "only)")
+                        "hash = the legacy two-table hash, routed = the "
+                        "displaced table sharded over --devices N, each "
+                        "PACKSIZE=32 only)")
+    s.add_argument("--devices", type=int, default=0,
+                   help="N shards from one process: the table replicated on "
+                        "each and read batches split over them, or sharded "
+                        "with --lookup-mode routed (output bytes identical at "
+                        "any N)")
+    s.add_argument("--num-hosts", dest="num_hosts", type=int, default=0,
+                   help="multi-host mode: total process count (one per host); "
+                        "N > 1 requires --host-id and --coordinator and a "
+                        "filesystem the hosts share")
+    s.add_argument("--host-id", dest="host_id", type=int, default=None)
+    s.add_argument("--coordinator", default=None,
+                   help="host:port of the gloo process group's rank 0")
     s.add_argument("--support-ranges", dest="support_ranges", type=int, choices=(1, 8),
                    default=1, help="SUPPORT;RANGE pairs per line: 1 = the reference "
                    "binary's output (itree.c:1096), 8 = the README-documented "

@@ -1,6 +1,7 @@
 // The front half shared by the probe kernels (K1 scan_probe, K4
-// ladder_probe, K7 bsearch_probe, K9 xtree_probe, K10 hash_probe; K7 takes
-// window_at and rev2 only, K10 those and mix32): one (read, window) -> its
+// ladder_probe, K7 bsearch_probe, K9 xtree_probe, K10 hash_probe, and the
+// routed shards' K11-K13; K7 takes window_at and rev2 only, K10 those and
+// mix32, K12 displaced_t1, K13 t3_tail and write_ids): one (read, window) -> its
 // canonical 32-mer key, the 32-bit mixes the table placement uses, the slot
 // compare over one gathered row, the displaced-table probe, and the
 // dual-value decode into per-window label ids.
@@ -110,27 +111,54 @@ __device__ __forceinline__ Raw probe_row(const int32_t* row, int nslots, const K
   return r;
 }
 
-// One probe of the seeded-displacement table (displaced_probe_raw): the u8
-// seed of the key's bucket, one 2-slot d1 row at the seeded slot, then on a
-// miss the d3 tail, unless d3 is the 8-row "absent" sentinel.
+// The key of a (key_lo, key_hi) pair of int32 lanes, as the routed shards
+// carry it (routed.py's send buffer).
+__device__ __forceinline__ Key key_of(int32_t klo, int32_t khi) {
+  Key k;
+  k.pre = static_cast<uint32_t>(khi) >> 8;
+  k.hi8 = static_cast<uint32_t>(khi) & 0xFFu;
+  k.lo = static_cast<uint32_t>(klo);
+  k.klo = klo;
+  k.khi = khi;
+  return k;
+}
+
+// The d1 half of a displaced probe with the seed bucket given
+// (_displaced_local_probe): the bucket's u8 seed, then one 2-slot d1 row at
+// the seeded slot.
 template <int CPS>
-__device__ __forceinline__ Raw displaced_probe(const Key& k, const int32_t* d1,
-                                               int64_t nslots, const int32_t* ds,
-                                               int64_t nseed, const int32_t* d3,
-                                               int64_t n3, int32_t s3) {
-  uint32_t bkt = fold_hash(k) & static_cast<uint32_t>(nseed - 1);
+__device__ __forceinline__ Raw displaced_t1(const Key& k, uint32_t bkt, const int32_t* d1,
+                                            int64_t nslots, const int32_t* ds) {
   uint32_t seed = (static_cast<uint32_t>(ds[bkt >> 2]) >> ((bkt & 3u) << 3)) & 0xFFu;
   uint32_t u2 = mix32(k.pre, k.hi8, k.lo ^ 0x94D049BBu);
   uint32_t ub = mix32(k.pre, k.hi8 ^ 0xA5u, k.lo ^ 0x7FEB352Du);
   uint32_t h = ((u2 ^ (seed * 0x85EBCA6Bu)) * 0xC2B2AE35u) ^
                ((ub ^ (seed * 0xC2B2AE35u)) * 0x85EBCA6Bu);
   uint32_t slot = h % static_cast<uint32_t>(nslots);
-  Raw r = probe_row<CPS>(d1 + static_cast<int64_t>(slot >> 1) * 2 * CPS, 2, k);
+  return probe_row<CPS>(d1 + static_cast<int64_t>(slot >> 1) * 2 * CPS, 2, k);
+}
+
+// The cached spill tail (_displaced_t3_tail): on a miss, one d3 row, unless
+// d3 is the 8-row "absent" sentinel.
+template <int CPS>
+__device__ __forceinline__ Raw t3_tail(Raw r, const Key& k, const int32_t* d3, int64_t n3,
+                                       int32_t s3) {
   if (r.miss() && n3 > 8) {
     uint32_t b3 = mix32(k.pre, k.hi8, k.lo ^ 0x27D4EB2Fu) & static_cast<uint32_t>(n3 - 1);
     r = probe_row<CPS>(d3 + static_cast<int64_t>(b3) * CPS * s3, s3, k);
   }
   return r;
+}
+
+// One probe of the seeded-displacement table (displaced_probe_raw): the
+// key's seed bucket, its d1 row, then on a miss the d3 tail.
+template <int CPS>
+__device__ __forceinline__ Raw displaced_probe(const Key& k, const int32_t* d1,
+                                               int64_t nslots, const int32_t* ds,
+                                               int64_t nseed, const int32_t* d3,
+                                               int64_t n3, int32_t s3) {
+  uint32_t bkt = fold_hash(k) & static_cast<uint32_t>(nseed - 1);
+  return t3_tail<CPS>(displaced_t1<CPS>(k, bkt, d1, nslots, ds), k, d3, n3, s3);
 }
 
 // Decode one window's raw value and write its ids: with RC [ix_a | ix_b]

@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the search step and of xtree ALIGN, and
 their launch counts.
 
-Ten kernels in fourteen entry points (sources in `utree_tpu_torch/csrc/`):
+Thirteen kernels in nineteen entry points (sources in `utree_tpu_torch/csrc/`):
 
   K1 scan_probe[_wide]    packed reads -> ids, displaced table (lookup.window_ids)
   K4 ladder_probe[_wide]  packed reads -> ids, canonical ladder (lookup.window_ids)
@@ -16,6 +16,12 @@ Ten kernels in fourteen entry points (sources in `utree_tpu_torch/csrc/`):
   K3 aufbau_vote          histograms -> 12 B/read votes    (classify_device.vote_rows)
   K9 xtree_probe          ASCII queries -> xtree seeds and prefix bins
                           (xtree.device.xtree_step)
+  K11 route_displaced     packed reads -> routed lanes, send buffer, owner
+                          counts                (parallel.routed.route_displaced)
+  K12 owner_probe[_wide]  routed lanes -> raw values in one shard's table
+                          slice                 (parallel.routed.owner_probe)
+  K13 routed_finish[_wide] lane records + routed values -> ids
+                          (parallel.routed.routed_finish)
 
 `_wide` takes 4-column slots (IXTYPE=u32 label ids).  Each wrapper calls
 `launch`, which adds one to the entry point's count in `launches` after a
@@ -30,7 +36,8 @@ from utree_tpu_torch.kernels.build import build, check, library
 KERNELS = ("scan_probe", "scan_probe_wide", "ladder_probe", "ladder_probe_wide",
            "bsearch_probe", "hash_probe", "scan_probe64", "ladder_probe64",
            "histogram", "histogram_packed", "histogram_unpacked", "hist_compact",
-           "aufbau_vote", "xtree_probe")
+           "aufbau_vote", "xtree_probe", "route_displaced", "owner_probe",
+           "owner_probe_wide", "routed_finish", "routed_finish_wide")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

@@ -38,6 +38,8 @@ _LADDER = [P, P, P, I64, I64, I64, I32,
            P, I64, I32, P, I64, I32, P, I64, I32,  # (rows, nrows, slots) x 3
            I32, I32, P, P]
 _HIST_ROWS = [P, I64, I32, I32, I32, P, P]  # ids, B, n, num_labels, cap, rows, stream
+_OWNER = [P, I64, I64, I64, P, I64, P, P, P]
+_FINISH = [P, P, I64, I32, P, I64, I32, I32, I32, P, P]
 SIGNATURES = {
     "utree_scan_probe": _SCAN,
     "utree_scan_probe_wide": _SCAN,
@@ -67,6 +69,16 @@ SIGNATURES = {
     # out (4, B, W), stream
     "utree_xtree_probe": [P, P, I64, I64, I32, I32, I32,
                           P, I64, P, I64, P, I64, I32, P, P],
+    # packed, vbits, lens, B, row4, row8, W, nseed, S, C; tile counts and
+    # tile prefixes (scratch), send, rec, counts, stream
+    "utree_route_displaced": [P, P, P, I64, I64, I64, I32, I64, I32, I32,
+                              P, P, P, P, P, P],
+    # lanes, N, base, per_seed, d1, nslots, ds, out, stream
+    "utree_owner_probe": _OWNER,
+    "utree_owner_probe_wide": _OWNER,
+    # rec, reply, B, W, d3, n3, s3, do_rc, bad_ix, out, stream
+    "utree_routed_finish": _FINISH,
+    "utree_routed_finish_wide": _FINISH,
 }
 
 

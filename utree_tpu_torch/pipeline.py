@@ -42,9 +42,18 @@ their device->host copy into pinned memory at once, and the drain waits on
 that copy's CUDA event, `queue_depth` batches later.  Output bytes equal the
 JAX pipeline's in every layout.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-item (nothing falls back silently): the modes in `_TODO` and `devices > 1`
-(A.9).
+`devices=N` runs N shards from this one process (utree_tpu/pipeline.py:
+119-179): shard i on `cuda:i` (a ValueError when fewer cards are present),
+or N entries of the CPU on `device="cpu"`.  Without `lookup_mode="routed"`
+the table is replicated on each shard, the batch rows split over them, and
+each shard runs the single-device step on its rows (the "vote", "packed" or
+"unpacked" readback: never "compact", as in JAX's mesh mode).  With
+`lookup_mode="routed"` the displaced table is sharded by seed-bucket range
+(`parallel.routed`: K11 route_displaced, K12 owner_probe, K13
+routed_finish, then K2), the readback is packed rows, and a batch that
+overflows the routing capacity is dispatched again through the broadcast
+fallback.  `_shard_devices` puts the shards on given devices (four shards
+on one card, say); it is no CLI option.
 """
 
 from __future__ import annotations
@@ -64,10 +73,7 @@ from utree_tpu_torch.lookup import (WIDE_LABELS, pack_reads_host,
                                     search_step_hist_packed_in,
                                     search_step_vote_compact)
 
-_TODO = {
-    "routed": "routed shards across GPUs (ROADMAP A.9)",
-}
-_MODES = ("auto", "canonical", "displaced", "bsearch", "hash")
+_MODES = ("auto", "canonical", "displaced", "bsearch", "hash", "routed")
 # `auto` table choice, as utree_tpu.pipeline resolves it: the displaced
 # table from _DISPLACED_AUTO_MIN records (the ladder below); at PACKSIZE=32
 # the device tables only below _HASH_AUTO_MAX records, and the bsearch
@@ -98,19 +104,21 @@ def _bucket_len64(n: int, minimum: int = 64) -> int:
 
 class _Readback:
     """One dispatched batch: its int32 rows, on their way to the host.  On
-    CUDA `rows` is a pinned host tensor filled by a non-blocking copy that
-    `event` marks done; on the CPU the rows are already there.  A compact
-    batch also carries `redo`, which dispatches its inputs again through the
-    full rows (held until the batch drains)."""
+    CUDA `rows` is a pinned host tensor filled by non-blocking copies (one
+    a shard) that `events` mark done; on the CPU the rows are already
+    there.  A compact or routed batch also carries `redo`, which dispatches
+    its inputs again through the full rows or the routed fallback (held
+    until the batch drains); `kind` says which."""
 
-    def __init__(self, rows: torch.Tensor, event=None):
+    def __init__(self, rows: torch.Tensor, events=()):
         self.rows = rows
-        self.event = event
+        self.events = events
         self.redo = None
+        self.kind = None
 
     def wait(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
+        for e in self.events:
+            e.synchronize()
         return self.rows.numpy()
 
 
@@ -127,7 +135,7 @@ class SearchPipeline:
                  compact_readback: bool = True,
                  compact_over_cap: int | None = None,
                  devices: int | None = None, tracer=None,
-                 _table: dict | None = None):
+                 _table: dict | None = None, _shard_devices=None):
         cfg = index.config
         if not 1 <= hist_cap <= 30:
             raise ValueError(
@@ -139,16 +147,20 @@ class SearchPipeline:
                 f"--lookup-mode {lookup_mode!r} is unsupported for "
                 "PACKSIZE=64; device paths are the canonical hash and "
                 "the seeded-displacement table")
-        if lookup_mode in _TODO:
-            raise NotImplementedError(
-                f"--lookup-mode {lookup_mode}: {_TODO[lookup_mode]} is not "
-                "ported yet; use " + ", ".join(_MODES))
         if lookup_mode not in _MODES:
             raise ValueError(f"unknown lookup_mode {lookup_mode!r}")
-        if devices is not None and devices > 1:
-            raise NotImplementedError(
-                "devices > 1 (data parallel over GPUs) is not ported yet "
-                "(ROADMAP A.9)")
+        multi = devices is not None and devices > 1
+        self._routed = lookup_mode == "routed"
+        if self._routed:  # utree_tpu/pipeline.py:119-132
+            if not multi:
+                raise ValueError("--lookup-mode routed requires --devices N > 1")
+            if cfg.packsize != 32:
+                raise ValueError("routed mode implements PACKSIZE=32")
+            if index.num_labels >= WIDE_LABELS:
+                raise ValueError(
+                    "routed pipeline mode packs label ids into u16 lanes; "
+                    "IXTYPE=u32 DBs with >= 65534 labels need the replicated "
+                    "table (devices mode without --lookup-mode routed)")
         if cfg.packsize not in (32, 64):
             raise NotImplementedError(
                 f"PACKSIZE={cfg.packsize}: the port runs the 32-mer and "
@@ -159,6 +171,7 @@ class SearchPipeline:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "device='cuda' but torch.cuda.is_available() is False")
+        self._mesh = self._shard_mesh(devices if multi else 1, batch_size, _shard_devices)
 
         # the C++ scanner and formatter; a failed g++ build raises here (the
         # port has no Python path for them)
@@ -181,6 +194,9 @@ class SearchPipeline:
         # the readback layout, resolved as utree_tpu/pipeline.py:314-410
         # resolves its step: the device vote needs u16 label lanes, one
         # SUPPORT;RANGE pair and labels that fit its 11-bit dv lane
+        if self._routed:
+            self._init_routed(_table)
+            return
         vtab = None
         if packed_out and device_vote and support_ranges == 1:
             from utree_tpu_torch.classify_device import build_aufbau_tables
@@ -192,14 +208,15 @@ class SearchPipeline:
             self.layout = "unpacked"
         elif vtab is not None:
             self.layout = "vote"
-        elif compact_readback:
+        elif compact_readback and self._mesh.size == 1:
             self.layout = "compact"
             self._over_cap = compact_over_cap or max(64, batch_size // 8)
         else:
             self.layout = "packed"
         if _table is None:
             _table = self._build_table(index, lookup_mode)
-        if not any(k in _table for k, _ in _TABLE_KINDS):
+        self._kind = next((kind for key, kind in _TABLE_KINDS if key in _table), None)
+        if self._kind is None:
             raise ValueError("_table must hold a device table: "
                              + ", ".join(k for k, _ in _TABLE_KINDS))
         table = {k: v.to(self.device) for k, v in _table.items()}
@@ -230,7 +247,59 @@ class SearchPipeline:
                                            over_cap=self._over_cap, **kw)
         else:
             self._step = self._step_hist
-        self._table = table
+        # data parallel: the table replicated on every shard device
+        # (utree_tpu/pipeline.py:316-374)
+        self._tables = [{k: v.to(dev) for k, v in table.items()}
+                        for dev in self._mesh.devices]
+
+    def _shard_mesh(self, n: int, batch_size: int, shard_devices):
+        """The n shard devices, with utree_tpu/pipeline.py:133-142's checks
+        for n > 1: cuda:0..n-1 (fewer cards raise), n entries of the CPU,
+        or the given `shard_devices`; one shard on `device` for n = 1."""
+        from utree_tpu_torch.parallel.mesh import ShardMesh
+
+        if n == 1:
+            return ShardMesh([self.device])
+        if shard_devices is not None:
+            if len(shard_devices) != n:
+                raise ValueError(f"{len(shard_devices)} shard devices for --devices {n}")
+            devs = shard_devices
+        elif self.device.type == "cuda":
+            present = torch.cuda.device_count()
+            if present < n:
+                raise ValueError(f"--devices {n} requested but only {present} present")
+            devs = [torch.device("cuda", i) for i in range(n)]
+        else:
+            devs = [self.device] * n
+        if batch_size % n:
+            raise ValueError("batch_size must be divisible by devices")
+        return ShardMesh(devs)
+
+    def _init_routed(self, _table) -> None:
+        """The displaced table sharded over the mesh by seed-bucket range
+        (utree_tpu/pipeline.py:151-179): the routed step, its broadcast
+        fallback, packed rows voted on the host."""
+        from utree_tpu_torch.parallel.routed import (MAX_SHARDS, ShardedDisplacedIndex,
+                                                     routed_displaced_fallback_step,
+                                                     routed_displaced_search_step)
+
+        if _table is not None:
+            raise ValueError("routed mode places its own shards; pass no _table")
+        S = self._mesh.size
+        # refused before the placement, which takes minutes at scale
+        if S & (S - 1):
+            raise ValueError(f"--lookup-mode routed needs a power-of-two --devices, got {S}")
+        if S > MAX_SHARDS and any(d.type == "cuda" for d in self._mesh.devices):
+            raise ValueError(f"--lookup-mode routed runs at most {MAX_SHARDS} shards "
+                             f"on cards, got --devices {S}")
+        self.layout = "packed"
+        self._kind = "routed-displaced"
+        self._sharded = sharded = ShardedDisplacedIndex.build(self.index, S)
+        self._tables = sharded.to_devices(self._mesh)
+        kw = dict(do_rc=self.do_rc, num_labels=self.index.num_labels,
+                  cap=self.hist_cap, bad_ix=self.index.config.bad_ix)
+        self._step_routed = routed_displaced_search_step(self._mesh, sharded, **kw)
+        self._fallback_step = routed_displaced_fallback_step(self._mesh, sharded, **kw)
 
     def _build_table(self, index: DeviceIndexArrays, mode: str) -> dict:
         """The device table `mode` resolves to, as utree_tpu/pipeline.py:180-288
@@ -299,42 +368,79 @@ class SearchPipeline:
 
     @property
     def table_kind(self) -> str:
-        """'displaced', 'canonical', 'canonical64', 'displaced64', 'hash' or
-        'bsearch', as utree_tpu.pipeline names the table it resolved to."""
-        return next(kind for key, kind in _TABLE_KINDS if key in self._table)
+        """'displaced', 'canonical', 'canonical64', 'displaced64',
+        'routed-displaced', 'hash' or 'bsearch', as utree_tpu.pipeline names
+        the table it resolved to."""
+        return self._kind
 
     # ---- device dispatch -------------------------------------------------
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+    def _host(self, a: np.ndarray) -> torch.Tensor:
+        """A batch array as a host tensor, pinned when it goes to a card."""
         t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cpu":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return t if self.device.type == "cpu" else t.pin_memory()
 
-    def _readback(self, rows: torch.Tensor) -> _Readback:
-        """Start the copy of a batch's rows to the host."""
+    def _readback(self, parts: list[torch.Tensor]) -> _Readback:
+        """Start the copy of a batch's rows (one tensor a shard, in row
+        order) to the host."""
         if self.device.type == "cpu":
-            return _Readback(rows)
-        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-        host.copy_(rows, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return _Readback(host, event)
+            return _Readback(torch.cat(parts) if len(parts) > 1 else parts[0])
+        n = sum(p.shape[0] for p in parts)
+        host = torch.empty((n, *parts[0].shape[1:]), dtype=parts[0].dtype,
+                           pin_memory=True)
+        events, a = [], 0
+        for p in parts:
+            host[a:a + p.shape[0]].copy_(p, non_blocking=True)
+            a += p.shape[0]
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(p.device))
+            events.append(event)
+        return _Readback(host, events)
+
+    def _pad_rows(self, *arrays):
+        """Pad the batch rows to a multiple of the shard count; a padding row
+        has length 0 and classifies to nothing (utree_tpu/pipeline.py:455)."""
+        pad = (-arrays[0].shape[0]) % self._mesh.size
+        if pad == 0:
+            return arrays
+        return tuple(np.pad(a, ((0, pad),) + ((0, 0),) * (a.ndim - 1)) for a in arrays)
+
+    def _run_shards(self, step, arrays, **kw) -> list[torch.Tensor]:
+        """`step` on each shard's rows of the host `arrays`, each on its
+        device; the outputs in row order."""
+        tensors = [self._host(a) for a in arrays]
+        n = self._mesh.size
+        rows = tensors[0].shape[0] // n
+        out = []
+        for s, dev in enumerate(self._mesh.devices):
+            with self._mesh.on(s):
+                out.append(step(self._tables[s],
+                                *(t[s * rows:(s + 1) * rows].to(dev, non_blocking=True)
+                                  for t in tensors), **kw))
+        return out
 
     def dispatch_packed(self, packed: np.ndarray, vbits: np.ndarray,
                         lens: np.ndarray, step=None) -> _Readback:
         """Dispatch 2-bit-packed reads (e.g. from the C++ scanner) through
         `step` (default: the main step) and start the copy of their rows to
         the host.  The window count is trimmed to the batch's true max read
-        length, rounded up to 8."""
+        length, rounded up to 8, except in routed mode, whose step probes
+        the padded width as JAX's does (utree_tpu/pipeline.py:492-495)."""
         k = self.index.config.packsize
         tl = int(lens.max()) if len(lens) else k
         tl = min(max(k, (tl + 7) & ~7), packed.shape[1] * 4)
-        args = (self._table, self._to_device(packed), self._to_device(vbits),
-                self._to_device(lens.astype(np.int32)))
-        handle = self._readback((step or self._step)(*args, true_len=tl))
+        arrays = self._pad_rows(packed, vbits, lens.astype(np.int32))
+        if self._routed:
+            tensors = [self._host(a) for a in arrays]
+            handle = self._readback(self._step_routed(self._tables, *tensors))
+            handle.kind = "routed"
+            handle.redo = lambda: self._readback(self._fallback_step(self._tables, *tensors))
+            return handle
+        handle = self._readback(self._run_shards(step or self._step, arrays, true_len=tl))
         if step is None and self.layout == "compact":
-            handle.redo = lambda: self._readback(self._step_hist(*args, true_len=tl))
+            handle.kind = "compact"
+            handle.redo = lambda: self._readback(
+                self._run_shards(self._step_hist, arrays, true_len=tl))
         return handle
 
     def dispatch_matrix(self, reads: np.ndarray, lengths: np.ndarray,
@@ -346,9 +452,8 @@ class SearchPipeline:
             if reads.shape[1] % 8:
                 reads = np.pad(reads, ((0, 0), (0, 8 - reads.shape[1] % 8)))
             return self.dispatch_packed(*pack_reads_host(reads, lengths), step=step)
-        return self._readback((step or self._step)(
-            self._table, self._to_device(reads),
-            self._to_device(lengths.astype(np.int32))))
+        return self._readback(self._run_shards(
+            step or self._step, self._pad_rows(reads, lengths.astype(np.int32))))
 
     # ---- host-side exact replay of flagged reads ---------------------------
 
@@ -400,10 +505,16 @@ class SearchPipeline:
             return handle.wait()
 
     def _rows(self, handle: _Readback) -> np.ndarray:
-        """A batch's rows on the host; the compact vector is rebuilt into
-        the full (B, cap+1) rows first."""
+        """A batch's rows on the host: the compact vector rebuilt into the
+        full (B, cap+1) rows; routed rows without their overflow column, or,
+        when that column (the same on every row) flags the batch, the rows
+        of the broadcast fallback (utree_tpu/pipeline.py:548-563)."""
         arr = self._wait_rows(handle)
-        if self.layout != "compact":
+        if handle.kind == "routed":
+            if arr.shape[0] and arr[0, -1]:
+                return self._wait_rows(handle.redo())
+            return arr[:, :-1]
+        if handle.kind != "compact":
             return arr
         with self._phase("drain:unpack"):
             return self._decompact(handle, arr)
@@ -562,8 +673,9 @@ class SearchPipeline:
         num_chunks = max(1, -(-max(0, len(seq) - k + 1) // self.long_chunk))
         num_chunks = _bucket_len(num_chunks, minimum=1)
         chunks, lens = split_long_read(seq, num_chunks, k)
-        handle = self.dispatch_matrix(chunks, lens, step=self._step_hist)
-        labels, counts, nuniq, _ = self._unpack(self._wait_rows(handle))
+        step = None if self._routed else self._step_hist
+        labels, counts, nuniq, _ = self._unpack(self._rows(
+            self.dispatch_matrix(chunks, lens, step=step)))
         cap = self.hist_cap
         agg: dict[int, int] = {}
         for r in range(len(chunks)):

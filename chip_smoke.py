@@ -70,10 +70,29 @@ Phases; each passes or the script exits non-zero:
    g++/OpenMP build of csrc/host/shallow.cpp) over the phase-4 tier's host
    index and reads, reads/s; the first 2048 reads' hits from
    shallow_scan_batch equal scan_shallow_literal's, and their lines the
-   Python-driven vote's (ShallowVoter over those hits).
+   Python-driven vote's (ShallowVoter over those hits);
+15. routed: the phase-4 tier sharded four ways by seed bucket, the shards
+   on the one card: K11-K13 against their plain versions, the reads end to
+   end (and at capacity 8, through the fallback) equal to phase 4's; the
+   wide 2M tier's routed step against CPU shards;
+16. data parallel: two shards of the phase-4 table on the card, equal to
+   phase 4's output;
+17. multi-host: two processes over gloo on the card, the merged output
+   equal to phase 4's;
+18. sharded: K14 ascii_pack (both modes) on phase 3's 65,536 ASCII reads;
+   search_step at k=32 over the displaced, ladder, bsearch and hash tables
+   of phases 4, 6, 10 and 13, each equal to window_ids on the reads packed
+   on the host after the trim to L-31 windows, and search_step_hist at
+   k=32 (bsearch, hash) equal to its plain rows; the replicated step on a
+   (2, 1) mesh and the prefix-sharded step on (2, 4) and (1, 8) meshes
+   (K15), RC on and off, equal to the single-device search_step; K15 on
+   slice 0 of a 4-way ShardedIndex; the long-read histogram on a (4, 2)
+   mesh over phase 8's long reads (K16) equal to bincounts of the
+   single-device ids; K16 at one device's chunk of the 1 Mbp read;
+   dryrun.dryrun_multichip(8) with the eight shards on the card.
 
-Every path run (phases 4, 6-13) starts with every launch count at 0 and
-reads them just after; each kernel its path needs must have launched.
+Every path run (phases 4, 6-13, 15-18) starts with every launch count at 0
+and reads them just after; each kernel its path needs must have launched.
 Prints the card line, a {"kernels": [...]} JSON line and, last, the
 {"ok": true, "device": {...}} line.  Imports nothing of JAX or of the JAX
 package: the tier recipe, the table cache and the host oracle are the
@@ -344,7 +363,7 @@ def phase_ladder(dev, base: dict, work: pathlib.Path):
     build_s = time.perf_counter() - t0
     if pipe.table_kind != "canonical":
         fail(f"auto resolved to {pipe.table_kind} at {index.num_records} records")
-    t = pipe._tables[0]
+    t = base["k32_tables"]["c1"] = pipe._tables[0]
     geo = {k: tuple(t[k].shape) for k in ("c1", "c2", "c3")}
     log(f"ladder: auto -> canonical at {index.num_records:,} records; built in "
         f"{build_s:.1f} s; slots {geo['c1'][1] // 3}/{geo['c2'][1] // 3}/"
@@ -574,6 +593,7 @@ def phase_long(dev, pipe, base: dict, work: pathlib.Path):
         mut = rng.random(size) < 0.01
         seq[mut] = rng.choice(acgt, int(mut.sum()))
         longs.append(seq.tobytes())
+    base["long_reads"] = longs
     shorts = base["reads"][:LONG_SHORT_READS]
     every = LONG_SHORT_READS // LONG_READS
     reads_fa = work / "smoke_long_reads.fa"
@@ -740,7 +760,7 @@ def phase_bsearch(dev, base: dict, work: pathlib.Path):
                           hist_cap=HIST_CAP, lookup_mode="bsearch")
     if pipe.table_kind != "bsearch" or pipe.layout != "vote":
         fail(f"bsearch: resolved to {pipe.table_kind}, layout {pipe.layout}")
-    tab = pipe._tables[0]
+    tab = base["k32_tables"]["bsearch"] = pipe._tables[0]
     log(f"bsearch: records on the card in {time.perf_counter() - t:.1f} s, probe_iters "
         f"{index.probe_iters}, " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in tab.items()
                                              if not k.startswith("vt_")))
@@ -1096,7 +1116,7 @@ def phase_hash(dev, base: dict, work: pathlib.Path):
     place_s = time.perf_counter() - t
     if pipe.table_kind != "hash" or pipe.layout != "vote":
         fail(f"hash: resolved to {pipe.table_kind}, layout {pipe.layout}")
-    tab = pipe._tables[0]
+    tab = base["k32_tables"]["t1"] = pipe._tables[0]
     log(f"hash: build_hash_index and the copy to the card in {place_s:.1f} s; "
         f"t1 {tuple(tab['t1'].shape)} ({nbytes(tab['t1']):,} B), "
         f"t2 {tuple(tab['t2'].shape)} ({nbytes(tab['t2']):,} B)")
@@ -1432,6 +1452,161 @@ def phase_multihost(dev, base: dict, kmers: int, work: pathlib.Path) -> dict:
     return {"seconds": dt}
 
 
+K32_PROBES = {"d1": "scan_probe", "c1": "ladder_probe", "bsearch": "bsearch_probe",
+              "t1": "hash_probe"}
+
+
+def timed_step(fn, passes: int = 3) -> float:
+    """Best host-clock seconds of fn() over `passes` runs, each ended by a
+    synchronize (the sharded steps are host loops over devices)."""
+    import torch
+
+    best = math.inf
+    for _ in range(passes):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t)
+    return best
+
+
+def phase_sharded(dev, base: dict):
+    """Phase 18: the ASCII k=32 search step (K14 and the probes of phases
+    4, 6, 10 and 13) and the three modes of parallel/sharded.py with every
+    device on the one card: the replicated step, the prefix-sharded step
+    (K15), the long-read histogram (K16) and the dryrun."""
+    import numpy as np
+    import torch
+
+    from utree_tpu_torch import dryrun, lookup
+    from utree_tpu_torch.parallel import sharded as S
+    from utree_tpu_torch.parallel.mesh import make_mesh
+
+    index, tabs = base["index"], base["k32_tables"]
+    L = index.num_labels
+    b = min(BATCH, len(base["reads"]))
+    reads = torch.from_numpy(np.ascontiguousarray(base["reads"][:b])).to(dev)
+    lens = torch.full((b,), READ_LEN, dtype=torch.int32, device=dev)
+    w = READ_LEN - 31
+    what = f"B={b} x {READ_LEN} bp"
+    packed, vbits = lookup.ascii_pack(reads, lens)
+    max_abs_err(lookup.ascii_pack(reads, lens, True), lookup.ascii_pack_plain(reads, lens, True))
+    log("kernel ascii_pack: append_rc mode (2L+1 positions) equal to plain")
+    rows = [check_kernel("ascii_pack", "ascii_pack.cu", "utree_tpu/lookup.py:31",
+                         lambda: lookup.ascii_pack(reads, lens),
+                         lambda: lookup.ascii_pack_plain(reads, lens), what,
+                         nbytes(reads, lens, packed, vbits))]
+
+    # the ASCII k=32 step: search_step on each table = window_ids on the reads
+    # packed on the host (width 192, true_len 152), trimmed to W = L-31
+    hp, hv, hl = batch_tensors(dev, base["reads"])
+    kw = dict(k=32, do_rc=True, probe_iters=index.probe_iters, bad_ix=0xFFFF, num_labels=L)
+    for kind, table in tabs.items():
+        got = drive(f"search_step k=32 ({kind})", ("ascii_pack", K32_PROBES[kind]),
+                    lambda: lookup.search_step(table, reads, lens, **kw))
+        ref = lookup.window_ids(table, hp, hv, hl, do_rc=True, bad_ix=0xFFFF, num_labels=L,
+                                true_len=(READ_LEN + 7) & ~7, probe_iters=index.probe_iters)
+        w8 = ref.shape[1] // 2
+        if not torch.equal(got, torch.cat([ref[:, :w], ref[:, w8:w8 + w]], 1)):
+            fail(f"search_step k=32 ({kind}) differs from window_ids on host-packed reads")
+        ms = cuda_ms(lambda: lookup.search_step(table, reads, lens, **kw), 5)
+        log(f"search_step k=32 ({kind}): equal to window_ids after the trim; {ms:.4f} ms "
+            f"a batch, {int((got < L).sum()):,} hits")
+        if kind in ("bsearch", "t1"):
+            hkw = {k: v for k, v in kw.items() if k != "num_labels"}
+            hist = drive(f"search_step_hist k=32 ({kind})", ("ascii_pack", "histogram_unpacked"),
+                         lambda: lookup.search_step_hist(table, reads, lens, num_labels=L,
+                                                         cap=HIST_CAP, **hkw))
+            if not torch.equal(hist, lookup.unpacked_hist(got, L, HIST_CAP)):
+                fail(f"search_step_hist k=32 ({kind}) differs from its plain version")
+    log("search_step_hist k=32: bsearch and hash rows equal the plain histogram")
+
+    # the sharded modes, every device on this card
+    bs = tabs["bsearch"]
+    single = {rc: lookup.search_step(bs, reads, lens, **{**kw, "do_rc": rc})
+              for rc in (True, False)}
+    stats = {}
+    m21 = make_mesh(2, 1, [dev] * 2)
+    rstep, rtabs = S.replicated_search_step(m21, index, do_rc=True), m21.replicate(bs)
+    got = drive("replicated (2, 1)", ("ascii_pack", "bsearch_probe"),
+                lambda: rstep(rtabs, reads, lens))
+    if not torch.equal(got, single[True]):
+        fail("replicated step (2, 1) differs from the single-device search_step")
+    stats["replicated_reads_per_s"] = b / timed_step(lambda: rstep(rtabs, reads, lens))
+    for shape in ((2, 4), (1, 8)):
+        mesh = make_mesh(*shape, [dev] * (shape[0] * shape[1]))
+        sh = S.ShardedIndex.from_index(index, shape[1])
+        stabs = sh.to_devices(mesh)
+        steps = {rc: S.sharded_search_step(mesh, sh, do_rc=rc) for rc in (True, False)}
+        for rc, step in steps.items():
+            got = drive(f"prefix-sharded {shape} rc={rc}", ("ascii_pack", "bsearch_probe_shard"),
+                        lambda: step(stabs, reads, lens))
+            if not torch.equal(got, single[rc]):
+                fail(f"prefix-sharded step {shape} rc={rc} differs from search_step")
+        tag = f"sharded_{shape[0]}x{shape[1]}_reads_per_s"
+        stats[tag] = b / timed_step(lambda: steps[True](stabs, reads, lens))
+        if shape == (2, 4):  # K15 on slice 0 of the 4-way index
+            s0, lo, per = stabs[0], int(sh.prefix_lo[0]), int(sh.bin_ix.shape[1] - 1)
+    log(f"sharded steps equal the single-device search_step; replicated (2, 1) "
+        f"{stats['replicated_reads_per_s']:,.0f}, prefix-sharded (2, 4) "
+        f"{stats['sharded_2x4_reads_per_s']:,.0f}, (1, 8) "
+        f"{stats['sharded_1x8_reads_per_s']:,.0f} reads/s (best of 3, host clock)")
+    pkw = dict(prefix_lo=lo, width=READ_LEN, do_rc=True, probe_iters=index.probe_iters)
+    ix, found = S.shard_probe(s0, packed, vbits, lens, **pkw)
+    qpre, _, _, valid = lookup.window_lanes(reads, lens, 32, True)
+    in_range = int((valid & (qpre >= lo) & (qpre < lo + per)).sum())
+    del qpre, valid
+    # each in-range word reads a bin offset and a (suf_hi, suf_lo) pair,
+    # about three sectors; a found one its id too
+    rows.append(check_kernel(
+        "bsearch_probe_shard", "bsearch_probe.cu", "utree_tpu/parallel/sharded.py:130",
+        lambda: S.shard_probe(s0, packed, vbits, lens, **pkw),
+        lambda: S.shard_probe_plain(s0, packed, vbits, lens, **pkw),
+        f"{what}, slice 0 of 4 ({in_range:,} of {2 * b * w:,} words in range)",
+        nbytes(packed, vbits, lens, ix, found)
+        + SECTOR * (3 * in_range + int(found.sum()))))
+
+    # the long-read histogram over phase 8's long reads, a (4, 2) mesh
+    m42 = make_mesh(4, 2, [dev] * 8)
+    hstep, htabs = S.long_read_histogram(m42, index, L, do_rc=True), m42.replicate(bs)
+    total, secs, bases = 0, 0.0, 0
+    for seq in base["long_reads"]:
+        chunks, clens = (torch.from_numpy(a) for a in S.split_long_read(seq, 8, 32))
+        hist = drive(f"long-read histogram {len(seq):,} bp",
+                     ("ascii_pack", "bsearch_probe", "label_histogram"),
+                     lambda: hstep(htabs, chunks, clens))
+        ids = lookup.search_step(bs, chunks.to(dev), clens.to(dev), **{
+            k: v for k, v in kw.items() if k != "num_labels"}).cpu().numpy()
+        if not np.array_equal(hist.cpu().numpy(), np.bincount(ids[ids < L], minlength=L)):
+            fail(f"long-read histogram ({len(seq):,} bp) differs from the single device's")
+        total += int(hist.sum())
+        secs += timed_step(lambda: hstep(htabs, chunks, clens), 1)
+        bases += len(seq)
+    if total <= 0:
+        fail("long-read histogram: no hit in any long read")
+    stats["long_bases_per_s"] = bases / secs
+    log(f"long-read histogram (4, 2): {len(base['long_reads'])} reads, {bases:,} bp, "
+        f"{total:,} hits, equal to bincounts of the single-device ids; "
+        f"{stats['long_bases_per_s']:,.0f} bases/s")
+    seq = base["long_reads"][-1]
+    chunks, clens = (torch.from_numpy(a).to(dev) for a in S.split_long_read(seq, 8, 32))
+    ids0 = lookup.search_step(bs, chunks[:1], clens[:1], **{
+        k: v for k, v in kw.items() if k != "num_labels"})
+    rows.append(check_kernel(
+        "label_histogram", "label_histogram.cu", "utree_tpu/parallel/sharded.py:215",
+        lambda: S.label_histogram(ids0, L), lambda: S.label_histogram_plain(ids0, L),
+        f"chunk 0 of 8 of the {len(seq):,} bp read, {ids0.numel():,} ids",
+        nbytes(ids0) + 4 * L))
+
+    t = time.perf_counter()
+    drive("dryrun_multichip(8) on one card",
+          ("ascii_pack", "bsearch_probe_shard", "label_histogram"),
+          lambda: dryrun.dryrun_multichip(8, shard_devices=[dev] * 8))
+    log(f"dryrun_multichip(8), every shard on this card: every block ran and agreed "
+        f"({time.perf_counter() - t:.1f} s)")
+    return rows, stats
+
+
 def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
     """Phases 3-14 on `dev`; returns what main() checks and prints."""
     from utree_tpu_torch.classify_device import (aufbau_tables_to_device,
@@ -1463,7 +1638,8 @@ def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
     del pipe
     # phase 5: independent check against the exact host path
     base = dict(index=index, host=index.host_index(), genome=genome, reads=reads,
-                reads_fa=reads_fa, out_txt=out_txt, table=table)
+                reads_fa=reads_fa, out_txt=out_txt, table=table,
+                k32_tables={"d1": table})  # phase 18's, filled by phases 6, 10, 13
     host_check(base["host"], reads, out_txt, work, "displaced")
 
     ladder_pipe, row, ladder = phase_ladder(dev, base, work)
@@ -1494,13 +1670,17 @@ def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
     secs["data parallel"] = time.perf_counter() - t
     multihost = phase_multihost(dev, base, kmers, work)
     secs["multihost"] = multihost["seconds"]
-    log("phases 15-17 took " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    t = time.perf_counter()
+    sharded_rows, sharded = phase_sharded(dev, base)
+    kern += sharded_rows
+    secs["sharded"] = time.perf_counter() - t
+    log("phases 15-18 took " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
     for k in kern:
         k["launches"] = PATH_LAUNCHES.get(k["name"], 0)
     return {"kernels": kern, "displaced_rps": best, "ladder": ladder,
             "wide": wide, "long": long, "bsearch": bsearch, "k64": k64,
             "compact": compact, "xtree": xtree, "hash": hashed,
-            "shallow": shallow, "routed": routed, "dp": dp}
+            "shallow": shallow, "routed": routed, "dp": dp, "sharded": sharded}
 
 
 def main() -> int:
@@ -1571,7 +1751,11 @@ def main() -> int:
         f"{res['shallow']['reads_per_s']:,.0f} reads/s; routed ({ROUTED_SHARDS} shards "
         f"on one card) {res['routed']['reads_per_s']:,.0f}, its forced fallback "
         f"{res['routed']['fallback_reads_per_s']:,.0f}, data parallel ({DP_SHARDS} "
-        f"shards) {res['dp']['reads_per_s']:,.0f} reads/s; on {card}")
+        f"shards) {res['dp']['reads_per_s']:,.0f} reads/s; sharded (one card) "
+        f"replicated (2, 1) {res['sharded']['replicated_reads_per_s']:,.0f}, "
+        f"prefix-sharded (2, 4) {res['sharded']['sharded_2x4_reads_per_s']:,.0f}, "
+        f"(1, 8) {res['sharded']['sharded_1x8_reads_per_s']:,.0f} reads/s, long-read "
+        f"histogram (4, 2) {res['sharded']['long_bases_per_s']:,.0f} bases/s; on {card}")
     print(json.dumps({"kernels": res["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

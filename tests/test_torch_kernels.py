@@ -751,3 +751,136 @@ def test_devices_beyond_the_cards_raise(dev):
     index, _, _ = make_tier(20_000, 64)
     with pytest.raises(ValueError, match=f"--devices {n + 1} requested but only {n} present"):
         SearchPipeline(index, device="cuda", devices=n + 1, batch_size=64 * (n + 1))
+
+
+# ---- K14-K16: the ASCII k=32 step and the sharded modes ---------------------------
+
+def _ascii_k32(genome, n, seed, dev, width):
+    """(n, width) ASCII reads with N's, lower case and lengths from 0 to
+    width (rows 0-2: 0, 31, 32 bases), bases left past the length."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, len(genome) - width, n)
+    reads = genome[starts[:, None] + np.arange(width)].copy()
+    reads[rng.random(reads.shape) < 0.02] = ord("N")
+    reads[rng.random(reads.shape) < 0.05] |= 0x20
+    lens = np.full(n, width, np.int32)
+    lens[::3] = rng.integers(0, width + 1, len(lens[::3]))
+    lens[:3] = (0, 31, 32)
+    return torch.from_numpy(reads).to(dev), torch.from_numpy(lens).to(dev)
+
+
+@pytest.fixture(scope="module")
+def k32(tier, dev):
+    """The tier's four k=32 tables on the card."""
+    from utree_tpu_torch.hash_index import (build_canonical_hash_index, build_hash_index,
+                                            canonical_to_device, hash_to_device)
+
+    index = tier["index"]
+    return {"bsearch": bsearch_to_device(index, dev), "d1": tier["table"],
+            "c1": canonical_to_device(build_canonical_hash_index(index), dev),
+            "t1": hash_to_device(build_hash_index(index), dev)}
+
+
+@pytest.mark.parametrize("width", [120, 150, 200])
+def test_k14_ascii_pack_and_search_step_match_plain(tier, k32, dev, width):
+    """K14 in both modes against its plain version; search_step over each
+    k=32 table (K14, the probe, the trim) against the CPU twin."""
+    reads, lens = _ascii_k32(tier["genome"], 2000, width, dev, width)
+    for rc in (False, True):
+        n0 = kernels.launches["ascii_pack"]
+        got = tl.ascii_pack(reads, lens, rc)
+        assert kernels.launches["ascii_pack"] == n0 + 1
+        want = tl.ascii_pack_plain(reads, lens, rc)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    index = tier["index"]
+    for kind, table in k32.items():
+        ctable = {k: v.cpu() for k, v in table.items()}
+        for do_rc in (True, False):
+            kw = dict(k=32, do_rc=do_rc, probe_iters=index.probe_iters, bad_ix=BAD,
+                      num_labels=64)
+            got = tl.search_step(table, reads, lens, **kw)
+            want = tl.search_step(ctable, reads.cpu(), lens.cpu(), **kw)
+            assert torch.equal(got.cpu(), want), (kind, do_rc)
+        if kind in ("bsearch", "t1"):
+            kw.pop("num_labels")
+            got = tl.search_step_hist(table, reads, lens, num_labels=64, cap=8, **kw)
+            want = tl.search_step_hist(ctable, reads.cpu(), lens.cpu(), num_labels=64,
+                                       cap=8, **kw)
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("S", [2, 4, 8])
+def test_k15_bsearch_probe_shard_matches_plain(tier, dev, S):
+    """Every slice of an S-way ShardedIndex, RC on and off, at a width that
+    is no multiple of 8 and at the padded one."""
+    from utree_tpu_torch.parallel import sharded as TS
+    from utree_tpu_torch.parallel.mesh import ShardMesh
+
+    sh = TS.ShardedIndex.from_index(tier["index"], S)
+    tabs = sh.to_devices(ShardMesh([dev] * S))
+    reads, lens = _ascii_k32(tier["genome"], 3000, 7 + S, dev, 150)
+    packed, vbits = tl.ascii_pack(reads, lens)
+    for t in range(S):
+        for do_rc in (True, False):
+            for width in (150, 152):
+                kw = dict(prefix_lo=int(sh.prefix_lo[t]), width=width, do_rc=do_rc,
+                          probe_iters=sh.probe_iters)
+                n0 = kernels.launches["bsearch_probe_shard"]
+                got = TS.shard_probe(tabs[t], packed, vbits, lens, **kw)
+                assert kernels.launches["bsearch_probe_shard"] == n0 + 1
+                want = TS.shard_probe_plain(tabs[t], packed, vbits, lens, **kw)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+                assert int(want[1].sum()) > 100
+
+
+@pytest.mark.parametrize("labels", [1, 5, 4096, 57344, 57345, 70000])
+def test_k16_label_histogram_matches_plain(dev, labels):
+    """Shared-memory counts up to 57,344 labels, global atomics above;
+    negative ids as JAX's `.at[]` wraps them."""
+    from utree_tpu_torch.parallel import sharded as TS
+
+    rng = np.random.default_rng(labels)
+    for shape in ((1, 7), (3, 5000), (8, 250_000)):
+        ids = rng.integers(-labels - 3, labels + 3, shape).astype(np.int32)
+        ids[0, 0] = -1
+        t = torch.from_numpy(ids).to(dev)
+        n0 = kernels.launches["label_histogram"]
+        got = TS.label_histogram(t, labels)
+        assert kernels.launches["label_histogram"] == n0 + 1
+        assert torch.equal(got.cpu(), TS.label_histogram_plain(t.cpu(), labels))
+
+
+def test_sharded_steps_on_one_card_equal_cpu(tier, k32, dev):
+    """The three modes with every device on the one card against the same
+    meshes of CPU devices; the dryrun on eight shards of the card."""
+    from utree_tpu_torch import dryrun
+    from utree_tpu_torch.parallel import sharded as TS
+    from utree_tpu_torch.parallel.mesh import make_mesh
+
+    index = tier["index"]
+    reads, lens = _ascii_k32(tier["genome"], 1024, 43, dev, 150)
+    for shape in ((2, 4), (1, 8), (2, 1)):
+        gm, cm = make_mesh(*shape, [dev] * (shape[0] * shape[1])), make_mesh(
+            *shape, ["cpu"] * (shape[0] * shape[1]))
+        sh = TS.ShardedIndex.from_index(index, shape[1])
+        for do_rc in (True, False):
+            got = TS.sharded_search_step(gm, sh, do_rc)(sh.to_devices(gm), reads, lens)
+            want = TS.sharded_search_step(cm, sh, do_rc)(sh.to_devices(cm), reads.cpu(),
+                                                         lens.cpu())
+            assert torch.equal(got.cpu(), want)
+        for kind in ("bsearch", "d1"):
+            ctab = {k: v.cpu() for k, v in k32[kind].items()}
+            got = TS.replicated_search_step(gm, index, True)(gm.replicate(k32[kind]),
+                                                             reads, lens)
+            want = TS.replicated_search_step(cm, index, True)(cm.replicate(ctab),
+                                                              reads.cpu(), lens.cpu())
+            assert torch.equal(got.cpu(), want)
+    chunks, clens = TS.split_long_read(tier["genome"][:40_000].tobytes(), 8, 32)
+    gm, cm = make_mesh(4, 2, [dev] * 8), make_mesh(4, 2, ["cpu"] * 8)
+    ctab = {k: v.cpu() for k, v in k32["bsearch"].items()}
+    got = TS.long_read_histogram(gm, index, 64, True)(
+        gm.replicate(k32["bsearch"]), torch.from_numpy(chunks), torch.from_numpy(clens))
+    want = TS.long_read_histogram(cm, index, 64, True)(
+        cm.replicate(ctab), torch.from_numpy(chunks), torch.from_numpy(clens))
+    assert torch.equal(got.cpu(), want) and int(want.sum()) > 10_000
+    dryrun.dryrun_multichip(8, shard_devices=[dev] * 8)

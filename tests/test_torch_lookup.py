@@ -511,3 +511,161 @@ def test_bsearch_steps_match_jax(tier, step):
     j = getattr(jl, name)(jt, packed, vbits, lens, k=32, **kw)
     t = getattr(tl, name)(tt, *(torch.from_numpy(a) for a in (packed, vbits, lens)), **kw)
     assert np.array_equal(np.asarray(j).reshape(_np(t).shape), _np(t))
+
+
+# ---- the ASCII k=32 search step (append_rc, window_lanes, K14's route) --------
+
+_KINDS = ("bsearch", "c1", "d1", "t1")
+
+
+def _toy32(tmp_path_factory, ixtype_bytes=2, seed=83):
+    """make_toy_db -> build_database -> DeviceIndexArrays.from_build, and the
+    four k=32 tables of that DB as JAX pytrees and as the port's tensors."""
+    from utree_tpu.build import build_database
+    from utree_tpu.hash_index import build_canonical_hash_index, build_hash_index
+    from utree_tpu.testdata import make_toy_db
+    from utree_tpu_torch.convert import tables_from_jax
+
+    wd = tmp_path_factory.mktemp("k32")
+    recs = make_toy_db(str(wd / "refs.fa"), str(wd / "tax.map"), seed=seed, num_refs=6,
+                       ref_len=3000)
+    cfg = UTreeConfig(ixtype_bytes=ixtype_bytes)
+    res = build_database(str(wd / "refs.fa"), str(wd / "tax.map"), cfg)
+    index = DeviceIndexArrays.from_build(res.words, res.ixs, res.labels.strings, cfg)
+    jt = {"bsearch": index.device_put(),
+          "c1": build_canonical_hash_index(index).device_put(),
+          "d1": build_displaced_index(index).device_put(),
+          "t1": build_hash_index(index).device_put()}
+    return dict(index=index, recs=recs, jt=jt,
+                tt={k: tables_from_jax(v) for k, v in jt.items()})
+
+
+@pytest.fixture(scope="module")
+def k32(tmp_path_factory):
+    return _toy32(tmp_path_factory)
+
+
+def _ascii_batch(recs, n, width, seed):
+    """(n, width) ASCII reads from the toy references: N's, lower case, 10%
+    random rows, lengths from 0 to width (rows 0-2: 0, 31, 32 bases), and
+    bases left past the length in half the rows (they must not count)."""
+    rng = np.random.default_rng(seed)
+    refs = [np.frombuffer(r[2], np.uint8) for r in recs]
+    reads = np.zeros((n, width), np.uint8)
+    for i in range(n):
+        ref = refs[int(rng.integers(len(refs)))]
+        s = int(rng.integers(0, len(ref) - width))
+        reads[i] = ref[s:s + width]
+    rand = rng.random(n) < 0.1
+    reads[rand] = rng.choice(np.frombuffer(b"ACGT", np.uint8), (int(rand.sum()), width))
+    reads[rng.random(reads.shape) < 0.02] = ord("N")
+    lower = rng.random(reads.shape) < 0.05
+    reads[lower] |= 0x20
+    lens = np.full(n, width, np.int32)
+    lens[n // 2:] = rng.integers(0, width + 1, n - n // 2)
+    lens[:3] = (0, 31, 32)
+    clear = (np.arange(width)[None, :] >= lens[:, None]) & (np.arange(n) % 2 == 0)[:, None]
+    reads[clear] = 0
+    return reads, lens
+
+
+@pytest.mark.parametrize("width", [120, 150, 200])
+def test_append_rc_window_lanes_and_k14_plain_match_jax(k32, width):
+    """append_rc on base codes, window_lanes at k=32 (RC on and off), and
+    K14's plain version in both modes against JAX's codes packed."""
+    reads, lens = _ascii_batch(k32["recs"], 48, width, seed=width)
+    tr, tlen = torch.from_numpy(reads), torch.from_numpy(lens)
+    jcodes = jl.base_codes(reads, lens)
+    tcodes = tl.base_codes(tr, tlen)
+    assert np.array_equal(np.asarray(jcodes), _np(tcodes))
+    jrc = np.asarray(jl.append_rc(jcodes, lens))
+    assert np.array_equal(jrc, _np(tl.append_rc(tcodes, tlen)))
+    for do_rc in (False, True):
+        for a, b in zip(jl.window_lanes(reads, lens, 32, do_rc),
+                        tl.window_lanes(tr, tlen, 32, do_rc)):
+            assert np.array_equal(np.asarray(a).astype(np.int64), _np(b).astype(np.int64))
+    for rc, codes in ((False, np.asarray(jcodes)), (True, jrc)):
+        packed, vbits = tl.ascii_pack_plain(tr, tlen, rc)
+        t8 = codes.shape[1] + (-codes.shape[1]) % 8
+        pad = np.pad(codes, ((0, 0), (0, t8 - codes.shape[1])), constant_values=4)
+        c = np.where(pad <= 3, pad, 0).astype(np.uint8)
+        want = (c[:, 0::4] << 6) | (c[:, 1::4] << 4) | (c[:, 2::4] << 2) | c[:, 3::4]
+        assert np.array_equal(_np(packed), want)
+        assert np.array_equal(_np(vbits), np.packbits(pad <= 3, axis=1))
+        # base_codes_packed of K14's output = the codes at every position
+        back = tl.base_codes_packed(packed, vbits, torch.full_like(tlen, t8))
+        assert np.array_equal(_np(back)[:, :codes.shape[1]], codes)
+    assert (jrc[np.arange(len(lens)), lens] == 4).all()  # the sentinels
+
+
+@pytest.mark.parametrize("do_rc", [True, False], ids=["rc", "forward"])
+@pytest.mark.parametrize("width", [120, 150, 200])
+@pytest.mark.parametrize("kind", _KINDS)
+def test_search_step_k32_matches_jax(k32, kind, width, do_rc):
+    """search_step on ASCII reads over each k=32 table: the CPU twin and
+    the kernels' route (K14, the packed probe, the trim to W = L-31) both
+    equal JAX's ids."""
+    index = k32["index"]
+    reads, lens = _ascii_batch(k32["recs"], 64, width, seed=7 * width + len(kind))
+    kw = dict(k=32, do_rc=do_rc, probe_iters=index.probe_iters, bad_ix=BAD,
+              num_labels=index.num_labels)
+    j = np.asarray(jl.search_step(k32["jt"][kind], reads, lens, **kw))
+    args = (k32["tt"][kind], torch.from_numpy(reads), torch.from_numpy(lens))
+    t = tl.search_step(*args, **kw)
+    assert t.dtype == torch.int32 and np.array_equal(j, _np(t))
+    routed = tl.ascii_window_ids(*args, **{k: v for k, v in kw.items() if k != "k"})
+    assert routed.is_contiguous() and torch.equal(routed, t)
+    assert j.shape == (64, (2 if do_rc else 1) * (width - 31))
+    assert (j < index.num_labels).sum() > 100
+
+
+def test_search_step_k32_errors_match_jax(k32, tmp_path_factory):
+    """JAX's exception types: no num_labels for a canonical table, k other
+    than 32 (after the RC text append), reads shorter than k, an
+    IXTYPE=u32 bad_ix on every table kind; search_step_hist hands
+    search_step no num_labels."""
+    index = k32["index"]
+    reads, lens = _ascii_batch(k32["recs"], 8, 96, seed=5)
+    kw = dict(k=32, do_rc=True, probe_iters=index.probe_iters, bad_ix=BAD)
+
+    def both(exc, jt, tt, r=reads, **over):
+        a = {**kw, "num_labels": None, **over}
+        targs = (tt, torch.from_numpy(r), torch.from_numpy(lens))
+        for call in (lambda: jl.search_step(jt, r, lens, **a),
+                     lambda: tl.search_step(*targs, **a),
+                     lambda: tl.ascii_window_ids(*targs, **a)):
+            with pytest.raises(exc):
+                call()
+
+    jt, tt = k32["jt"], k32["tt"]
+    for kind in ("c1", "d1"):
+        with pytest.raises(ValueError, match="num_labels is required"):
+            jl.search_step(jt[kind], reads, lens, **kw)
+        with pytest.raises(ValueError, match="num_labels is required"):
+            tl.search_step(tt[kind], torch.from_numpy(reads), torch.from_numpy(lens), **kw)
+        with pytest.raises(ValueError, match="num_labels is required"):
+            jl.search_step_hist(jt[kind], reads, lens, num_labels=8, cap=4, **kw)
+        with pytest.raises(ValueError, match="num_labels is required"):
+            tl.search_step_hist(tt[kind], torch.from_numpy(reads), torch.from_numpy(lens),
+                                num_labels=8, cap=4, **kw)
+    for kind in ("bsearch", "t1"):
+        for k in (16, 64):
+            both(NotImplementedError, jt[kind], tt[kind], k=k)
+        both(ValueError, jt[kind], tt[kind], r=reads[:, :31])
+    big = _toy32(tmp_path_factory, ixtype_bytes=4, seed=89)
+    for kind in _KINDS:
+        both(OverflowError, big["jt"][kind], big["tt"][kind],
+             bad_ix=big["index"].config.bad_ix, num_labels=big["index"].num_labels)
+
+
+@pytest.mark.parametrize("kind", ["bsearch", "t1"])
+def test_search_step_hist_k32_matches_jax(k32, kind):
+    index = k32["index"]
+    reads, lens = _ascii_batch(k32["recs"], 64, 150, seed=31)
+    kw = dict(k=32, do_rc=True, probe_iters=index.probe_iters, bad_ix=BAD,
+              num_labels=index.num_labels)
+    for cap in (1, 4):
+        j = jl.search_step_hist(k32["jt"][kind], reads, lens, cap=cap, **kw)
+        t = tl.search_step_hist(k32["tt"][kind], torch.from_numpy(reads),
+                                torch.from_numpy(lens), cap=cap, **kw)
+        assert t.shape == (64, 2 * cap + 2) and np.array_equal(np.asarray(j), _np(t))

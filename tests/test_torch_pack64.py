@@ -261,7 +261,7 @@ def test_search_step_hist_k64_matches_jax(env, table):
             kw = dict(do_rc=do_rc, bad_ix=MISS, num_labels=index.num_labels, cap=cap)
             j = jl.search_step_hist(jt, reads, lens, k=64, probe_iters=1, **kw)
             t = tl.search_step_hist(tt, torch.from_numpy(reads), torch.from_numpy(lens),
-                                    **kw)
+                                    k=64, probe_iters=1, **kw)
             assert t.shape == (96, 2 * cap + 2) and np.array_equal(np.asarray(j), _np(t))
     assert (_np(t)[:, 2 * cap + 1] > 0).sum() > 30  # reads with hits
 

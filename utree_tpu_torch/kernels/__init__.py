@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels of the search step and of xtree ALIGN, and
 their launch counts.
 
-Thirteen kernels in nineteen entry points (sources in `utree_tpu_torch/csrc/`):
+Sixteen kernels in twenty-two entry points (sources in `utree_tpu_torch/csrc/`):
 
+  K14 ascii_pack          ASCII reads -> packed reads + validity bits, or
+                          append_rc's layout         (lookup.ascii_pack)
   K1 scan_probe[_wide]    packed reads -> ids, displaced table (lookup.window_ids)
   K4 ladder_probe[_wide]  packed reads -> ids, canonical ladder (lookup.window_ids)
   K7 bsearch_probe        packed reads -> ids, bsearch replay  (lookup.window_ids)
@@ -22,6 +24,11 @@ Thirteen kernels in nineteen entry points (sources in `utree_tpu_torch/csrc/`):
                           slice                 (parallel.routed.owner_probe)
   K13 routed_finish[_wide] lane records + routed values -> ids
                           (parallel.routed.routed_finish)
+  K15 bsearch_probe_shard packed reads -> where(found, ix, 0) and found in one
+                          prefix slice of the records
+                          (parallel.sharded.shard_probe)
+  K16 label_histogram     ids -> one per-label hit count
+                          (parallel.sharded.label_histogram)
 
 `_wide` takes 4-column slots (IXTYPE=u32 label ids).  Each wrapper calls
 `launch`, which adds one to the entry point's count in `launches` after a
@@ -33,11 +40,12 @@ from __future__ import annotations
 
 from utree_tpu_torch.kernels.build import build, check, library
 
-KERNELS = ("scan_probe", "scan_probe_wide", "ladder_probe", "ladder_probe_wide",
-           "bsearch_probe", "hash_probe", "scan_probe64", "ladder_probe64",
+KERNELS = ("ascii_pack", "scan_probe", "scan_probe_wide", "ladder_probe",
+           "ladder_probe_wide", "bsearch_probe", "hash_probe", "scan_probe64", "ladder_probe64",
            "histogram", "histogram_packed", "histogram_unpacked", "hist_compact",
            "aufbau_vote", "xtree_probe", "route_displaced", "owner_probe",
-           "owner_probe_wide", "routed_finish", "routed_finish_wide")
+           "owner_probe_wide", "routed_finish", "routed_finish_wide",
+           "bsearch_probe_shard", "label_histogram")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

@@ -10,7 +10,9 @@ records themselves (bin_ix/suf_hi/suf_lo/ix), searched by the literal
 xtSuffixBS replay.  At
 PACKSIZE=64 the reads arrive as ASCII and probe the 64-mer ladder
 (c64_1/2/3) or the 64-mer displaced table (d64_1/d64_s/d64_3), whose slots
-are 6 columns wide at any label width.  Each device function has a plain
+are 6 columns wide at any label width.  `search_step` takes ASCII reads at
+either k (the sharded steps of `parallel/sharded.py` use it at k=32).
+Each device function has a plain
 PyTorch version that mirrors the JAX code step for step on int64 lanes
 masked to 32 bits (see `_u32`), and a wrapper:
 
@@ -19,6 +21,9 @@ masked to 32 bits (see `_u32`), and a wrapper:
                          K7 `csrc/bsearch_probe.cu` (bin_ix: bsearch_probe)
                          K10 `csrc/hash_probe.cu`   (t1: hash_probe)
                          (plain: window_ids_plain)
+  ascii_pack          -> K14 `csrc/ascii_pack.cu`    (plain: ascii_pack_plain)
+  search_step         -> K14, then window_ids (k=32, trimmed to JAX's width)
+                         or window_ids64 (k=64)       (plain: the JAX twins)
   window_ids64        -> K5 `csrc/scan_probe64.cu`   (d64_1: scan_probe64)
                          K6 `csrc/ladder_probe64.cu` (c64_1: ladder_probe64)
                          (plain: window_ids64_plain)
@@ -333,11 +338,21 @@ def lookup_kmers(table: dict, qpre, qhi, qlo, valid, probe_iters: int,
     fixed `probe_iters` trip count.  Returns int32 ids, bad_ix on a miss."""
     bin_ix, ix_arr = table["bin_ix"], table["ix"]
     suf_hi, suf_lo = table["suf_hi"].to(torch.int64), u32(table["suf_lo"])
-    n = suf_hi.shape[0] - 1  # one sentinel pad record
     pre = torch.where(valid, qpre, 0)
     start = bin_ix[pre].to(torch.int64)
     end = bin_ix[pre + 1].to(torch.int64)
     empty = start >= end
+    p = bsearch_descend(suf_hi, suf_lo, empty, start, end, qhi, qlo, probe_iters)
+    found = (~empty) & valid & (suf_hi[p] == qhi) & (suf_lo[p] == qlo)
+    return torch.where(found, ix_arr[p], bad_ix).to(torch.int32)
+
+
+def bsearch_descend(suf_hi, suf_lo, empty, start, end, qhi, qlo, probe_iters: int):
+    """The replay's `probe_iters` halvings of each lane's bin [start, end)
+    (an empty lane stays at 0): the record it ends on, clamped to the last
+    one (n = the sentinel or last padding record).  suf_hi int64, suf_lo a
+    u32 lane."""
+    n = suf_hi.shape[0] - 1
     p = torch.where(empty, 0, start)
     size = torch.where(empty, 0, end - start - 1)
     for _ in range(probe_iters):
@@ -347,14 +362,13 @@ def lookup_kmers(table: dict, qpre, qhi, qlo, valid, probe_iters: int,
         le = active & _suffix_le(suf_hi[probe], suf_lo[probe], qhi, qlo)
         p = torch.where(le, p + w + 1, p)
         size = torch.where(active, torch.where(le, size - w - 1, w), size)
-    p = torch.clamp(p, max=n)
-    found = (~empty) & valid & (suf_hi[p] == qhi) & (suf_lo[p] == qlo)
-    return torch.where(found, ix_arr[p], bad_ix).to(torch.int32)
+    return torch.clamp(p, max=n)
 
 
-def _append_rc(qpre, qhi, qlo, valid, do_rc: bool):
-    """_packed_window_ix's non-canonical branch: with RC the arithmetic RC
-    words follow the forward words ([fwd | rc]) and each is probed alone."""
+def _with_rc_words(qpre, qhi, qlo, valid, do_rc: bool):
+    """With RC the arithmetic RC words follow the forward words ([fwd |
+    rc]), as window_lanes and _packed_window_ix's non-canonical branch
+    append them; each is probed alone."""
     if do_rc:
         rpre, rhi, rlo = rc_word_lanes(qpre, qhi, qlo)
         qpre, qhi = torch.cat([qpre, rpre], dim=1), torch.cat([qhi, rhi], dim=1)
@@ -366,7 +380,7 @@ def _bsearch_ix(table: dict, qpre, qhi, qlo, valid, *, do_rc: bool,
                 probe_iters: int | None, bad_ix: int):
     if probe_iters is None:
         raise ValueError("the bsearch replay needs probe_iters")
-    return lookup_kmers(table, *_append_rc(qpre, qhi, qlo, valid, do_rc),
+    return lookup_kmers(table, *_with_rc_words(qpre, qhi, qlo, valid, do_rc),
                         probe_iters, bad_ix)
 
 
@@ -402,7 +416,7 @@ def lookup_kmers_hash(tables: dict, qpre, qhi, qlo, valid, *, slots: int,
 
 
 def _hash_ix(tables: dict, qpre, qhi, qlo, valid, *, do_rc: bool, bad_ix: int):
-    return lookup_kmers_hash(tables, *_append_rc(qpre, qhi, qlo, valid, do_rc),
+    return lookup_kmers_hash(tables, *_with_rc_words(qpre, qhi, qlo, valid, do_rc),
                              slots=8, bad_ix=bad_ix)
 
 
@@ -926,13 +940,151 @@ def window_ids64(table: dict, reads, lengths, *, do_rc: bool,
     return out
 
 
-def search_step_hist(table: dict, reads, lengths, *, do_rc: bool, bad_ix: int,
-                     num_labels: int, cap: int) -> torch.Tensor:
-    """`search_step_hist` at k=64 (`search_step`'s k=64 branch, then K2
-    `histogram_unpacked`): ASCII reads -> (B, 2*cap+2) int32 rows [labels |
-    counts | nuniq | found], the PACKSIZE=64 readback.  The k=32 ASCII
-    branches are reached by no single-device pipeline (ROADMAP A.9)."""
-    if not ("c64_1" in table or "d64_1" in table):
-        raise ValueError("search_step_hist takes a 64-mer table (c64_1 or d64_1)")
-    ids = window_ids64(table, reads, lengths, do_rc=do_rc, bad_ix=bad_ix)
+# ---- ASCII reads at k=32: K14, search_step, search_step_hist -----------------
+
+def append_rc(codes: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(B, L) codes -> (B, 2L+1): forward, sentinel, reverse complement
+    (utree_tpu/lookup.py:66-80, its clip-then-gather included): position
+    `length` is invalid, positions length+1..2*length hold 3 - code of the
+    read reversed (an invalid code stays invalid)."""
+    b, l = codes.shape
+    t = torch.arange(2 * l + 1, device=codes.device)
+    ln = lengths.to(torch.int64)[:, None]
+    rc_src = torch.gather(codes, 1, torch.clamp(2 * ln - t, 0, l - 1))
+    rc_val = torch.where(rc_src <= 3, 3 - rc_src, DINVALID)
+    fwd_val = codes[:, torch.clamp(t, 0, l - 1)]
+    return torch.where(t < ln, fwd_val,
+                       torch.where((t > ln) & (t <= 2 * ln), rc_val, DINVALID))
+
+
+def window_lanes(reads_u8: torch.Tensor, lengths: torch.Tensor, k: int, do_rc: bool):
+    """ASCII reads -> per-window (qpre, qhi, qlo, valid) lanes, the forward
+    windows followed by the arithmetic RC words at k=32
+    (utree_tpu/lookup.py:568-581).  Any other k appends the RC text and
+    then meets extract_windows' NotImplementedError, as in JAX."""
+    codes = base_codes(reads_u8, lengths)
+    if do_rc and k != 32:
+        codes = append_rc(codes, lengths)
+    qpre, qhi, qlo, valid = extract_windows(codes, k)
+    return _with_rc_words(qpre, qhi, qlo, valid, do_rc and k == 32)
+
+
+def ascii_pack_plain(reads_u8: torch.Tensor, lengths: torch.Tensor, rc: bool = False):
+    """Plain version of K14: `base_codes` (with `rc`, then `append_rc`)
+    packed as pack_reads_host packs: (B, T8/4) u8, 4 codes a byte
+    MSB-first (an invalid code as 0), and (B, T8/8) u8 np.packbits validity
+    bits; T8 is the positions (L, or 2L+1 with rc) rounded up to a multiple
+    of 8, the pad invalid."""
+    codes = base_codes(reads_u8, lengths)
+    if rc:
+        codes = append_rc(codes, lengths)
+    b, t = codes.shape
+    t8 = t + (-t) % 8
+    codes = torch.nn.functional.pad(codes, (0, t8 - t), value=DINVALID)
+    valid = codes <= 3
+    c = torch.where(valid, codes, 0)
+    packed = (c[:, 0::4] << 6) | (c[:, 1::4] << 4) | (c[:, 2::4] << 2) | c[:, 3::4]
+    weights = 1 << torch.arange(7, -1, -1, device=codes.device)
+    vbits = (valid.reshape(b, t8 // 8, 8).to(torch.int64) * weights).sum(2)
+    return packed.to(torch.uint8), vbits.to(torch.uint8)
+
+
+def ascii_pack(reads_u8: torch.Tensor, lengths: torch.Tensor, rc: bool = False):
+    """K14 `ascii_pack` on CUDA tensors; `ascii_pack_plain` on CPU tensors."""
+    if reads_u8.device.type == "cpu":
+        return ascii_pack_plain(reads_u8, lengths, rc)
+    dev = reads_u8.device
+    kernels.require(reads_u8, "reads", torch.uint8, 2, dev)
+    kernels.require(lengths, "lengths", torch.int32, 1, dev)
+    b, l = reads_u8.shape
+    if lengths.shape[0] != b:
+        raise ValueError("reads/lengths shapes disagree")
+    row8 = -(-(2 * l + 1 if rc else l) // 8)
+    packed = torch.empty((b, 2 * row8), dtype=torch.uint8, device=dev)
+    vbits = torch.empty((b, row8), dtype=torch.uint8, device=dev)
+    kernels.launch("ascii_pack", reads_u8.data_ptr(), lengths.data_ptr(), b, l, row8,
+                   int(rc), packed.data_ptr(), vbits.data_ptr(),
+                   torch.cuda.current_stream(dev).cuda_stream)
+    return packed, vbits
+
+
+def int32_miss(bad_ix: int) -> None:
+    """utree_tpu's k=32 lookups select bad_ix into int32 id lanes, which
+    raises OverflowError for an IXTYPE=u32 bad_ix (2^32-1); so does the
+    port."""
+    if not -(1 << 31) <= bad_ix < (1 << 31):
+        raise OverflowError(f"bad_ix {bad_ix} does not fit the int32 id lanes")
+
+
+def ascii_window_ids(table: dict, reads_u8, lengths, *, do_rc: bool, bad_ix: int,
+                     num_labels: int | None, probe_iters: int | None, k: int = 32,
+                     hash_slots: int = 8) -> torch.Tensor:
+    """`search_step`'s k=32 branches by way of the packed probes: K14 packs
+    the reads over L8 positions (L rounded up to a multiple of 8), and
+    `window_ids` (K1, K4, K7 or K10) probes W8 = L8-31 windows a strand;
+    the ids are then trimmed to JAX's W = L-31, columns [:W] and, with RC,
+    [W8:W8+W].  Every length is at most L, so the windows past L-31 are
+    invalid in both.  On CPU tensors the same route runs the plain
+    versions."""
+    if k != 32:
+        raise NotImplementedError("extract_windows implements the 32-mer geometry")
+    w = reads_u8.shape[1] - 31
+    if w <= 0:
+        raise ValueError("reads shorter than k after padding")
+    int32_miss(bad_ix)
+    if "t1" in table and hash_slots != 8:
+        raise ValueError(f"the hash probe takes 8-slot rows, not hash_slots={hash_slots}")
+    packed, vbits = ascii_pack(reads_u8, lengths)
+    ids = window_ids(table, packed, vbits, lengths, do_rc=do_rc, bad_ix=bad_ix,
+                     num_labels=num_labels or 0, probe_iters=probe_iters)
+    w8 = packed.shape[1] * 4 - 31
+    if w8 == w:
+        return ids
+    return torch.cat([ids[:, :w], ids[:, w8:w8 + w]], 1) if do_rc else ids[:, :w].contiguous()
+
+
+def search_step(table: dict, reads_u8, lengths, *, k: int, do_rc: bool,
+                probe_iters: int | None, bad_ix: int, hash_slots: int = 8,
+                num_labels: int | None = None) -> torch.Tensor:
+    """ASCII reads -> per-window label ids, bad_ix on a miss
+    (utree_tpu/lookup.py:584-618), in JAX's order: a k=32 canonical table
+    (c1, d1) needs `num_labels` (ValueError) and probes both strands at
+    once; a k=64 table (c64_1, d64_1) takes the 64-mer branch
+    (`window_ids64`: K5, K6); anything else goes through `window_lanes`,
+    then the legacy hash (t1) or the bsearch replay (bin_ix, `probe_iters`
+    trips).  With RC the k=32 ids are [ix_a | ix_b] (canonical) or
+    [fwd | rc].  On CPU tensors the k=32 branches are the plain twins of
+    JAX's; on CUDA tensors `ascii_window_ids` (K14, then K1, K4, K7 or
+    K10)."""
+    canonical = ("c1" in table or "d1" in table) and k == 32
+    if canonical and num_labels is None:
+        raise ValueError("num_labels is required for canonical tables")
+    if ("c64_1" in table or "d64_1" in table) and k == 64:
+        return window_ids64(table, reads_u8, lengths, do_rc=do_rc, bad_ix=bad_ix)
+    if reads_u8.device.type != "cpu":
+        return ascii_window_ids(table, reads_u8, lengths, k=k, do_rc=do_rc, bad_ix=bad_ix,
+                                num_labels=num_labels, probe_iters=probe_iters,
+                                hash_slots=hash_slots)
+    if canonical:
+        lanes = extract_windows(base_codes(reads_u8, lengths), k)
+        int32_miss(bad_ix)
+        return _canonical_family_ix(table, *lanes, bad_ix=bad_ix, do_rc=do_rc,
+                                    num_labels=num_labels)
+    lanes = window_lanes(reads_u8, lengths, k, do_rc)
+    int32_miss(bad_ix)
+    if "t1" in table:
+        return lookup_kmers_hash(table, *lanes, slots=hash_slots, bad_ix=bad_ix)
+    return lookup_kmers(table, *lanes, probe_iters, bad_ix)
+
+
+def search_step_hist(table: dict, reads, lengths, *, k: int, do_rc: bool,
+                     probe_iters: int | None, bad_ix: int, num_labels: int,
+                     cap: int = 16) -> torch.Tensor:
+    """`search_step`, then K2 `histogram_unpacked` (utree_tpu/lookup.py:
+    662-675): ASCII reads -> (B, 2*cap+2) int32 rows [labels | counts |
+    nuniq | found], the PACKSIZE=64 readback.  Like JAX's, it hands
+    search_step no `num_labels`, so a k=32 canonical table (c1, d1) raises
+    its ValueError."""
+    ids = search_step(table, reads, lengths, k=k, do_rc=do_rc, probe_iters=probe_iters,
+                      bad_ix=bad_ix)
     return histogram_unpacked(ids, num_labels, cap)

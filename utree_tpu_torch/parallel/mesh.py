@@ -2,15 +2,18 @@
 `utree_tpu/parallel/mesh.py`.
 
 One process drives every shard, as `utree_tpu` drives every chip of its
-mesh from one controller.  A `ShardMesh` holds the (1, S) layout that
-`SearchPipeline(devices=S)` builds (utree_tpu/pipeline.py:144-148): an
-ordered list of S devices, each holding one shard.  The collectives are
+mesh from one controller.  A `ShardMesh` is an ordered list of D*T devices
+laid out as a (data, table) grid in row-major order, device d*T + t at
+(d, t), as `make_mesh` reshapes JAX's device list.  `SearchPipeline(
+devices=S)` and the routed shards build the (1, S) layout
+(utree_tpu/pipeline.py:144-148); the prefix-sharded steps of
+`parallel/sharded.py` take any (data, table) grid.  The collectives are
 copies between those devices: `all_to_all` moves block o of shard s's
-tensor into block s of shard o's, and `psum` sums one tensor a shard onto
-every shard (`reduce` onto shard 0 only).  On a card the copies are peer
-copies, or copies within the card when shards share it; on the CPU they
-are memory copies.  The (data > 1, table) meshes
-that only `utree_tpu`'s tests build are not held here (ROADMAP A.9.5).
+tensor into block s of shard o's, `psum` sums one tensor a device over
+the `data` axis, the `table` axis or both, onto every device it sums
+over, and `reduce` does the same sums onto the first device of each
+group only.  On a card the copies are peer copies, or copies within the
+card when shards share it; on the CPU they are memory copies.
 """
 
 from __future__ import annotations
@@ -19,12 +22,17 @@ import contextlib
 
 import torch
 
+AXES = ("data", "table")
+
 
 class ShardMesh:
-    def __init__(self, devices):
+    def __init__(self, devices, shape: tuple[int, int] | None = None):
         self.devices = [torch.device(d) for d in devices]
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        self.shape = (1, len(self.devices)) if shape is None else tuple(shape)
+        if len(self.shape) != 2 or self.shape[0] * self.shape[1] != len(self.devices):
+            raise ValueError(f"mesh {self.shape} != {len(self.devices)} devices")
 
     @property
     def size(self) -> int:
@@ -35,6 +43,11 @@ class ShardMesh:
         current card's stream); nothing on the CPU."""
         dev = self.devices[s]
         return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+    def replicate(self, table: dict[str, torch.Tensor]) -> list[dict[str, torch.Tensor]]:
+        """One copy of `table` a device (devices that are one device share
+        one), for the steps that hold a table whole on every device."""
+        return [{k: v.to(dev) for k, v in table.items()} for dev in self.devices]
 
     def all_to_all(self, blocks: list[torch.Tensor]) -> list[torch.Tensor]:
         """blocks[s] (S, C, ...) on shard s -> out[o] (S, C, ...) on shard o
@@ -50,15 +63,52 @@ class ShardMesh:
                 out[o][s].copy_(src[o], non_blocking=True)
         return out
 
-    def reduce(self, parts: list[torch.Tensor]) -> torch.Tensor:
-        """The sum of one tensor a shard, on shard 0.  Integer sums, so the
-        order of the adds does not matter."""
-        total = parts[0].clone()
-        for p in parts[1:]:
-            total += p.to(total.device, non_blocking=True)
-        return total
+    def groups(self, axis=AXES) -> list[list[int]]:
+        """The device indices that one sum over `axis` ("data", "table" or
+        both) runs over, a group each, in mesh order."""
+        names = {axis} if isinstance(axis, str) else set(axis)
+        if not names or not names <= set(AXES):
+            raise ValueError(f"axis {axis!r} is not one of {AXES} or both")
+        d, t = self.shape
+        if names == set(AXES):
+            return [list(range(d * t))]
+        if names == {"table"}:
+            return [[i * t + j for j in range(t)] for i in range(d)]
+        return [[i * t + j for i in range(d)] for j in range(t)]
 
-    def psum(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
-        """The sum of one tensor a shard (`jax.lax.psum`), on every shard."""
-        total = self.reduce(parts)
-        return [total.to(dev, non_blocking=True) for dev in self.devices]
+    def reduce(self, parts: list[torch.Tensor], axis=AXES) -> list[torch.Tensor]:
+        """The sums over `axis` of one tensor a device: one tensor a group,
+        on the group's first device.  Integer sums, so the order of the
+        adds does not matter."""
+        if len(parts) != self.size:
+            raise ValueError(f"{len(parts)} tensors on a mesh of {self.size}")
+        sums = []
+        for group in self.groups(axis):
+            total = parts[group[0]].clone()
+            for i in group[1:]:
+                total += parts[i].to(total.device, non_blocking=True)
+            sums.append(total)
+        return sums
+
+    def psum(self, parts: list[torch.Tensor], axis=AXES) -> list[torch.Tensor]:
+        """`jax.lax.psum` over `axis`: on every device, the sum of its
+        group's tensors."""
+        out = [None] * self.size
+        for group, total in zip(self.groups(axis), self.reduce(parts, axis)):
+            for i in group:
+                out[i] = total.to(self.devices[i], non_blocking=True)
+        return out
+
+
+def make_mesh(data: int | None = None, table: int = 1, devices=None) -> ShardMesh:
+    """`make_mesh` (utree_tpu/parallel/mesh.py:21-28): the devices (every
+    card by default) as a (data, table) grid; `data` defaults to what
+    `table` leaves, and data * table must be the device count."""
+    devs = list(devices) if devices is not None else [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    total = len(devs)
+    if data is None:
+        data = total // table
+    if data * table != total:
+        raise ValueError(f"mesh {data}x{table} != {total} devices")
+    return ShardMesh(devs, (data, table))

@@ -415,7 +415,7 @@ def routed_displaced_fallback_step(mesh: ShardMesh, sharded: ShardedDisplacedInd
                                         lanes.to(dev, non_blocking=True),
                                         base=s * per_seed, per_seed=per_seed,
                                         wide=sharded.wide))
-        summed = mesh.reduce(vals)
+        summed = mesh.reduce(vals)[0]
         with mesh.on(0):
             ids = routed_finish(rec, summed, tables[0]["t3"], b=b, w=w, do_rc=do_rc,
                                 bad_ix=bad_ix, wide=sharded.wide)

@@ -225,7 +225,7 @@ class SearchPipeline:
         kw = dict(do_rc=do_rc, bad_ix=min(cfg.bad_ix, 0x7FFFFFFF),
                   num_labels=index.num_labels, cap=hist_cap)
         if not self._packed:
-            hist = search_step_hist
+            hist = functools.partial(search_step_hist, k=64, probe_iters=None)
         else:
             kw["probe_iters"] = index.probe_iters
             hist = search_step_hist_packed if packed_out else search_step_hist_packed_in
@@ -249,8 +249,7 @@ class SearchPipeline:
             self._step = self._step_hist
         # data parallel: the table replicated on every shard device
         # (utree_tpu/pipeline.py:316-374)
-        self._tables = [{k: v.to(dev) for k, v in table.items()}
-                        for dev in self._mesh.devices]
+        self._tables = self._mesh.replicate(table)
 
     def _shard_mesh(self, n: int, batch_size: int, shard_devices):
         """The n shard devices, with utree_tpu/pipeline.py:133-142's checks

@@ -89,9 +89,22 @@ Phases; each passes or the script exits non-zero:
    slice 0 of a 4-way ShardedIndex; the long-read histogram on a (4, 2)
    mesh over phase 8's long reads (K16) equal to bincounts of the
    single-device ids; K16 at one device's chunk of the 1 Mbp read;
-   dryrun.dryrun_multichip(8) with the eight shards on the card.
+   dryrun.dryrun_multichip(8) with the eight shards on the card (its routed
+   blocks on the full (4, 2) mesh: K11-K13, K17, K18);
+19. routed canonical: phase 6's ladder sharded four ways by t1 bucket
+   range (`ShardedCanonicalIndex`), every shard on the card: K11 at b1
+   buckets, K17 canonical_owner_probe and K18 routed_canonical_finish
+   against their plain versions; the reads in four batches through the
+   routed step on a (1, 4) mesh, equal to the single-device ladder's
+   search_step_hist_packed rows, overflow column 0; at capacity 8 every
+   row flagged; the fallback equal to the single device; on a (2, 4) mesh
+   the canonical step and fallback and phase 15's displaced step and
+   fallback, all equal; a ladder of phase 7's wide 2M tier through the
+   _wide entry points, equal to the single device and (first 4096 reads)
+   to CPU shards; each step's rate, device work only (no pipeline reaches
+   these steps).
 
-Every path run (phases 4, 6-13, 15-18) starts with every launch count at 0
+Every path run (phases 4, 6-13, 15-19) starts with every launch count at 0
 and reads them just after; each kernel its path needs must have launched.
 Prints the card line, a {"kernels": [...]} JSON line and, last, the
 {"ok": true, "device": {...}} line.  Imports nothing of JAX or of the JAX
@@ -256,16 +269,17 @@ def write_fasta(path: pathlib.Path, reads) -> None:
                          for i in range(len(reads))))
 
 
-def batch_tensors(dev, reads):
-    """The first BATCH reads as the pipeline packs them (width 192)."""
+def batch_tensors(dev, reads, start: int = 0):
+    """BATCH reads from `start` (the first by default) as the pipeline packs
+    them (width 192)."""
     import numpy as np
     import torch
 
     from utree_tpu_torch import lookup
 
-    b = min(BATCH, len(reads))
+    b = min(BATCH, len(reads) - start)
     ascii_ = np.zeros((b, 192), np.uint8)  # the pipeline's width for 150 bp
-    ascii_[:, :READ_LEN] = reads[:b]
+    ascii_[:, :READ_LEN] = reads[start:start + b]
     return [torch.from_numpy(a).to(dev) for a in lookup.pack_reads_host(
         ascii_, np.full(b, READ_LEN, np.int32))]
 
@@ -1207,63 +1221,138 @@ def phase_shallow(base: dict, work: pathlib.Path) -> dict:
     return {"reads_per_s": n / dt, "seconds": dt, "lines": len(lines)}
 
 
+def tail_sectors(t) -> int:
+    """32 B sectors of one row of a table."""
+    return -(-t.shape[1] * 4 // SECTOR)
+
+
+def routed_parts(sh, table: dict, b: int, w: int) -> dict:
+    """What sets the displaced routed step (K12 owner_probe, K13
+    routed_finish) apart from the canonical one (K17 canonical_owner_probe,
+    K18 routed_canonical_finish), on one shard's `table`, narrow or wide by
+    the table: the buckets K11 routes by; the owner probe and the finish as
+    (name, source, replaces, kernel, plain), the one a function of the
+    receive lanes, the other of K11's records and the replies; the bytes of
+    table the owner reads for `written` lanes; and the tail bytes the
+    finish reads, with a note, given the records and each lane's routed
+    value (0 for slot -1)."""
+    from utree_tpu_torch.lookup import canonical_buckets
+    from utree_tpu_torch.parallel import routed as R
+
+    S, wide = sh.num_shards, sh.wide
+    sfx = "_wide" if wide else ""
+    fin = dict(b=b, w=w, do_rc=True, bad_ix=0x7FFFFFFF if wide else 0xFFFF, wide=wide)
+    if isinstance(sh, R.ShardedDisplacedIndex):
+        t1, ds, t3 = table["t1"], table["ds"], table["t3"]
+        own = dict(base=0, per_seed=sh.nseed // S, wide=wide)
+
+        def tail(rec, got, miss1):
+            # a valid lane whose routed value misses reads one d3 row (t3 at
+            # most once)
+            miss = int(miss1.sum())
+            return min(nbytes(t3), SECTOR * miss), f"{miss:,} of shard 0's miss d1"
+
+        return dict(
+            nbkt=sh.nseed,
+            owner=("owner_probe" + sfx, "owner_probe.cu", "utree_tpu/parallel/routed.py:405",
+                   lambda lanes: R.owner_probe(t1, ds, lanes, **own),
+                   lambda lanes: R.owner_probe_plain(t1, ds, lanes, **own)),
+            finish=("routed_finish" + sfx, "routed_finish.cu",
+                    "utree_tpu/parallel/routed.py:462",
+                    lambda rec, reply: R.routed_finish(rec, reply, t3, **fin),
+                    lambda rec, reply: R.routed_finish_plain(rec, reply, t3, **fin)),
+            # a d1 row a written lane, bucket 0's row once for the unwritten
+            # slots, the seed words at most once each
+            owner_bytes=lambda written: (SECTOR * (written + 1)
+                                         + min(nbytes(ds), SECTOR * written)),
+            tail=tail)
+    t1, t2, t3 = table["t1"], table["t2"], table["t3"]
+    own = dict(base=0, per_shard=sh.b1 // S, wide=wide)
+
+    def tail(rec, got, miss1):
+        # a valid lane whose routed value misses reads a c2 row, and one c2
+        # misses too a c3 row (each table at most once; an 8-row table is
+        # absent)
+        valid = (rec[:, 3] & 1) == 1
+        moved, miss2 = 0, miss1
+        if t2.shape[0] > 8:
+            klo, khi = rec[:, 1].long() & 0xFFFFFFFF, rec[:, 2].long() & 0xFFFFFFFF
+            bkt2 = canonical_buckets(klo, khi, valid, 1, t2.shape[0])[1]
+            v1 = (got[:, 0], got[:, 1]) if wide else got[:, 0]
+            # t3[:0] holds no row, so only c2 is probed
+            v2 = R.tail_probe_plain(v1, t2, t3[:0], bkt2, klo, khi, valid, wide=wide)
+            miss2 = valid & ((v2[0] | v2[1]) == 0 if wide else v2 == 0)
+            moved += min(nbytes(t2), SECTOR * tail_sectors(t2) * int(miss1.sum()))
+        if t3.shape[0] > 8:
+            moved += min(nbytes(t3), SECTOR * tail_sectors(t3) * int(miss2.sum()))
+        return moved, (f"{int(miss1.sum()):,} of shard 0's miss c1, {int(miss2.sum()):,} "
+                       f"miss c2 too; c1 {tuple(t1.shape)} a shard, c2 {tuple(t2.shape)}, "
+                       f"c3 {tuple(t3.shape)}")
+
+    return dict(
+        nbkt=sh.b1,
+        owner=("canonical_owner_probe" + sfx, "owner_probe.cu",
+               "utree_tpu/parallel/routed.py:153",
+               lambda lanes: R.canonical_owner_probe(t1, lanes, **own),
+               lambda lanes: R.canonical_owner_probe_plain(t1, lanes, **own)),
+        finish=("routed_canonical_finish" + sfx, "routed_finish.cu",
+                "utree_tpu/parallel/routed.py:95",
+                lambda rec, reply: R.routed_canonical_finish(rec, reply, t2, t3, **fin),
+                lambda rec, reply: R.routed_canonical_finish_plain(rec, reply, t2, t3,
+                                                                   **fin)),
+        # a c1 row a written lane, row 0 once for the unwritten slots
+        owner_bytes=lambda written: SECTOR * tail_sectors(t1) * (written + 1),
+        tail=tail)
+
+
 def routed_checks(sharded, tables, mesh, packed, vbits, lens, tag: str) -> list[dict]:
-    """K11, K12 and K13 (narrow or wide by the table) against their plain
-    versions at the routed step's shapes for this batch: shard 0's rows
-    (B/S reads), owner 0's receive buffer, shard 0's records and replies;
-    then the time of the copies between the shards."""
+    """K11 and the routed step's owner probe and finish (`routed_parts`:
+    K12 and K13 or K17 and K18) against their plain versions at the step's
+    shapes for this batch on a (1, S) mesh: shard 0's rows (B/S reads),
+    owner 0's receive buffer, shard 0's records and replies; then the time
+    of the copies between the shards.  K11's row is the displaced narrow
+    table's; at b1 buckets and on the wide tier its time is logged only."""
     from utree_tpu_torch.parallel import routed as R
 
     S = mesh.size
     b, w = packed.shape[0] // S, packed.shape[1] * 4 - 31
     # the step's capacity
     c = max(128, math.ceil(b * w / S * R.CAPACITY_FACTOR / 128) * 128)
-    # the step's sequence (parallel.routed.routed_displaced_search_step):
-    # each shard's K11, the receive buffers, the owners' K12, the replies
+    parts = [routed_parts(sharded, t, b, w) for t in tables]
+    nbkt = parts[0]["nbkt"]
+    # the step's sequence (parallel.routed._routed_step): each shard's K11,
+    # the receive buffers, the owners' probes, the replies
     routed = [R.route_displaced(packed[s * b:(s + 1) * b], vbits[s * b:(s + 1) * b],
-                                lens[s * b:(s + 1) * b], nseed=sharded.nseed,
-                                num_shards=S, capacity=c) for s in range(S)]
+                                lens[s * b:(s + 1) * b], nseed=nbkt, num_shards=S,
+                                capacity=c) for s in range(S)]
     recv = mesh.all_to_all([r[0] for r in routed])
-    vals = [R.owner_probe(tables[o]["t1"], tables[o]["ds"], recv[o].reshape(S * c, 3),
-                          base=0, per_seed=sharded.nseed // S, wide=sharded.wide)
-            for o in range(S)]
+    vals = [parts[o]["owner"][3](recv[o].reshape(S * c, 3)) for o in range(S)]
     vals = [v.reshape((S, c, 2) if sharded.wide else (S, c)) for v in vals]
     reply = mesh.all_to_all(vals)
     p0, v0, l0 = packed[:b], vbits[:b], lens[:b]
     send, rec, counts = routed[0]
-    k11 = dict(nseed=sharded.nseed, num_shards=S, capacity=c)
-    sfx = "_wide" if sharded.wide else ""
     what = f"{tag}: B/S={b} reads, W={w}, {S} shards, C={c}"
+    k11 = dict(nseed=nbkt, num_shards=S, capacity=c)
+    k11_row = check_kernel(
+        "route_displaced", "route_displaced.cu", "utree_tpu/parallel/routed.py:422",
+        lambda: R.route_displaced(p0, v0, l0, **k11),
+        lambda: R.route_displaced_plain(p0, v0, l0, **k11), f"{what}, {nbkt} buckets",
+        nbytes(p0, v0, l0, send, rec, counts))
+    displaced_narrow = isinstance(sharded, R.ShardedDisplacedIndex) and not sharded.wide
+    rows = [k11_row] if displaced_narrow else []
     lanes = recv[0].reshape(S * c, 3)
-    k12 = dict(base=0, per_seed=sharded.nseed // S, wide=sharded.wide)
-    # the lanes senders wrote to owner 0 read a d1 row each; the unwritten
-    # slots all read bucket 0's row once; the seed words at most once each
     written = sum(min(int(r[2][0]), c) for r in routed)
-    t1, ds, t3 = tables[0]["t1"], tables[0]["ds"], tables[0]["t3"]
-    k13 = dict(b=b, w=w, do_rc=True, bad_ix=0x7FFFFFFF if sharded.wide else 0xFFFF,
-               wide=sharded.wide)
-    ids = R.routed_finish(rec, reply[0], t3, **k13)
-    # a valid lane whose routed value misses reads one d3 row (t3 at most once)
-    slot = rec[:, 0].long()
-    got = reply[0].reshape(S * c, -1)[slot.clamp(min=0)]
-    miss = int((((rec[:, 3] & 1) == 1) & ((slot < 0) | (got == 0).all(1))).sum())
-    rows = []
-    if not sharded.wide:
-        rows.append(check_kernel(
-            "route_displaced", "route_displaced.cu", "utree_tpu/parallel/routed.py:422",
-            lambda: R.route_displaced(p0, v0, l0, **k11),
-            lambda: R.route_displaced_plain(p0, v0, l0, **k11), what,
-            nbytes(p0, v0, l0, send, rec, counts)))
-    rows.append(check_kernel(
-        "owner_probe" + sfx, "owner_probe.cu", "utree_tpu/parallel/routed.py:405",
-        lambda: R.owner_probe(t1, ds, lanes, **k12),
-        lambda: R.owner_probe_plain(t1, ds, lanes, **k12), what,
-        nbytes(lanes, vals[0]) + SECTOR * (written + 1) + min(nbytes(ds), SECTOR * written)))
-    rows.append(check_kernel(
-        "routed_finish" + sfx, "routed_finish.cu", "utree_tpu/parallel/routed.py:462",
-        lambda: R.routed_finish(rec, reply[0], t3, **k13),
-        lambda: R.routed_finish_plain(rec, reply[0], t3, **k13), what,
-        nbytes(rec, reply[0], ids) + min(nbytes(t3), SECTOR * miss)))
+    name, src, line, kernel, plain = parts[0]["owner"]
+    rows.append(check_kernel(name, src, line, lambda: kernel(lanes), lambda: plain(lanes),
+                             what, nbytes(lanes, vals[0]) + parts[0]["owner_bytes"](written)))
+    name, src, line, kernel, plain = parts[0]["finish"]
+    ids = kernel(rec, reply[0])
+    slot, valid = rec[:, 0].long(), (rec[:, 3] & 1) == 1
+    got = reply[0].reshape(S * c, -1)[slot.clamp(min=0)] * (slot >= 0)[:, None]
+    tail, note = parts[0]["tail"](rec, got, valid & (got == 0).all(1))
+    rows.append(check_kernel(name, src, line, lambda: kernel(rec, reply[0]),
+                             lambda: plain(rec, reply[0]), what,
+                             nbytes(rec, reply[0], ids) + tail))
     a2a = cuda_ms(lambda: mesh.all_to_all([r[0] for r in routed]), 20)
     back = cuda_ms(lambda: mesh.all_to_all(vals), 20)
     flags = [r[2][S:] for r in routed]
@@ -1271,8 +1360,8 @@ def routed_checks(sharded, tables, mesh, packed, vbits, lens, tag: str) -> list[
     log(f"{tag} copies per batch: all_to_all out {a2a:.4f} ms "
         f"({nbytes(*(r[0] for r in routed)):,} B), back {back:.4f} ms "
         f"({nbytes(*vals):,} B), overflow psum {ps:.4f} ms; "
-        f"{sum(int(r[2][:S].sum()) for r in routed):,} valid lanes, {miss:,} of "
-        f"shard 0's miss d1; overflow {[int(r[2][S]) for r in routed]}")
+        f"{sum(int(r[2][:S].sum()) for r in routed):,} valid lanes, {note}; "
+        f"overflow {[int(r[2][S]) for r in routed]}")
     return rows
 
 
@@ -1295,6 +1384,7 @@ def phase_routed(dev, base: dict, work: pathlib.Path):
     if pipe.table_kind != "routed-displaced" or pipe.layout != "packed":
         fail(f"routed: resolved to {pipe.table_kind}, layout {pipe.layout}")
     sh, mesh, tabs = pipe._sharded, pipe._mesh, pipe._tables
+    base["routed_displaced"] = sh  # phase 19 runs it on a (2, 4) mesh
     log(f"routed: ShardedDisplacedIndex.build ({S} shards) and the copy to the card "
         f"in {place_s:.1f} s; nseed {sh.nseed}, t1 {tuple(sh.t1.shape)}, seeds "
         f"{tuple(sh.seeds.shape)}, t3 {tuple(sh.t3.shape)}")
@@ -1600,15 +1690,146 @@ def phase_sharded(dev, base: dict):
 
     t = time.perf_counter()
     drive("dryrun_multichip(8) on one card",
-          ("ascii_pack", "bsearch_probe_shard", "label_histogram"),
+          ("ascii_pack", "bsearch_probe_shard", "label_histogram", "route_displaced",
+           "canonical_owner_probe", "routed_canonical_finish", "owner_probe",
+           "routed_finish"),
           lambda: dryrun.dryrun_multichip(8, shard_devices=[dev] * 8))
     log(f"dryrun_multichip(8), every shard on this card: every block ran and agreed "
         f"({time.perf_counter() - t:.1f} s)")
     return rows, stats
 
 
+def canonical_arrays(t: dict, wide: bool):
+    """A ladder already on the card ({"c1", "c2", "c3"}) back as the
+    CanonicalHashArrays it was placed from, without placing it again; the
+    slot counts from the row widths, the entries counted from the slots."""
+    from utree_tpu_torch.hash_index import CanonicalHashArrays
+
+    cps = 4 if wide else 3
+    t1, t2, t3 = (t[k].cpu().numpy() for k in ("c1", "c2", "c3"))
+    ne = sum(int((a.reshape(-1, cps)[:, 2:] != 0).any(1).sum()) for a in (t1, t2, t3))
+    return CanonicalHashArrays(t1=t1, t2=t2, t3=t3, slots=t1.shape[1] // cps,
+                               slots2=t2.shape[1] // cps, slots3=t3.shape[1] // cps,
+                               num_entries=ne)
+
+
+def phase_routed_canonical(dev, base: dict) -> tuple[list[dict], dict]:
+    """Phase 19: phase 6's ladder sharded ROUTED_SHARDS ways by t1 bucket
+    range, every shard on the one card: K11 at b1, K17, K18 against their
+    plain versions; the routed canonical step over all the reads on (1, 4)
+    equal to the single-device rows, its fallback at capacity 8, both steps
+    and phase 15's displaced ones on (2, 4); then a ladder of phase 7's wide
+    2M tier through the _wide entry points, held to the single device and
+    to CPU shards."""
+    import numpy as np
+    import torch
+
+    from utree_tpu_torch import lookup
+    from utree_tpu_torch.hash_index import build_canonical_hash_index, canonical_to_device
+    from utree_tpu_torch.parallel import routed as R
+    from utree_tpu_torch.parallel.mesh import make_mesh
+
+    index, reads, S = base["index"], base["reads"], ROUTED_SHARDS
+    ladder = base["k32_tables"]["c1"]
+    t = time.perf_counter()
+    sh = R.ShardedCanonicalIndex.from_canonical(canonical_arrays(ladder, False), S)
+    m14, m24 = make_mesh(1, S, [dev] * S), make_mesh(2, S, [dev] * 2 * S)
+    tabs = sh.to_devices(m14)
+    tabs24 = tabs * 2  # (2, 4) in mesh order d*S + s: both data rows share the copies
+    log(f"routed canonical: phase 6's ladder to {S} shards on the card in "
+        f"{time.perf_counter() - t:.1f} s; b1 {sh.b1}, t1 {tuple(sh.t1.shape)}, "
+        f"t2 {tuple(sh.t2.shape)}, t3 {tuple(sh.t3.shape)}")
+    rows = routed_checks(sh, tabs, m14, *batch_tensors(dev, reads),
+                                   "routed canonical")
+
+    kw = dict(do_rc=True, num_labels=index.num_labels, cap=HIST_CAP,
+              bad_ix=index.config.bad_ix)
+    bad = min(index.config.bad_ix, 0x7FFFFFFF)
+    batches = [batch_tensors(dev, reads, i) for i in range(0, len(reads), BATCH)]
+    single = [lookup.search_step_hist_packed(ladder, *bt, do_rc=True, bad_ix=bad,
+                                             num_labels=index.num_labels, cap=HIST_CAP)
+              for bt in batches]
+
+    def run_all(step, tables, tag: str, expect, oflo: int = 0):
+        """Every batch through `step`; the overflow column must be `oflo` and,
+        where it is 0, the rows the single-device ladder's."""
+        got = drive(tag, expect, lambda: [torch.cat(step(tables, *bt)) for bt in batches])
+        for g, want in zip(got, single):
+            if g.shape[1] == HIST_CAP + 2:
+                if not (g[:, -1] == oflo).all():
+                    fail(f"{tag}: overflow column {int(g[0, -1])}, expected {oflo}")
+                g = g[:, :-1]
+            if not oflo and not torch.equal(g, want):
+                fail(f"{tag}: rows differ from the single-device ladder's")
+        rps = len(reads) / timed_step(lambda: [step(tables, *bt) for bt in batches])
+        log(f"{tag}: {len(reads)} reads in {len(batches)} batches, overflow column "
+            f"{oflo}" + ("" if oflo else ", rows equal the single-device ladder's "
+                         "(search_step_hist_packed)")
+            + f"; {rps:,.0f} reads/s (device work only, best of 3, host clock)")
+        return rps
+
+    canon = ("route_displaced", "canonical_owner_probe", "routed_canonical_finish",
+             "histogram_packed")
+    disp = ("route_displaced", "owner_probe", "routed_finish", "histogram_packed")
+    stats = {"reads_per_s": run_all(R.routed_canonical_search_step(m14, sh, **kw), tabs,
+                                    f"routed canonical (1, {S})", canon)}
+    run_all(R.routed_canonical_search_step(m14, sh, capacity=8, **kw), tabs,
+            f"routed canonical (1, {S}) capacity 8", canon, oflo=S)
+    stats["fallback_reads_per_s"] = run_all(R.routed_fallback_step(m14, sh, **kw), tabs,
+                                            f"routed canonical fallback (1, {S})", canon)
+    # the (data, table) mesh: both canonical steps and phase 15's displaced ones
+    stats["reads_per_s_2x4"] = run_all(R.routed_canonical_search_step(m24, sh, **kw),
+                                       tabs24, f"routed canonical (2, {S})", canon)
+    run_all(R.routed_fallback_step(m24, sh, **kw), tabs24,
+            f"routed canonical fallback (2, {S})", canon)
+    dsh = base["routed_displaced"]
+    dtabs = dsh.to_devices(m24)
+    run_all(R.routed_displaced_search_step(m24, dsh, **kw), dtabs,
+            f"routed displaced (2, {S})", disp)
+    run_all(R.routed_displaced_fallback_step(m24, dsh, **kw), dtabs,
+            f"routed displaced fallback (2, {S})", disp)
+    del dtabs, tabs, tabs24
+
+    # wide labels: a ladder of phase 7's 2M tier (IXTYPE=u32)
+    windex, genome, _ = make_tier(WIDE_DISPLACED_KMERS, WIDE_LABELS, ixtype_bytes=4)
+    canon = build_canonical_hash_index(windex)
+    wladder = canonical_to_device(canon, dev)
+    wsh = R.ShardedCanonicalIndex.from_canonical(canon, S)
+    if not wsh.wide:
+        fail("routed canonical wide: the 70,000-label ladder is not wide")
+    wtabs = wsh.to_devices(m14)
+    wbatch = batch_tensors(dev, make_reads(genome, np.random.default_rng(19), BATCH))
+    rows += routed_checks(wsh, wtabs, m14, *wbatch, "routed canonical wide")
+    wkw = dict(do_rc=True, num_labels=windex.num_labels, cap=HIST_CAP,
+               bad_ix=windex.config.bad_ix)
+    wstep = R.routed_canonical_search_step(m14, wsh, **wkw)
+    got = drive("routed canonical wide step",
+                ("route_displaced", "canonical_owner_probe_wide",
+                 "routed_canonical_finish_wide", "histogram_packed"),
+                lambda: torch.cat(wstep(wtabs, *wbatch)))
+    want = lookup.search_step_hist_packed(wladder, *wbatch, do_rc=True, bad_ix=0x7FFFFFFF,
+                                          num_labels=windex.num_labels, cap=HIST_CAP)
+    if int(got[0, -1]) != 0 or not torch.equal(got[:, :-1], want):
+        fail("routed canonical wide step: rows differ from the single-device ladder's")
+    cpu = make_mesh(1, S, ["cpu"] * S)
+    sub = [x[:WIDE_ROUTED_CHECK].cpu() for x in wbatch]
+    cwant = torch.cat(R.routed_canonical_search_step(cpu, wsh, **wkw)(wsh.to_devices(cpu), *sub))
+    if not torch.equal(got[:WIDE_ROUTED_CHECK].cpu(), cwant):
+        fail("routed canonical wide step: the card's rows differ from the CPU shards' "
+             f"(first {WIDE_ROUTED_CHECK} reads)")
+    stats["wide_reads_per_s"] = BATCH / timed_step(lambda: wstep(wtabs, *wbatch))
+    hits = int(((got[:, 0] & 0xFFFF) != 0).sum())
+    log(f"routed canonical wide step: {windex.num_labels} labels, rows equal the "
+        f"single-device ladder's and, for the first {WIDE_ROUTED_CHECK} reads, the CPU "
+        f"shards'; {hits} of {BATCH} reads hit; {stats['wide_reads_per_s']:,.0f} reads/s "
+        "(device work only, best of 3, host clock)")
+    log("routed canonical: no pipeline or CLI path reaches these steps (as in "
+        "utree_tpu), so they have no end-to-end rate")
+    return rows, stats
+
+
 def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
-    """Phases 3-14 on `dev`; returns what main() checks and prints."""
+    """Phases 3-19 on `dev`; returns what main() checks and prints."""
     from utree_tpu_torch.classify_device import (aufbau_tables_to_device,
                                                  build_aufbau_tables)
     from utree_tpu_torch.hash_index import displaced_to_device
@@ -1674,13 +1895,18 @@ def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
     sharded_rows, sharded = phase_sharded(dev, base)
     kern += sharded_rows
     secs["sharded"] = time.perf_counter() - t
-    log("phases 15-18 took " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    t = time.perf_counter()
+    rc_rows, routed_canonical = phase_routed_canonical(dev, base)
+    kern += rc_rows
+    secs["routed canonical"] = time.perf_counter() - t
+    log("phases 15-19 took " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
     for k in kern:
         k["launches"] = PATH_LAUNCHES.get(k["name"], 0)
     return {"kernels": kern, "displaced_rps": best, "ladder": ladder,
             "wide": wide, "long": long, "bsearch": bsearch, "k64": k64,
             "compact": compact, "xtree": xtree, "hash": hashed,
-            "shallow": shallow, "routed": routed, "dp": dp, "sharded": sharded}
+            "shallow": shallow, "routed": routed, "dp": dp, "sharded": sharded,
+            "routed_canonical": routed_canonical}
 
 
 def main() -> int:
@@ -1755,7 +1981,11 @@ def main() -> int:
         f"replicated (2, 1) {res['sharded']['replicated_reads_per_s']:,.0f}, "
         f"prefix-sharded (2, 4) {res['sharded']['sharded_2x4_reads_per_s']:,.0f}, "
         f"(1, 8) {res['sharded']['sharded_1x8_reads_per_s']:,.0f} reads/s, long-read "
-        f"histogram (4, 2) {res['sharded']['long_bases_per_s']:,.0f} bases/s; on {card}")
+        f"histogram (4, 2) {res['sharded']['long_bases_per_s']:,.0f} bases/s; routed "
+        f"canonical (one card, device work) (1, {ROUTED_SHARDS}) "
+        f"{res['routed_canonical']['reads_per_s']:,.0f}, its fallback "
+        f"{res['routed_canonical']['fallback_reads_per_s']:,.0f}, wide "
+        f"{res['routed_canonical']['wide_reads_per_s']:,.0f} reads/s; on {card}")
     print(json.dumps({"kernels": res["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -884,3 +884,139 @@ def test_sharded_steps_on_one_card_equal_cpu(tier, k32, dev):
         cm.replicate(ctab), torch.from_numpy(chunks), torch.from_numpy(clens))
     assert torch.equal(got.cpu(), want) and int(want.sum()) > 10_000
     dryrun.dryrun_multichip(8, shard_devices=[dev] * 8)
+
+
+# ---- K11 at b1, K17, K18: the routed canonical-table steps ----------------------
+
+@pytest.fixture(scope="module")
+def routed_canon(dev):
+    """The 40,000-k-mer tier's ladder (default and chain geometry, narrow)
+    and the wide tier's (default and chain), each sharded 4 ways; the
+    shard tables on the card as a (1, 4) and a (2, 4) mesh and on CPU."""
+    from utree_tpu_torch.parallel.mesh import make_mesh
+    from utree_tpu_torch.parallel.routed import ShardedCanonicalIndex
+
+    index, genome, _ = make_tier(40_000, 64)
+    widx, wgenome, _ = _wide_tier(40_000, 64)
+    out = {"genome": genome, "wgenome": wgenome}
+    for kind, ix in (("narrow", index), ("wide", widx)):
+        for geometry in ("default", "chain"):
+            sh = ShardedCanonicalIndex.from_canonical(_ladder(ix, geometry), 4)
+            assert sh.wide == (kind == "wide")
+            out[(kind, geometry)] = (sh, ix.num_labels)
+    out["meshes"] = {shape: (make_mesh(*shape, [dev] * (shape[0] * 4)),
+                             make_mesh(*shape, ["cpu"] * (shape[0] * 4)))
+                     for shape in ((1, 4), (2, 4))}
+    return out
+
+
+@pytest.mark.parametrize("capacity", ["auto", "overflow", "fallback"])
+def test_k11_route_at_b1_matches_plain(routed_canon, dev, capacity):
+    """K11 with nseed = b1 (the canonical t1 bucket): four owners at the
+    step's capacity and at capacity 8, and the fallback's one-shard pass."""
+    from utree_tpu_torch.parallel import routed as R
+
+    sh = routed_canon[("narrow", "default")][0]
+    packed, vbits, lens = _packed_reads(routed_canon["genome"], 3000, 47, dev, padded=7)
+    n, w = packed.shape[0], packed.shape[1] * 4 - 31
+    S, cap = {"auto": (4, max(128, -(-n * w // 4 // 128) * 128)), "overflow": (4, 8),
+              "fallback": (1, n * w)}[capacity]
+    kw = dict(nseed=sh.b1, num_shards=S, capacity=cap)
+    n0 = kernels.launches["route_displaced"]
+    got = R.route_displaced(packed, vbits, lens, **kw)
+    assert kernels.launches["route_displaced"] == n0 + 1
+    want = R.route_displaced_plain(*_on_cpu(packed, vbits, lens), **kw)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    assert int(want[2][S]) == (capacity == "overflow")
+
+
+@pytest.mark.parametrize("geometry", ["default", "chain"])
+@pytest.mark.parametrize("kind", ["narrow", "wide"])
+def test_k17_k18_match_plain(routed_canon, dev, kind, geometry):
+    """K17 on each owner's receive buffer (base 0) and on the fallback's
+    lanes (base s*b1/4); K18 on the records and the replies, RC on and
+    off, on tier A's ladder (a small c2, the c3 sentinel) and on the chain
+    (c2 and c3 in use)."""
+    from utree_tpu_torch.parallel import routed as R
+
+    sh, _ = routed_canon[(kind, geometry)]
+    wide, per = sh.wide, sh.b1 // 4
+    genome = routed_canon["wgenome" if wide else "genome"]
+    packed, vbits, lens = _packed_reads(genome, 2000, 53, dev, padded=3)
+    b, w = packed.shape[0], packed.shape[1] * 4 - 31
+    send, rec, _ = R.route_displaced(packed, vbits, lens, nseed=sh.b1, num_shards=4,
+                                     capacity=b * w // 8)
+    glanes = R.route_displaced(packed, vbits, lens, nseed=sh.b1, num_shards=1,
+                               capacity=b * w)[0].reshape(-1, 3)
+    t1 = [torch.from_numpy(sh.t1[s]) for s in range(4)]
+    name = "canonical_owner_probe" + ("_wide" if wide else "")
+    for s in range(4):
+        for lanes, base in ((send[s], 0), (glanes, s * per)):
+            n0 = kernels.launches[name]
+            got = R.canonical_owner_probe(t1[s].to(dev), lanes.contiguous(), base=base,
+                                          per_shard=per, wide=wide)
+            assert kernels.launches[name] == n0 + 1
+            want = R.canonical_owner_probe_plain(t1[s], lanes.cpu(), base=base,
+                                                 per_shard=per, wide=wide)
+            assert torch.equal(got.cpu(), want)
+    reply = torch.stack([R.canonical_owner_probe(t1[o].to(dev), send[o].contiguous(),
+                                                 base=0, per_shard=per, wide=wide)
+                         for o in range(4)])
+    t2, t3 = torch.from_numpy(sh.t2), torch.from_numpy(sh.t3)
+    name = "routed_canonical_finish" + ("_wide" if wide else "")
+    bad = 0x7FFFFFFF if wide else BAD
+    for do_rc in (True, False):
+        kw = dict(b=b, w=w, do_rc=do_rc, bad_ix=bad, wide=wide)
+        n0 = kernels.launches[name]
+        got = R.routed_canonical_finish(rec, reply.contiguous(), t2.to(dev), t3.to(dev), **kw)
+        assert kernels.launches[name] == n0 + 1
+        want = R.routed_canonical_finish_plain(rec.cpu(), reply.cpu(), t2, t3, **kw)
+        assert torch.equal(got.cpu(), want) and int((want < bad).sum()) > 100
+
+
+@pytest.mark.parametrize("case", ["1x4", "2x4", "2x4-cap8", "2x4-chain", "1x4-wide"])
+def test_routed_canonical_steps_on_one_card_equal_cpu(routed_canon, dev, case):
+    """The routed canonical step and its fallback with every shard on the
+    one card equal the same steps on CPU shards, every int32; on (2, 4)
+    the repaired displaced steps of the same tier too."""
+    from utree_tpu_torch.parallel import routed as R
+
+    kind = "wide" if "wide" in case else "narrow"
+    sh, nl = routed_canon[(kind, "chain" if "chain" in case else "default")]
+    shape = (2, 4) if case.startswith("2x4") else (1, 4)
+    gm, cm = routed_canon["meshes"][shape]
+    capacity = 8 if "cap8" in case else None
+    genome = routed_canon["wgenome" if kind == "wide" else "genome"]
+    packed, vbits, lens = _packed_reads(genome, 1000, 59, dev)
+    kw = dict(do_rc=True, num_labels=nl, cap=8, bad_ix=0x7FFFFFFF if kind == "wide" else BAD)
+
+    def run(mesh, args):
+        tabs = sh.to_devices(mesh)
+        return [torch.cat([o.cpu() for o in R.routed_canonical_search_step(
+                    mesh, sh, capacity=capacity, **kw)(tabs, *args)]),
+                torch.cat([o.cpu() for o in R.routed_fallback_step(mesh, sh, **kw)(
+                    tabs, *args)])]
+
+    n0 = {k: kernels.launches[k] for k in kernels.KERNELS}
+    gpu = run(gm, (packed, vbits, lens))
+    sfx = "_wide" if kind == "wide" else ""
+    for k in ("route_displaced", "canonical_owner_probe" + sfx,
+              "routed_canonical_finish" + sfx, "histogram_packed"):
+        assert kernels.launches[k] > n0[k]
+    cpu = run(cm, _on_cpu(packed, vbits, lens))
+    assert all(torch.equal(a, b) for a, b in zip(gpu, cpu))
+    assert int(gpu[0][0, -1]) == (shape[0] * 4 if capacity else 0)
+    if capacity is None:
+        assert torch.equal(gpu[0][:, :-1], gpu[1])
+    if case == "2x4":
+        from utree_tpu_torch.parallel.routed import ShardedDisplacedIndex
+
+        index, _, _ = make_tier(40_000, 64)
+        dsh = ShardedDisplacedIndex.build(index, 4)
+        for mesh, args in ((gm, (packed, vbits, lens)), (cm, _on_cpu(packed, vbits, lens))):
+            tabs = dsh.to_devices(mesh)
+            dout = torch.cat([o.cpu() for o in R.routed_displaced_search_step(
+                mesh, dsh, **kw)(tabs, *args)])
+            dfb = torch.cat([o.cpu() for o in R.routed_displaced_fallback_step(
+                mesh, dsh, **kw)(tabs, *args)])
+            assert torch.equal(dout, gpu[0]) and torch.equal(dfb, gpu[1])

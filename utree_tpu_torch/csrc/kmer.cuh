@@ -1,7 +1,8 @@
 // The front half shared by the probe kernels (K1 scan_probe, K4
 // ladder_probe, K7 bsearch_probe, K9 xtree_probe, K10 hash_probe, and the
-// routed shards' K11-K13; K7 takes window_at and rev2 only, K10 those and
-// mix32, K12 displaced_t1, K13 t3_tail and write_ids): one (read, window) -> its
+// routed shards' K11-K13, K17, K18; K7 takes window_at and rev2 only, K10
+// those and mix32, K12 displaced_t1, K13 t3_tail and write_ids, K17
+// probe_row, K18 c2_tail, t3_tail and write_ids): one (read, window) -> its
 // canonical 32-mer key, the 32-bit mixes the table placement uses, the slot
 // compare over one gathered row, the displaced-table probe, and the
 // dual-value decode into per-window label ids.
@@ -138,16 +139,32 @@ __device__ __forceinline__ Raw displaced_t1(const Key& k, uint32_t bkt, const in
   return probe_row<CPS>(d1 + static_cast<int64_t>(slot >> 1) * 2 * CPS, 2, k);
 }
 
-// The cached spill tail (_displaced_t3_tail): on a miss, one d3 row, unless
-// d3 is the 8-row "absent" sentinel.
+// The tails update `r` in place: taking and returning a Raw by value gave
+// K4 a longer, slower schedule than the same lines written inline, whose
+// SASS this form reproduces.
+//
+// The ladder's second level (lookup_kmers_canonical's c2 line, the routed
+// canonical steps' _tail_probe): on a miss, one c2 row at the key's c2
+// bucket, unless c2 is the 8-row "absent" sentinel.
 template <int CPS>
-__device__ __forceinline__ Raw t3_tail(Raw r, const Key& k, const int32_t* d3, int64_t n3,
-                                       int32_t s3) {
+__device__ __forceinline__ void c2_tail(Raw& r, const Key& k, const int32_t* c2, int64_t n2,
+                                        int32_t s2) {
+  if (r.miss() && n2 > 8) {
+    uint32_t b2 = mix32(k.pre, k.hi8, k.lo ^ 0x5BD1E995u) & static_cast<uint32_t>(n2 - 1);
+    r = probe_row<CPS>(c2 + static_cast<int64_t>(b2) * CPS * s2, s2, k);
+  }
+}
+
+// The cached spill tail (_displaced_t3_tail; the ladder's c3 level and the
+// routed canonical steps' t3, whose bucket is the same mix): on a miss, one
+// d3 row, unless d3 is the 8-row "absent" sentinel.
+template <int CPS>
+__device__ __forceinline__ void t3_tail(Raw& r, const Key& k, const int32_t* d3, int64_t n3,
+                                        int32_t s3) {
   if (r.miss() && n3 > 8) {
     uint32_t b3 = mix32(k.pre, k.hi8, k.lo ^ 0x27D4EB2Fu) & static_cast<uint32_t>(n3 - 1);
     r = probe_row<CPS>(d3 + static_cast<int64_t>(b3) * CPS * s3, s3, k);
   }
-  return r;
 }
 
 // One probe of the seeded-displacement table (displaced_probe_raw): the
@@ -158,7 +175,9 @@ __device__ __forceinline__ Raw displaced_probe(const Key& k, const int32_t* d1,
                                                int64_t nseed, const int32_t* d3,
                                                int64_t n3, int32_t s3) {
   uint32_t bkt = fold_hash(k) & static_cast<uint32_t>(nseed - 1);
-  return t3_tail<CPS>(displaced_t1<CPS>(k, bkt, d1, nslots, ds), k, d3, n3, s3);
+  Raw r = displaced_t1<CPS>(k, bkt, d1, nslots, ds);
+  t3_tail<CPS>(r, k, d3, n3, s3);
+  return r;
 }
 
 // Decode one window's raw value and write its ids: with RC [ix_a | ix_b]

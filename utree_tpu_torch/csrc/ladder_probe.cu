@@ -5,7 +5,8 @@
 // Replaces (utree_tpu/lookup.py): canonical_buckets :262, canonical_bucket3
 // :281 and lookup_kmers_canonical :349 (both branches), with the shared
 // front half of kmer.cuh (windows, canonical keys, mixes, slot compare,
-// decode) as _packed_window_ix and _canonical_family_ix compose them.
+// decode; the c2 and c3 levels are kmer.cuh's c2_tail and t3_tail, which
+// K18 shares) as _packed_window_ix and _canonical_family_ix compose them.
 //
 // Bound: one random c1 row per valid window (tier A: 2 slots, 24 B narrow
 // or 32 B wide, one sector), plus a c2 row for the windows whose key c1 does
@@ -52,18 +53,8 @@ __global__ void ladder_probe_kernel(
     uint32_t b1 = kmer::fold_hash(k) & static_cast<uint32_t>(c1.nrows - 1);
     r = kmer::probe_row<CPS>(c1.rows + static_cast<int64_t>(b1) * CPS * c1.slots,
                              c1.slots, k);
-    if (r.miss() && c2.nrows > 8) {
-      uint32_t b2 = kmer::mix32(k.pre, k.hi8, k.lo ^ 0x5BD1E995u) &
-                    static_cast<uint32_t>(c2.nrows - 1);
-      r = kmer::probe_row<CPS>(c2.rows + static_cast<int64_t>(b2) * CPS * c2.slots,
-                               c2.slots, k);
-    }
-    if (r.miss() && c3.nrows > 8) {
-      uint32_t b3 = kmer::mix32(k.pre, k.hi8, k.lo ^ 0x27D4EB2Fu) &
-                    static_cast<uint32_t>(c3.nrows - 1);
-      r = kmer::probe_row<CPS>(c3.rows + static_cast<int64_t>(b3) * CPS * c3.slots,
-                               c3.slots, k);
-    }
+    kmer::c2_tail<CPS>(r, k, c2.rows, c2.nrows, c2.slots);
+    kmer::t3_tail<CPS>(r, k, c3.rows, c3.nrows, c3.slots);
   }
   kmer::write_ids<CPS>(out, b, W, w, valid, fwd_le, r, do_rc, bad_ix);
 }

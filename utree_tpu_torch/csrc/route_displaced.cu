@@ -8,6 +8,11 @@
 // displaced_bucket_jnp, owner and local bucket, each lane's rank among the
 // valid lanes of its owner, the (S, C, 3) scatter with mode="drop", the
 // overflow test), with kmer.cuh's window_at, canonical and fold_hash.
+// The routed canonical steps call it with nseed = b1: the same fold, masked
+// to a power of two, is the canonical t1 bucket (canonical_buckets,
+// utree_tpu/lookup.py:262-279), so it also replaces the data side of
+// _routed_probe_t1 :121-150 and the lane set-up of
+// routed_canonical_search_step :185-198.
 // Output, for P = B*W lanes p = b*W + w:
 //   send   (S, C, 3) int32: (local bucket, key_lo, key_hi) of the lane of
 //          rank r in block (owner, r); unwritten slots stay 0;

@@ -9,13 +9,14 @@
                                the prefix-sharded step, the replicated step
                                on the bsearch and the canonical tables, the
                                sequence-parallel long-read histogram, the
-                               routed displaced step and its fallback, and
-                               `SearchPipeline(devices=n)` against one device.
+                               routed canonical-table step and its fallback,
+                               the routed displaced step and its fallback,
+                               and `SearchPipeline(devices=n)` against one
+                               device.
 
 Each block is held to the single-device step or to its fallback and raises
-AssertionError where they differ.  The routed canonical-table block of
-`__graft_entry__.py` (:133-155) is not run: those steps are still to port
-(ROADMAP, queue B row 17c).
+AssertionError where they differ; the routed displaced rows must equal the
+routed canonical rows, as `__graft_entry__.py` (:177) asserts.
 """
 
 from __future__ import annotations
@@ -74,12 +75,14 @@ def dryrun_multichip(n_devices: int, device="cuda", shard_devices=None) -> None:
     from utree_tpu_torch.hash_index import (bsearch_to_device, build_canonical_hash_index,
                                             canonical_to_device)
     from utree_tpu_torch.lookup import pack_reads_host, search_step
-    from utree_tpu_torch.parallel import (ShardedIndex, ShardMesh, long_read_histogram,
-                                          make_mesh, replicated_search_step,
-                                          sharded_search_step, split_long_read)
-    from utree_tpu_torch.parallel.routed import (ShardedDisplacedIndex,
-                                                 routed_displaced_fallback_step,
-                                                 routed_displaced_search_step)
+    from utree_tpu_torch.parallel import (ShardedCanonicalIndex, ShardedDisplacedIndex,
+                                          ShardedIndex, long_read_histogram, make_mesh,
+                                          replicated_search_step,
+                                          routed_canonical_search_step,
+                                          routed_displaced_fallback_step,
+                                          routed_displaced_search_step,
+                                          routed_fallback_step, sharded_search_step,
+                                          split_long_read)
     from utree_tpu_torch.pipeline import SearchPipeline
 
     n = n_devices
@@ -117,7 +120,8 @@ def dryrun_multichip(n_devices: int, device="cuda", shard_devices=None) -> None:
           "the replicated step (bsearch)")
 
     # pure DP with the canonical fast-path table
-    canon = canonical_to_device(build_canonical_hash_index(index), home)
+    canon_arrays = build_canonical_hash_index(index)
+    canon = canonical_to_device(canon_arrays, home)
     out2c = replicated_search_step(mesh, index, do_rc=False)(mesh.replicate(canon), r, ln)
     _same(out2c, search_step(canon, r.to(home), ln.to(home), do_rc=False, **kw),
           "the replicated step (canonical)")
@@ -131,18 +135,30 @@ def dryrun_multichip(n_devices: int, device="cuda", shard_devices=None) -> None:
     if hist.shape != (index.num_labels,):
         raise AssertionError(f"dryrun: long-read histogram of shape {tuple(hist.shape)}")
 
-    # routed displaced shards over the first table row, and their fallback
-    row = ShardMesh(devs[:table_axis])
-    dsharded = ShardedDisplacedIndex.build(index, table_axis)
-    dtables = dsharded.to_devices(row)
+    # routed canonical hash over the whole mesh, and its fallback
+    rsharded = ShardedCanonicalIndex.from_canonical(canon_arrays, table_axis)
+    rtables = rsharded.to_devices(mesh)
     packed = [torch.from_numpy(a) for a in pack_reads_host(reads, lens)]
     rk = dict(do_rc=True, num_labels=index.num_labels, cap=8, bad_ix=cfg.bad_ix)
+    rout = torch.cat([o.to(home) for o in routed_canonical_search_step(
+        mesh, rsharded, **rk)(rtables, *packed)])
+    if rout.shape != (reads.shape[0], 10):
+        raise AssertionError(f"dryrun: routed canonical rows of shape {tuple(rout.shape)}")
+    fout = torch.cat([o.to(home) for o in routed_fallback_step(
+        mesh, rsharded, **rk)(rtables, *packed)])
+    _same(rout[:, :-1], fout, "the routed canonical step's fallback")
+
+    # routed displaced shards over the whole mesh, and their fallback
+    dsharded = ShardedDisplacedIndex.build(index, table_axis)
+    dtables = dsharded.to_devices(mesh)
     dout = torch.cat([o.to(home) for o in routed_displaced_search_step(
-        row, dsharded, **rk)(dtables, *packed)])
+        mesh, dsharded, **rk)(dtables, *packed)])
     if dout.shape != (reads.shape[0], 10):
         raise AssertionError(f"dryrun: routed rows of shape {tuple(dout.shape)}")
-    dfout = routed_displaced_fallback_step(row, dsharded, **rk)(dtables, *packed)[0]
+    dfout = torch.cat([o.to(home) for o in routed_displaced_fallback_step(
+        mesh, dsharded, **rk)(dtables, *packed)])
     _same(dout[:, :-1], dfout, "the routed step's fallback")
+    _same(dout[:, :-1], rout[:, :-1], "the routed displaced step (canonical rows)")
 
     # the product pipeline over the devices against one device, through
     # search_file on a FASTA of the same reads

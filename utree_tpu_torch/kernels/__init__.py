@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the search step and of xtree ALIGN, and
 their launch counts.
 
-Sixteen kernels in twenty-two entry points (sources in `utree_tpu_torch/csrc/`):
+Eighteen kernels in twenty-six entry points (sources in `utree_tpu_torch/csrc/`):
 
   K14 ascii_pack          ASCII reads -> packed reads + validity bits, or
                           append_rc's layout         (lookup.ascii_pack)
@@ -19,11 +19,18 @@ Sixteen kernels in twenty-two entry points (sources in `utree_tpu_torch/csrc/`):
   K9 xtree_probe          ASCII queries -> xtree seeds and prefix bins
                           (xtree.device.xtree_step)
   K11 route_displaced     packed reads -> routed lanes, send buffer, owner
-                          counts                (parallel.routed.route_displaced)
+                          counts, for both routed tables
+                          (parallel.routed.route_displaced)
   K12 owner_probe[_wide]  routed lanes -> raw values in one shard's table
                           slice                 (parallel.routed.owner_probe)
   K13 routed_finish[_wide] lane records + routed values -> ids
                           (parallel.routed.routed_finish)
+  K17 canonical_owner_probe[_wide] routed lanes -> raw values in one
+                          shard's canonical t1 slice
+                          (parallel.routed.canonical_owner_probe)
+  K18 routed_canonical_finish[_wide] lane records + routed values -> ids
+                          through the replicated c2/c3 tail
+                          (parallel.routed.routed_canonical_finish)
   K15 bsearch_probe_shard packed reads -> where(found, ix, 0) and found in one
                           prefix slice of the records
                           (parallel.sharded.shard_probe)
@@ -45,7 +52,9 @@ KERNELS = ("ascii_pack", "scan_probe", "scan_probe_wide", "ladder_probe",
            "histogram", "histogram_packed", "histogram_unpacked", "hist_compact",
            "aufbau_vote", "xtree_probe", "route_displaced", "owner_probe",
            "owner_probe_wide", "routed_finish", "routed_finish_wide",
-           "bsearch_probe_shard", "label_histogram")
+           "bsearch_probe_shard", "label_histogram", "canonical_owner_probe",
+           "canonical_owner_probe_wide", "routed_canonical_finish",
+           "routed_canonical_finish_wide")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

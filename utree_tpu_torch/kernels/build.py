@@ -40,6 +40,8 @@ _LADDER = [P, P, P, I64, I64, I64, I32,
 _HIST_ROWS = [P, I64, I32, I32, I32, P, P]  # ids, B, n, num_labels, cap, rows, stream
 _OWNER = [P, I64, I64, I64, P, I64, P, P, P]
 _FINISH = [P, P, I64, I32, P, I64, I32, I32, I32, P, P]
+_CANON_OWNER = [P, I64, I64, I64, P, I32, P, P]
+_CANON_FINISH = [P, P, I64, I32, P, I64, I32, P, I64, I32, I32, I32, P, P]
 SIGNATURES = {
     "utree_scan_probe": _SCAN,
     "utree_scan_probe_wide": _SCAN,
@@ -88,6 +90,12 @@ SIGNATURES = {
     # rec, reply, B, W, d3, n3, s3, do_rc, bad_ix, out, stream
     "utree_routed_finish": _FINISH,
     "utree_routed_finish_wide": _FINISH,
+    # lanes, N, base, per_shard, t1, slots, out, stream
+    "utree_canonical_owner_probe": _CANON_OWNER,
+    "utree_canonical_owner_probe_wide": _CANON_OWNER,
+    # rec, reply, B, W, c2, n2, s2, c3, n3, s3, do_rc, bad_ix, out, stream
+    "utree_routed_canonical_finish": _CANON_FINISH,
+    "utree_routed_canonical_finish_wide": _CANON_FINISH,
 }
 
 

@@ -5,15 +5,15 @@ One process drives every shard, as `utree_tpu` drives every chip of its
 mesh from one controller.  A `ShardMesh` is an ordered list of D*T devices
 laid out as a (data, table) grid in row-major order, device d*T + t at
 (d, t), as `make_mesh` reshapes JAX's device list.  `SearchPipeline(
-devices=S)` and the routed shards build the (1, S) layout
-(utree_tpu/pipeline.py:144-148); the prefix-sharded steps of
-`parallel/sharded.py` take any (data, table) grid.  The collectives are
-copies between those devices: `all_to_all` moves block o of shard s's
-tensor into block s of shard o's, `psum` sums one tensor a device over
-the `data` axis, the `table` axis or both, onto every device it sums
-over, and `reduce` does the same sums onto the first device of each
-group only.  On a card the copies are peer copies, or copies within the
-card when shards share it; on the CPU they are memory copies.
+devices=S)` builds the (1, S) layout (utree_tpu/pipeline.py:144-148); the
+steps of `parallel/sharded.py` and `parallel/routed.py` take any (data,
+table) grid.  The collectives are copies between those devices:
+`all_to_all` over the `table` axis moves block o of the device at (d, s)
+into block s of the device at (d, o); `psum` sums one tensor a device
+over the `data` axis, the `table` axis or both, onto every device it sums
+over, and `reduce` does the same sums onto the first device of each group
+only.  On a card the copies are peer copies, or copies within the card
+when shards share it; on the CPU they are memory copies.
 """
 
 from __future__ import annotations
@@ -50,17 +50,24 @@ class ShardMesh:
         return [{k: v.to(dev) for k, v in table.items()} for dev in self.devices]
 
     def all_to_all(self, blocks: list[torch.Tensor]) -> list[torch.Tensor]:
-        """blocks[s] (S, C, ...) on shard s -> out[o] (S, C, ...) on shard o
-        with out[o][s] = blocks[s][o] (`jax.lax.all_to_all` with split and
-        concat axis 0, tiled=False), each block one `copy_` into a tensor
-        allocated on o's device."""
-        n = self.size
-        if len(blocks) != n or any(b.shape[0] != n for b in blocks):
-            raise ValueError(f"all_to_all takes {n} tensors of {n} blocks")
-        out = [torch.empty_like(blocks[0], device=dev) for dev in self.devices]
-        for s, src in enumerate(blocks):
-            for o in range(n):
-                out[o][s].copy_(src[o], non_blocking=True)
+        """`jax.lax.all_to_all` over "table" with split and concat axis 0,
+        tiled=False: within each data row g of `groups("table")` (of n
+        devices), blocks[i] (n, C, ...) -> out[i] (n, C, ...) with
+        out[g[o]][s] = blocks[g[s]][o], so block o of the device at (d, s)
+        goes to block s of the device at (d, o).  Each block is one `copy_`
+        into a tensor allocated on the receiver's device."""
+        if len(blocks) != self.size:
+            raise ValueError(f"all_to_all takes {self.size} tensors, got {len(blocks)}")
+        out = [None] * self.size
+        for group in self.groups("table"):
+            n = len(group)
+            if any(blocks[i].shape[0] != n for i in group):
+                raise ValueError(f"all_to_all takes tensors of {n} blocks")
+            for i in group:
+                out[i] = torch.empty_like(blocks[i], device=self.devices[i])
+            for s, src in enumerate(group):
+                for o, dst in enumerate(group):
+                    out[dst][s].copy_(blocks[src][o], non_blocking=True)
         return out
 
     def groups(self, axis=AXES) -> list[list[int]]:

@@ -30,7 +30,8 @@ Phases; each passes or the script exits non-zero:
    versions, a run end to end, and the host check;
 8. long reads: on the phase-6 ladder, 8192 short reads mixed with 16 long
    reads of 20 kbp to 1 Mbp (about 4.3 Mbp, 1% mutation); K2
-   histogram_packed against pack_hist at the largest read's chunk shape;
+   histogram_packed (its streamed branch) against pack_hist at each long
+   read's chunk shape (2-64 rows of 16,834-31,250 ids), timed at each;
    the whole output must equal the host path's; reads/s and bases/s;
 9. PACKSIZE=64 + IXTYPE=u32 (BASELINE config 4): bench's recipe at k=64
    (--kmers 64-mers, 70,000 labels); `auto` must resolve to the 64-mer
@@ -88,7 +89,8 @@ Phases; each passes or the script exits non-zero:
    (K15), RC on and off, equal to the single-device search_step; K15 on
    slice 0 of a 4-way ShardedIndex; the long-read histogram on a (4, 2)
    mesh over phase 8's long reads (K16) equal to bincounts of the
-   single-device ids; K16 at one device's chunk of the 1 Mbp read;
+   single-device ids; K16 at one device's chunk of the 1 Mbp read, timed
+   beside torch.bincount on the same ids;
    dryrun.dryrun_multichip(8) with the eight shards on the card (its routed
    blocks on the full (4, 2) mesh: K11-K13, K17, K18);
 19. routed canonical: phase 6's ladder sharded four ways by t1 bucket
@@ -135,6 +137,11 @@ CHECK_READS = 2048
 COMPACT_READS = 131_072  # phase 11's reads
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 SECTOR = 32  # bytes of one device-memory sector
+# device_ms: the device sleeps QUEUE_CYCLES (at least 50 ms at the H100's
+# 1.98 GHz top clock) while the host queues the calls; QUEUE_S is the most
+# queueing time trusted
+QUEUE_CYCLES = 100_000_000
+QUEUE_S = 0.025
 LONG_SHORT_READS = 8192
 LONG_READS = 16
 LONG_BP = (20_000, 1_000_000)  # shortest and longest long read
@@ -176,6 +183,32 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of fn() over iters runs after one warm-up run, the
+    runs queued while the device sleeps (QUEUE_CYCLES) so that they then
+    run back to back: unlike cuda_ms it leaves out the host's time to
+    enqueue each one, which sets cuda_ms where a call's device work is
+    shorter than its wrapper.  Fails if the host took too long to queue
+    them (or fn waits for the device)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    queued = time.perf_counter() - t
+    end.record()
+    torch.cuda.synchronize()
+    if queued > QUEUE_S:
+        fail(f"device_ms: queueing {iters} calls took {queued * 1e3:.1f} ms, more than "
+             f"the device's {QUEUE_S * 1e3:.0f} ms sleep")
+    return start.elapsed_time(end) / iters
+
+
 def max_abs_err(got, want) -> int:
     """Max |got - want| over paired integer tensors; fails if not equal."""
     import torch
@@ -205,27 +238,38 @@ def probe_bytes(packed, vbits, lens, ids, k: int, sectors: int) -> int:
     return nbytes(packed, vbits, lens, ids) + SECTOR * sectors * windows(lens, k)
 
 
-def check_kernel(name, source, replaces, kernel, plain, what: str, moved: int) -> dict:
+def check_kernel(name, source, replaces, kernel, plain, what: str, moved: int,
+                 library=None) -> dict:
     """One entry point against its plain version; both timed with CUDA
-    events.  `moved` is the bytes the function must move on these inputs
-    (inputs read once, outputs written once, one sector per table row or
-    record a valid window needs); its time at the card's memory rate is the
-    row's bound.  The work is integer compares and adds, a few per byte, far
-    under the card's operation rates, so bytes bound every kernel.  No
-    single PyTorch call computes any of these functions: library_ms is
-    null.  Returns its row of the kernels line."""
+    events (ms), the entry point also with its calls queued ahead of the
+    device (device_ms, no host time).  `moved` is the bytes the function
+    must move on these inputs (inputs read once, outputs written once, one
+    sector per table row or record a valid window needs); its time at the
+    card's memory rate is the row's bound.  The work is integer compares
+    and adds, a few per byte, far under the card's operation rates, so
+    bytes bound every kernel.
+    `library`, where PyTorch computes the same function (K16's bincount),
+    must give the kernel's values and is timed as library_ms; elsewhere no
+    PyTorch call computes it and library_ms is null.  Returns its row of
+    the kernels line."""
     got, want = kernel(), plain()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = max_abs_err(got, want)
-    ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+    ms, plain_ms, dev_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3), device_ms(kernel, 20)
+    library_ms, lib = None, ""
+    if library is not None:
+        max_abs_err(got, (library().to(got[0].dtype),))
+        library_ms = cuda_ms(library, 20)
+        lib = f", library {library_ms:.4f} ms"
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    log(f"kernel {name}: equal to plain at {what}; {ms:.4f} ms vs plain "
-        f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({moved:,} bytes)")
+    log(f"kernel {name}: equal to plain at {what}; {ms:.4f} ms ({dev_ms:.4f} on the "
+        f"device) vs plain {plain_ms:.4f} ms{lib}; bound {bound_ms:.4f} ms "
+        f"({moved:,} bytes)")
     return {"name": name, "route": "cuda", "source": f"utree_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None}
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": library_ms}
 
 
 def drive(path: str, expect, fn):
@@ -586,27 +630,53 @@ def phase_wide(dev, kmers: int, base: dict, work: pathlib.Path):
     return rows, stats
 
 
-def phase_long(dev, pipe, base: dict, work: pathlib.Path):
-    """Phase 8: long reads mixed with short ones on the phase-6 ladder."""
+def long_reads(genome) -> list[bytes]:
+    """Phase 8's LONG_READS long reads, LONG_BP[0] to LONG_BP[1] bp on a
+    geometric scale, sampled from the genome with 1% mutation (seed 8)."""
     import numpy as np
-    import torch
 
-    from utree_tpu_torch import lookup
-    from utree_tpu_torch.parallel.sharded import split_long_read
-    from utree_tpu_torch.search_host import search_file as host_search_file
-    from utree_tpu_torch.utils.trace import PhaseTimer
-
-    genome, index = base["genome"], base["index"]
     rng = np.random.default_rng(8)
     acgt = np.frombuffer(ACGT, np.uint8)
-    sizes = np.geomspace(*LONG_BP, LONG_READS).astype(np.int64)
     longs = []
-    for size in sizes:
+    for size in np.geomspace(*LONG_BP, LONG_READS).astype(np.int64):
         s = int(rng.integers(0, len(genome) - size))
         seq = genome[s:s + size].copy()
         mut = rng.random(size) < 0.01
         seq[mut] = rng.choice(acgt, int(mut.sum()))
         longs.append(seq.tobytes())
+    return longs
+
+
+def long_read_chunks(dev, seq: bytes, k: int, long_chunk: int):
+    """One long read cut and packed as SearchPipeline.classify_long_read
+    hands it to the histogram step: a power-of-two count of chunks of at
+    most `long_chunk` windows, padded to a multiple of 8 positions.
+    Returns (packed, vbits, lens) on `dev`."""
+    import numpy as np
+    import torch
+
+    from utree_tpu_torch import lookup
+    from utree_tpu_torch.parallel.sharded import split_long_read
+
+    n_chunks = 1
+    while n_chunks * long_chunk < len(seq) - k + 1:
+        n_chunks *= 2
+    chunks, clens = split_long_read(seq, n_chunks, k)
+    chunks = np.pad(chunks, ((0, 0), (0, (-chunks.shape[1]) % 8)))
+    return [torch.from_numpy(a).to(dev) for a in lookup.pack_reads_host(chunks, clens)]
+
+
+def phase_long(dev, pipe, base: dict, work: pathlib.Path):
+    """Phase 8: long reads mixed with short ones on the phase-6 ladder."""
+    import numpy as np
+
+    from utree_tpu_torch import lookup
+    from utree_tpu_torch.search_host import search_file as host_search_file
+    from utree_tpu_torch.utils.trace import PhaseTimer
+
+    genome, index = base["genome"], base["index"]
+    longs = long_reads(genome)
+    sizes = np.array([len(s) for s in longs], np.int64)
     base["long_reads"] = longs
     shorts = base["reads"][:LONG_SHORT_READS]
     every = LONG_SHORT_READS // LONG_READS
@@ -621,23 +691,37 @@ def phase_long(dev, pipe, base: dict, work: pathlib.Path):
     log(f"long reads: {LONG_READS} of {sizes.min():,}-{sizes.max():,} bp "
         f"({int(sizes.sum()):,} bp) among {LONG_SHORT_READS} short reads")
 
-    # histogram_packed at the largest read's chunk shape (the streamed branch)
-    k = index.config.packsize
-    n_chunks = 1
-    while n_chunks * pipe.long_chunk < len(longs[-1]) - k + 1:
-        n_chunks *= 2
-    chunks, clens = split_long_read(longs[-1], n_chunks, k)
-    chunks = np.pad(chunks, ((0, 0), (0, (-chunks.shape[1]) % 8)))
-    packed, vbits, lens = (torch.from_numpy(a).to(dev)
-                           for a in lookup.pack_reads_host(chunks, clens))
-    L = index.num_labels
-    ids = lookup.window_ids(pipe._tables[0], packed, vbits, lens, do_rc=True,
-                            bad_ix=0xFFFF, num_labels=L)
-    row = check_kernel("histogram_packed", "histogram.cu", "utree_tpu/lookup.py:811",
-                       lambda: lookup.histogram_packed(ids, L, HIST_CAP),
-                       lambda: lookup.pack_hist(ids, L, HIST_CAP),
-                       f"{n_chunks} chunks x {ids.shape[1]} ids",
-                       nbytes(ids, lookup.histogram_packed(ids, L, HIST_CAP)))
+    # histogram_packed at each long read's chunk shape (the streamed branch,
+    # 2-64 rows): equal to pack_hist at every shape and timed at each; the
+    # row is the 1 Mbp read's 64 chunks, with the 20 kbp read's 2 chunks
+    # checked the same way and every shape's time under "shapes"
+    k, L = index.config.packsize, index.num_labels
+    shapes, rows = [], {}
+    for i, seq in enumerate(longs):
+        ids = lookup.window_ids(pipe._tables[0], *long_read_chunks(dev, seq, k, pipe.long_chunk),
+                                do_rc=True, bad_ix=0xFFFF, num_labels=L)
+        out = lookup.histogram_packed(ids, L, HIST_CAP)
+        moved = nbytes(ids, out)
+        what = f"{len(seq):,} bp read: {ids.shape[0]} chunks x {ids.shape[1]} ids"
+        if i in (0, len(longs) - 1):
+            rows[i] = check_kernel("histogram_packed", "histogram.cu",
+                                   "utree_tpu/lookup.py:811",
+                                   lambda: lookup.histogram_packed(ids, L, HIST_CAP),
+                                   lambda: lookup.pack_hist(ids, L, HIST_CAP), what, moved)
+            ms, dms = rows[i]["ms"], rows[i]["device_ms"]
+        else:
+            max_abs_err((out,), (lookup.pack_hist(ids, L, HIST_CAP),))
+            ms = cuda_ms(lambda: lookup.histogram_packed(ids, L, HIST_CAP), 20)
+            dms = device_ms(lambda: lookup.histogram_packed(ids, L, HIST_CAP), 20)
+        shapes.append({"rows": ids.shape[0], "ids": ids.shape[1], "ms": ms,
+                       "device_ms": dms, "bound_ms": moved / HBM_BYTES_PER_S * 1e3})
+    del ids, out
+    row = rows[len(longs) - 1]
+    row["shapes"] = shapes
+    log("histogram_packed at phase 8's launch shapes (rows x ids: ms, device ms): "
+        + ", ".join(f"{s['rows']} x {s['ids']:,}: {s['ms']:.4f}, {s['device_ms']:.4f}"
+                    for s in shapes)
+        + f"; plain {rows[0]['plain_ms']:.4f} ms at the shortest read's shape")
     out_txt = work / "smoke_long.txt"
     pipe.tracer = PhaseTimer(quiet=True)
     t = time.perf_counter()
@@ -1686,7 +1770,10 @@ def phase_sharded(dev, base: dict):
         "label_histogram", "label_histogram.cu", "utree_tpu/parallel/sharded.py:215",
         lambda: S.label_histogram(ids0, L), lambda: S.label_histogram_plain(ids0, L),
         f"chunk 0 of 8 of the {len(seq):,} bp read, {ids0.numel():,} ids",
-        nbytes(ids0) + 4 * L))
+        nbytes(ids0) + 4 * L,
+        # the path's ids are >= 0, where bincount computes K16's function
+        library=lambda: torch.bincount(torch.where(ids0 < L, ids0, L).view(-1),
+                                       minlength=L + 1)[:L]))
 
     t = time.perf_counter()
     drive("dryrun_multichip(8) on one card",
@@ -1942,14 +2029,15 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s)")
 
     # phase 2: build
-    from utree_tpu_torch.kernels import KERNELS, build, library
+    from utree_tpu_torch.kernels import KERNELS, build, library, ptxas_usage
 
     so, secs, ptxas = build()
     library()
     log(f"build: {so.name} in {secs:.1f} s (0.0 = already built)")
-    for ln in ptxas.splitlines():
-        if "registers" in ln or "spill" in ln:
-            log(f"  ptxas: {ln.strip()}")
+    for name, usage in ptxas_usage(ptxas):
+        # K2's streamed branch and K11's kernels by name, the rest by usage
+        named = "histogram_rows" in name or "route_displaced_cu" in name
+        log(f"  ptxas: {name if named else '...'}: {usage}")
 
     res = run(torch.device("cuda"), a.kmers, a.reads, ROOT / ".bench_cache")
     if sorted(k["name"] for k in res["kernels"]) != sorted(KERNELS):

@@ -230,7 +230,7 @@ def test_host_search_file_equal_jax(dbs, tmp_path, name, support_ranges, do_rc):
 # every file that runs where JAX may be absent
 _NO_JAX_FILES = sorted(str(p.relative_to(REPO))
                        for p in (REPO / "utree_tpu_torch").rglob("*.py")) + [
-    "chip_smoke.py", "tests/test_torch_kernels.py"]
+    "chip_smoke.py", "kernel_ab.py", "tests/test_torch_kernels.py"]
 _REFUSED = ("utree_tpu", "bench", "jax")
 
 

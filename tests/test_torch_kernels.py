@@ -221,6 +221,70 @@ def test_k2_layouts_at_long_read_widths(tier, dev):
                                                       tl.compact_histogram(ids, 64, cap)))
 
 
+def _streamed_ids(rng, rows, n, num_labels):
+    """(rows, n) int32 ids for K2's streamed branch, one kind of row after
+    another: a long read's few label runs among misses (BAD, ids at and
+    above num_labels) and negative ids; rows of exactly 1, 8, 9, 30 and 31
+    distinct labels (cap and cap + 1 for caps 1, 8 and 30); one label in
+    every id; ids drawn over [-3, num_labels + 3), mostly distinct; every
+    id a miss."""
+    ids = np.full((rows, n), BAD, np.int32)
+    for r in range(rows):
+        kind = r % 9
+        if kind == 0:
+            cuts = np.sort(rng.integers(0, n, 10))
+            labels = rng.integers(0, num_labels, 11)
+            ids[r] = np.repeat(labels, np.diff(np.r_[0, cuts, n]))
+            miss = rng.random(n) < 0.3
+            ids[r, miss] = rng.choice([BAD, num_labels, num_labels + 7, -1, -9], int(miss.sum()))
+        elif kind <= 5:
+            d = (1, 8, 9, 30, 31)[kind - 1]
+            labels = np.r_[rng.choice(min(num_labels - 1, 1 << 20), d - 1, replace=False),
+                           num_labels - 1]  # the largest label of all
+            ids[r] = labels[rng.integers(0, d, n)]
+            ids[r, rng.integers(0, n, n // 10)] = -1
+        elif kind == 6:
+            ids[r] = rng.integers(0, num_labels)
+        elif kind == 7:
+            ids[r] = rng.integers(-3, num_labels + 3, n)
+    return ids
+
+
+def _k2_all_layouts(ids, num_labels, cap):
+    """The three K2 entry points against their plain versions."""
+    assert torch.equal(tl.histogram_packed(ids, num_labels, cap),
+                       tl.pack_hist(ids, num_labels, cap))
+    assert torch.equal(tl.histogram_unpacked(ids, num_labels, cap),
+                       tl.unpacked_hist(ids, num_labels, cap))
+    assert all(torch.equal(a, b) for a, b in zip(tl.histogram(ids, num_labels, cap),
+                                                  tl.compact_histogram(ids, num_labels, cap)))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 64, 4096])
+@pytest.mark.parametrize("n", [2049, 16_385, 32_706, 40_000])
+def test_k2_streamed_rows_match_plain(dev, n, rows):
+    """One block a row: staged rows (up to 2 x 16,385 ids, in bulk copies,
+    any 16 B alignment of a row) and a row read from memory (40,000), with
+    hits, misses, negative ids, rows of cap and cap + 1 labels and one label
+    everywhere; the plain versions run on the card too."""
+    rng = np.random.default_rng(n + rows)
+    base = torch.from_numpy(_streamed_ids(rng, rows + 1, n, 4096)).to(dev)
+    for ids in (base[:rows], base.view(-1)[3:3 + rows * n].view(rows, n)):  # 16 B, then 4 B
+        for cap in (1, 8, 30):
+            _k2_all_layouts(ids, 4096, cap)
+
+
+@pytest.mark.parametrize("num_labels", [524_288, 524_289], ids=["bitmap", "rounds"])
+@pytest.mark.parametrize("n", [16_385, 40_000])
+def test_k2_streamed_label_bitmap_limit(dev, num_labels, n):
+    """num_labels at the bitmap's limit (32 x 16,384 words) takes the
+    bitmap; one past it the block-wide rounds; both exact."""
+    rng = np.random.default_rng(num_labels)
+    ids = torch.from_numpy(_streamed_ids(rng, 27, n, num_labels)).to(dev)
+    for cap in (1, 8, 30):
+        _k2_all_layouts(ids, num_labels, cap)
+
+
 def _word_ascii(words):
     """32-mer words (uint64) -> their bases as (n, 32) ASCII."""
     shifts = np.uint64(2) * (np.uint64(31) - np.arange(32, dtype=np.uint64))
@@ -678,6 +742,33 @@ def test_k11_route_displaced_matches_plain(routed, dev, case):
     assert int(counts[S]) == (case == "overflow")
     if case == "one-read-8-shards":
         assert int((counts[:S] == 0).sum()) >= 1
+
+
+@pytest.mark.parametrize("capacity", ["step", "8"])
+@pytest.mark.parametrize("buckets", ["nseed", "b1"])
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+def test_k11_look_back_at_the_shard_shape(routed, dev, S, buckets, capacity):
+    """K11 at phase 15's shard shape (16,384 reads of 192 positions: 2,637,824
+    lanes, 2,576 tiles, so the look-back crosses many tiles) for 1, 2, 4, 8
+    owners, a displaced seed count and b1, at the step's capacity (S = 1:
+    the fallback's B*W) and at 8 (every owner overflows): equal to the plain
+    version and the same over 20 launches (a look-back race shows only now
+    and then)."""
+    from utree_tpu_torch.parallel import routed as R
+
+    packed, vbits, lens = _packed_reads(routed["genome"], 16_384, 15 + S, dev)
+    b, w = packed.shape[0], packed.shape[1] * 4 - 31
+    assert b * w == 2_637_824
+    step = b * w if S == 1 else max(128, -(-int(b * w / S * R.CAPACITY_FACTOR) // 128) * 128)
+    kw = dict(nseed={"nseed": 1 << 23, "b1": 1 << 27}[buckets], num_shards=S,
+              capacity=step if capacity == "step" else 8)
+    want = R.route_displaced_plain(packed, vbits, lens, **kw)
+    first = R.route_displaced(packed, vbits, lens, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, want))
+    assert int(want[2][S]) == (capacity == "8")
+    for _ in range(20):
+        again = R.route_displaced(packed, vbits, lens, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])

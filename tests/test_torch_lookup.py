@@ -394,6 +394,44 @@ def test_pack_hist_and_unpacked_layout_overflow(cap):
     assert (nuniq == cap + 1).any() and (nuniq == 0).any()
 
 
+@pytest.mark.parametrize("cap", [1, 8])
+@pytest.mark.parametrize("n", [2049, 32_706])
+def test_histograms_at_long_widths_match_jax(n, cap):
+    """JAX's histogram rules at the widths K2's streamed branch takes (long
+    reads): a negative id counts in found but is never a label and never
+    overflows; an id at or above num_labels is a miss; slots past the
+    distinct count hold (-1, 0), packed as 0; exactly cap distinct labels do
+    not overflow, cap + 1 do; one label in every id.  compact_histogram,
+    pack_hist and unpacked_hist against utree_tpu.lookup's."""
+    rng = np.random.default_rng(n + cap)
+    n_lab = 4096
+    rows = np.full((8, n), BAD, np.int32)
+    for r, d in enumerate((cap, cap + 1)):  # exactly cap and cap + 1 labels
+        labels = np.r_[rng.choice(n_lab - 1, d - 1, replace=False), n_lab - 1]
+        rows[r] = labels[np.arange(n) % d]
+    rows[2] = 77  # one label everywhere
+    rows[3] = rng.integers(-4, n_lab + 4, n)  # negatives, misses, over cap
+    rows[4, : n // 2] = -1  # negatives and misses only
+    rows[4, n // 2:] = rng.choice([n_lab, n_lab + 1, BAD], n - n // 2)
+    rows[5] = np.where(rng.random(n) < 0.5, rng.integers(0, 3, n), -7)  # few labels
+    rows[6, ::5] = -2
+    rows[6, 1::5] = n_lab - 1
+    for r in (0, 1):  # a negative id in a full row changes no slot
+        rows[r, ::11] = -5
+    j = [np.asarray(x) for x in jl.compact_histogram(jnp.asarray(rows), n_lab, cap)]
+    t = tl.compact_histogram(torch.from_numpy(rows), n_lab, cap)
+    for a, b in zip(j, t):
+        assert b.dtype == torch.int32 and np.array_equal(a, _np(b))
+    assert np.array_equal(np.asarray(jl.pack_hist(jnp.asarray(rows), n_lab, cap)),
+                          _np(tl.pack_hist(torch.from_numpy(rows), n_lab, cap)))
+    want = np.concatenate([j[0], j[1], j[2][:, None], j[3][:, None]], 1)
+    assert np.array_equal(want, _np(tl.unpacked_hist(torch.from_numpy(rows), n_lab, cap)))
+    nuniq, found = j[2], j[3]
+    assert nuniq[0] == cap and nuniq[1] == cap + 1 and nuniq[2] == 1 and nuniq[4] == 0
+    assert found[4] == n // 2 and (j[0][4] == -1).all() and (j[1][4] == 0).all()
+    assert nuniq[3] == cap + 1 and found[3] > 0
+
+
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
 def test_hist_steps_on_the_ladder_match_jax(wide):
     """search_step_hist_packed (narrow) / search_step_hist_packed_in (wide)

@@ -7,7 +7,7 @@
 // routed_displaced_search_step :492-500 (windows, canonical keys,
 // displaced_bucket_jnp, owner and local bucket, each lane's rank among the
 // valid lanes of its owner, the (S, C, 3) scatter with mode="drop", the
-// overflow test), with kmer.cuh's window_at, canonical and fold_hash.
+// overflow test), with kmer.cuh's canonical and fold_hash.
 // The routed canonical steps call it with nseed = b1: the same fold, masked
 // to a power of two, is the canonical t1 bucket (canonical_buckets,
 // utree_tpu/lookup.py:262-279), so it also replaces the data side of
@@ -29,164 +29,271 @@
 // Design: a lane's rank is its place among its owner's valid lanes in lane
 // order, as the cumsum of routed.py:430-434 gives it, so that a batch that
 // overflows drops the same lanes as JAX.  A slot taken with atomicAdd would
-// not keep that order, so the rank is an exclusive prefix sum in three
-// launches over tiles of 1024 lanes, as K8 orders its rows: `lanes` writes
-// each lane's record (local bucket in the slot field, owner in the flags)
-// and its tile's count for each owner (S <= 8 block counts); `scan`, one
-// block, turns the tile counts into each tile's exclusive prefix for each
-// owner and the totals; `scatter` adds the in-tile rank from warp ballots,
-// writes the payload of each lane of rank < C to its slot and rewrites the
-// record.  The record is written twice (a second 42 MB pass), which keeps
-// every pass a single read of each lane.
+// not keep that order, so `route` is one pass of a prefix scan with a
+// decoupled look-back (Merrill and Garland) over tiles of 1024 lanes, S <= 8
+// sums at once; a block of 256 threads takes four lanes a thread, so that
+// more tiles are in flight to hide each one's chain of global round trips.
+// A block takes its tile from an atomic ticket, so every tile before it has
+// started; stages the tile's packed bytes and validity bits in shared
+// memory as aligned words (at most 8 KB + 4 KB: a lane adds at most 8 and 4
+// bytes) and cuts each lane's 32 bases from them with byte permutes and
+// funnel shifts, seven shared loads a lane where kmer::window_at makes 64
+// byte loads; counts its lanes per owner from warp ballots; warp o
+// publishes owner o's tile count as an aggregate, looks back over the flags
+// of the 32 tiles before it at a time until one holds an inclusive prefix,
+// and publishes its own.  Each lane then writes its record once, with its
+// final slot, and the payload of rank < C to `send`.  A flag word is
+// (status << 32 | value), status 0 until written, 1 an aggregate, 2 an
+// inclusive prefix: one 64-bit store publishes both, so no fence orders
+// them.  The last tile writes the counts; `zero_tail` then zeroes each
+// owner's unwritten slots [count, C).
 
 #include "kmer.cuh"
 
 namespace {
 
-constexpr int TPB = 1024;  // one tile = one block of 32 warps
+constexpr int TILE = 1024;  // lanes a tile
+constexpr int ITEMS = 4;    // lanes a thread: lane tile*TILE + j*TPB + thread
+constexpr int TPB = TILE / ITEMS;
+constexpr int NWARPS = TPB / 32;
 constexpr int MAX_SHARDS = 8;
 constexpr unsigned FULL = 0xFFFFFFFFu;
+// Staged words of a tile (see the note above), with 3 words of slack for
+// the alignment and the reads past the last byte.
+constexpr int PK_WORDS = 2056;
+constexpr int VB_WORDS = 1032;
+constexpr unsigned long long AGGREGATE = 1ull << 32, PREFIX = 2ull << 32;
 
-__global__ void __launch_bounds__(TPB)
-lanes(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits,
-      const int32_t* __restrict__ lens, int64_t B, int64_t row4, int64_t row8,
-      int32_t W, int64_t nseed, int32_t S, int4* __restrict__ rec,
-      int32_t* __restrict__ tile_counts) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * TPB + threadIdx.x;
-  int owner = -1;
-  if (p < B * W) {
-    const int64_t b = p / W;
-    const int32_t w = static_cast<int32_t>(p - b * W);
-    uint32_t hi32, lo32;
-    int4 r = make_int4(-1, 0, 0, 0);
-    if (kmer::window_at(packed + b * row4, vbits + b * row8, lens[b], w, hi32, lo32)) {
-      kmer::Key k;
-      const int fwd_le = kmer::canonical(hi32, lo32, k) ? 1 : 0;
-      const uint32_t per_seed = static_cast<uint32_t>(nseed / S);
-      const uint32_t g = kmer::fold_hash(k) & static_cast<uint32_t>(nseed - 1);
-      owner = static_cast<int>(g / per_seed);
-      r = make_int4(static_cast<int32_t>(g - owner * per_seed), k.klo, k.khi,
-                    1 | (fwd_le << 1) | (owner << 2));
-    }
-    rec[p] = r;
-  }
-  for (int o = 0; o < S; ++o) {
-    const int n = __syncthreads_count(owner == o);
-    if (threadIdx.x == 0) tile_counts[static_cast<int64_t>(blockIdx.x) * S + o] = n;
-  }
+static_assert(ITEMS * NWARPS == 32, "one warp scans an owner's 32 (slab, warp) counts");
+static_assert(NWARPS >= MAX_SHARDS, "a warp a shard looks back");
+
+__device__ __forceinline__ unsigned long long ld_flag(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// Inclusive scan of v over the block (1024 threads); `total` gets the sum.
-__device__ __forceinline__ int32_t block_scan(int32_t v, int32_t* red, int32_t& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int32_t inc = v;
+__device__ __forceinline__ void st_flag(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ int32_t warp_sum(int32_t v) {
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int32_t y = __shfl_up_sync(FULL, inc, o);
-    if (lane >= o) inc += y;
-  }
-  if (lane == 31) red[warp] = inc;
-  __syncthreads();
-  const int32_t ws = red[lane];
-  int32_t wi = ws;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int32_t y = __shfl_up_sync(FULL, wi, o);
-    if (lane >= o) wi += y;
-  }
-  const int32_t before = __shfl_sync(FULL, wi - ws, warp);
-  total = __shfl_sync(FULL, wi, 31);
-  __syncthreads();  // red may be written again after this
-  return before + inc;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
 }
 
-__global__ void __launch_bounds__(TPB)
-scan(const int32_t* __restrict__ tile_counts, int64_t tiles, int32_t S, int32_t C,
-     int32_t* __restrict__ tile_before, int32_t* __restrict__ counts) {
-  __shared__ int32_t red[32];
-  int32_t over = 0;
-  for (int o = 0; o < S; ++o) {
-    int32_t carry = 0;
-    for (int64_t base = 0; base < tiles; base += TPB) {
-      const int64_t j = base + threadIdx.x;
-      const int32_t v = j < tiles ? tile_counts[j * S + o] : 0;
-      int32_t total;
-      const int32_t inc = block_scan(v, red, total);
-      if (j < tiles) tile_before[j * S + o] = carry + inc - v;
-      carry += total;
-    }
-    if (threadIdx.x == 0) counts[o] = carry;
-    over |= carry > C;
-  }
-  if (threadIdx.x == 0) counts[S] = over;
+// Copy bytes [g0, g1] of `src` into `dst` as the aligned words that hold
+// them; returns the byte offset of dst[0] relative to src (<= g0).  The
+// three words after them are zeroed.
+__device__ __forceinline__ int64_t stage(const uint8_t* src, int64_t g0, int64_t g1,
+                                         uint32_t* dst) {
+  const int64_t lead = static_cast<int64_t>(reinterpret_cast<uintptr_t>(src + g0) & 3);
+  const int64_t base = g0 - lead;
+  const int nwords = static_cast<int>((g1 - base) >> 2) + 1;
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(src + base);
+  for (int k = threadIdx.x; k < nwords + 3; k += TPB) dst[k] = k < nwords ? w[k] : 0u;
+  return base;
 }
 
+// The bytes o..o+3 of the staged words as a big-endian word: 32 bits of
+// the MSB-first stream the packed bases and validity bits make.
+__device__ __forceinline__ uint32_t be32(const uint32_t* s, int o) {
+  const uint32_t sel = 0x0123u + 0x1111u * static_cast<uint32_t>(o & 3);
+  return __byte_perm(s[o >> 2], s[(o >> 2) + 1], sel);
+}
+
+// One lane: its owner (-1 for an invalid window), local bucket and key.
+struct Lane {
+  int owner, fwd_le;
+  uint32_t local;
+  kmer::Key k;
+};
+
 __global__ void __launch_bounds__(TPB)
-scatter(int4* __restrict__ rec, int64_t P, int32_t S, int32_t C,
-        const int32_t* __restrict__ tile_before, int32_t* __restrict__ send) {
-  __shared__ int32_t wcount[MAX_SHARDS][32];
+route(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits,
+      const int32_t* __restrict__ lens, int64_t P, int64_t row4, int64_t row8,
+      int32_t W, int64_t nseed, int32_t S, int32_t C, int64_t tiles,
+      unsigned long long* __restrict__ flags, unsigned* __restrict__ ticket,
+      int4* __restrict__ rec, int32_t* __restrict__ send, int32_t* __restrict__ counts) {
+  __shared__ uint32_t spk[PK_WORDS], svb[VB_WORDS];
+  // an owner's lanes in each (slab, warp) of the tile, then those before it
+  __shared__ int32_t wbefore[MAX_SHARDS][32];
+  __shared__ int32_t tbefore[MAX_SHARDS], ttotal[MAX_SHARDS];
+  // the tile, its first read, and the first and last packed and validity
+  // bytes its lanes need
+  __shared__ int64_t geo[6];
+
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * TPB + threadIdx.x;
-  int4 r = p < P ? rec[p] : make_int4(-1, 0, 0, 0);
-  const bool valid = p < P && (r.w & 1);
-  const int owner = valid ? (r.w >> 2) : -1;
-  unsigned mine = 0;
-  for (int o = 0; o < S; ++o) {
-    const unsigned bal = __ballot_sync(FULL, owner == o);
-    if (lane == 0) wcount[o][warp] = __popc(bal);
-    if (owner == o) mine = bal;
+  if (threadIdx.x == 0) {
+    const int64_t tile = atomicAdd(ticket, 1u);
+    const int64_t p0 = tile * TILE, p1 = (p0 + TILE < P ? p0 + TILE : P) - 1;
+    const int64_t b0 = p0 / W, b1 = p1 / W, w0 = p0 - b0 * W, w1 = p1 - b1 * W;
+    geo[0] = tile;
+    geo[1] = b0;
+    geo[2] = b0 * row4 + (w0 >> 2);
+    geo[3] = b1 * row4 + ((w1 + 31) >> 2);
+    geo[4] = b0 * row8 + (w0 >> 3);
+    geo[5] = b1 * row8 + ((w1 + 31) >> 3);
   }
   __syncthreads();
-  if (p >= P) return;
-  int32_t slot = -1;
-  if (valid) {
-    int32_t rank = tile_before[static_cast<int64_t>(blockIdx.x) * S + owner] +
-                   __popc(mine & ((1u << lane) - 1u));
-    for (int j = 0; j < warp; ++j) rank += wcount[owner][j];
-    if (rank < C) {
-      slot = owner * C + rank;
-      int32_t* d = send + static_cast<int64_t>(slot) * 3;
-      d[0] = r.x;
-      d[1] = r.y;
-      d[2] = r.z;
+  const int64_t tile = geo[0], b0 = geo[1];
+  const int64_t pbase = stage(packed, geo[2], geo[3], spk);
+  const int64_t vbase = stage(vbits, geo[4], geo[5], svb);
+  __syncthreads();
+
+  Lane ln[ITEMS];
+  unsigned mine[ITEMS];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    Lane& l = ln[j];
+    l.owner = -1;
+    l.fwd_le = 0;
+    l.local = 0;
+    l.k = kmer::Key{0, 0, 0, 0, 0};
+    const int64_t p = tile * TILE + j * TPB + threadIdx.x;
+    if (p < P) {
+      const int32_t q = static_cast<int32_t>(p - b0 * W);  // < TILE + W
+      const int32_t bl = q / W, w = q - bl * W;
+      const int64_t b = b0 + bl;
+      const int o = static_cast<int>(b * row4 + (w >> 2) - pbase);
+      const uint32_t x0 = be32(spk, o), x1 = be32(spk, o + 4), x2 = be32(spk, o + 8);
+      const int r2 = 2 * (w & 3);
+      const uint32_t hi32 = __funnelshift_l(x1, x0, r2), lo32 = __funnelshift_l(x2, x1, r2);
+      const int ov = static_cast<int>(b * row8 + (w >> 3) - vbase);
+      const uint32_t ok = __funnelshift_l(be32(svb, ov + 4), be32(svb, ov), w & 7);
+      if (ok == FULL && w + 31 < lens[b]) {
+        l.fwd_le = kmer::canonical(hi32, lo32, l.k) ? 1 : 0;
+        const uint32_t per_seed = static_cast<uint32_t>(nseed / S);
+        const uint32_t g = kmer::fold_hash(l.k) & static_cast<uint32_t>(nseed - 1);
+        l.owner = static_cast<int>(g / per_seed);
+        l.local = g - l.owner * per_seed;
+      }
+    }
+    mine[j] = 0;
+    for (int o = 0; o < S; ++o) {
+      const unsigned bal = __ballot_sync(FULL, l.owner == o);
+      if (lane == 0) wbefore[o][j * NWARPS + warp] = __popc(bal);
+      if (l.owner == o) mine[j] = bal;
     }
   }
-  r.x = slot;
-  r.w = valid ? (r.w & 3) : 0;
-  rec[p] = r;
+  __syncthreads();
+
+  if (warp < S) {  // warp o: owner o's sums
+    const int o = warp;
+    const int32_t c = wbefore[o][lane];
+    int32_t inc = c;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int32_t y = __shfl_up_sync(FULL, inc, d);
+      if (lane >= d) inc += y;
+    }
+    const int32_t agg = __shfl_sync(FULL, inc, 31);
+    wbefore[o][lane] = inc - c;
+    unsigned long long* own = flags + tile * S + o;
+    if (lane == 0)
+      st_flag(own, (tile == 0 ? PREFIX : AGGREGATE) | static_cast<uint32_t>(agg));
+    int32_t before = 0;
+    for (int64_t pred = tile - 1 - lane; tile > 0; pred -= 32) {
+      unsigned long long f = PREFIX;  // before tile 0: a prefix of 0
+      if (pred >= 0) {
+        do {
+          f = ld_flag(flags + pred * S + o);
+        } while ((f >> 32) == 0);
+      }
+      const unsigned pre = __ballot_sync(FULL, (f >> 32) == 2);
+      const int32_t v = static_cast<int32_t>(static_cast<uint32_t>(f));
+      if (pre) {  // sum down to the nearest inclusive prefix
+        before += warp_sum(lane <= __ffs(pre) - 1 ? v : 0);
+        break;
+      }
+      before += warp_sum(v);
+    }
+    if (lane == 0) {
+      if (tile > 0) st_flag(own, PREFIX | static_cast<uint32_t>(before + agg));
+      tbefore[o] = before;
+      ttotal[o] = before + agg;
+    }
+  }
+  __syncthreads();
+
+  if (tile == tiles - 1 && threadIdx.x == 0) {
+    int32_t over = 0;
+    for (int o = 0; o < S; ++o) {
+      counts[o] = ttotal[o];
+      over |= ttotal[o] > C;
+    }
+    counts[S] = over;
+  }
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const Lane& l = ln[j];
+    const int64_t p = tile * TILE + j * TPB + threadIdx.x;
+    if (p >= P) break;
+    int32_t slot = -1;
+    if (l.owner >= 0) {
+      const int32_t rank = tbefore[l.owner] + wbefore[l.owner][j * NWARPS + warp] +
+                           __popc(mine[j] & ((1u << lane) - 1u));
+      if (rank < C) {
+        slot = l.owner * C + rank;
+        int32_t* d = send + static_cast<int64_t>(slot) * 3;
+        d[0] = static_cast<int32_t>(l.local);
+        d[1] = l.k.klo;
+        d[2] = l.k.khi;
+      }
+    }
+    rec[p] = make_int4(slot, l.k.klo, l.k.khi, l.owner >= 0 ? 1 | (l.fwd_le << 1) : 0);
+  }
+}
+
+// Zero each owner's send slots from its count up to C: the slots no lane
+// took.
+__global__ void zero_tail(int32_t* __restrict__ send, const int32_t* __restrict__ counts,
+                          int32_t S, int32_t C) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (int o = 0; o < S; ++o) {
+    int32_t* d = send + static_cast<int64_t>(o) * C * 3;
+    const int64_t end = 3 * static_cast<int64_t>(C);
+    for (int64_t i = 3 * static_cast<int64_t>(min(counts[o], C)) + start; i < end; i += stride)
+      d[i] = 0;
+  }
 }
 
 }  // namespace
 
 // packed (B, row4) u8, vbits (B, row8) u8, lens (B,) i32; W windows a read;
 // nseed the global seed count (S divides it); S shards (1..8); C slots an
-// owner; tile_counts, tile_before: ceil(B*W/1024)*S int32 scratch; send
-// (S, C, 3), rec (B*W, 4), counts (S+1,) int32.
+// owner; scratch: ceil(B*W/1024)*S + 1 int64 (the flags, then the ticket),
+// zeroed here; send (S, C, 3), rec (B*W, 4), counts (S+1,) int32.
 extern "C" int utree_route_displaced(
     const void* packed, const void* vbits, const void* lens, int64_t B, int64_t row4,
-    int64_t row8, int32_t W, int64_t nseed, int32_t S, int32_t C, void* tile_counts,
-    void* tile_before, void* send, void* rec, void* counts, void* stream) {
+    int64_t row8, int32_t W, int64_t nseed, int32_t S, int32_t C, void* scratch,
+    void* send, void* rec, void* counts, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(
-      send, 0, static_cast<size_t>(S) * C * 3 * sizeof(int32_t), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t P = B * W;
-  const unsigned tiles = utree_blocks(P, TPB);
-  auto* r = static_cast<int4*>(rec);
-  auto* tc = static_cast<int32_t*>(tile_counts);
-  auto* tb = static_cast<int32_t*>(tile_before);
-  if (tiles > 0) {
-    lanes<<<tiles, TPB, 0, st>>>(static_cast<const uint8_t*>(packed),
-                                 static_cast<const uint8_t*>(vbits),
-                                 static_cast<const int32_t*>(lens), B, row4, row8, W,
-                                 nseed, S, r, tc);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = (P + TILE - 1) / TILE;
+  auto* sd = static_cast<int32_t*>(send);
+  auto* cn = static_cast<int32_t*>(counts);
+  cudaError_t err;
+  if (tiles == 0) {  // no lane: every count 0, every slot unwritten
+    err = cudaMemsetAsync(cn, 0, sizeof(int32_t) * (S + 1), st);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(sd, 0, sizeof(int32_t) * 3 * static_cast<size_t>(S) * C, st);
+    return static_cast<int>(err);
   }
-  scan<<<1, TPB, 0, st>>>(tc, tiles, S, C, tb, static_cast<int32_t*>(counts));
-  if (tiles == 0) UTREE_LAUNCH_RESULT();
+  auto* flags = static_cast<unsigned long long*>(scratch);
+  err = cudaMemsetAsync(flags, 0, sizeof(unsigned long long) * (tiles * S + 1), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  route<<<static_cast<unsigned>(tiles), TPB, 0, st>>>(
+      static_cast<const uint8_t*>(packed), static_cast<const uint8_t*>(vbits),
+      static_cast<const int32_t*>(lens), P, row4, row8, W, nseed, S, C, tiles, flags,
+      reinterpret_cast<unsigned*>(flags + tiles * S), static_cast<int4*>(rec), sd, cn);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  scatter<<<tiles, TPB, 0, st>>>(r, P, S, C, tb, static_cast<int32_t*>(send));
+  const int64_t tail = 3 * static_cast<int64_t>(S) * C;
+  const int64_t blocks = (tail + 255) / 256;
+  zero_tail<<<static_cast<unsigned>(blocks < 2048 ? blocks : 2048), 256, 0, st>>>(sd, cn, S,
+                                                                                C);
   UTREE_LAUNCH_RESULT();
 }

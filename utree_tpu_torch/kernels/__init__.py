@@ -45,7 +45,7 @@ launch that CUDA accepted; nothing else touches the counts except
 
 from __future__ import annotations
 
-from utree_tpu_torch.kernels.build import build, check, library
+from utree_tpu_torch.kernels.build import build, check, library, ptxas_usage
 
 KERNELS = ("ascii_pack", "scan_probe", "scan_probe_wide", "ladder_probe",
            "ladder_probe_wide", "bsearch_probe", "hash_probe", "scan_probe64", "ladder_probe64",
@@ -81,5 +81,5 @@ def launch(name: str, *args) -> None:
     launches[name] += 1
 
 
-__all__ = ["KERNELS", "build", "launch", "launches", "library", "require",
-           "reset_launches"]
+__all__ = ["KERNELS", "build", "launch", "launches", "library", "ptxas_usage",
+           "require", "reset_launches"]

@@ -80,10 +80,10 @@ SIGNATURES = {
     # out (4, B, W), stream
     "utree_xtree_probe": [P, P, I64, I64, I32, I32, I32,
                           P, I64, P, I64, P, I64, I32, P, P],
-    # packed, vbits, lens, B, row4, row8, W, nseed, S, C; tile counts and
-    # tile prefixes (scratch), send, rec, counts, stream
+    # packed, vbits, lens, B, row4, row8, W, nseed, S, C; the look-back's
+    # flags and ticket (scratch), send, rec, counts, stream
     "utree_route_displaced": [P, P, P, I64, I64, I64, I32, I64, I32, I32,
-                              P, P, P, P, P, P],
+                              P, P, P, P, P],
     # lanes, N, base, per_seed, d1, nslots, ds, out, stream
     "utree_owner_probe": _OWNER,
     "utree_owner_probe_wide": _OWNER,
@@ -155,6 +155,22 @@ def build() -> tuple[pathlib.Path, float, str]:
         raise RuntimeError("\n".join(failed))
     os.replace(tmp, so)  # atomic: a concurrent build never loads a torn file
     return so, time.perf_counter() - t0, "".join(reports)
+
+
+def ptxas_usage(report: str) -> list[tuple[str, str]]:
+    """(kernel, usage) for each entry function of nvcc's `-Xptxas -v` report
+    (`build`'s third value): its mangled name, and its registers, barriers
+    and shared and constant memory with its spill stores and loads."""
+    out, name, spill = [], None, ""
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            name, spill = ln.split("'")[1], ""
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif name and "Used" in ln:
+            out.append((name, f"{ln.split(':', 1)[1].strip()}; {spill}"))
+            name = None
+    return out
 
 
 @functools.cache

@@ -399,15 +399,15 @@ def route_displaced(packed, vbits, lens, *, nseed: int, num_shards: int, capacit
                          f"power-of-two seed count ({S} shards, nseed {nseed})")
     if C < 1:
         raise ValueError(f"capacity {C} < 1")
-    tiles = max(1, -(-(b * w) // 1024))
+    tiles = -(-(b * w) // 1024)
     send = torch.empty((S, C, 3), dtype=torch.int32, device=dev)
     rec = torch.empty((b * w, 4), dtype=torch.int32, device=dev)
     counts = torch.empty(S + 1, dtype=torch.int32, device=dev)
-    scratch = torch.empty((2, tiles * S), dtype=torch.int32, device=dev)
+    # the look-back's flag for each (tile, owner), then the tile ticket
+    scratch = torch.empty(tiles * S + 1, dtype=torch.int64, device=dev)
     kernels.launch("route_displaced", packed.data_ptr(), vbits.data_ptr(),
-                   lens.data_ptr(), b, row4, row8, w, nseed, S, C,
-                   scratch[0].data_ptr(), scratch[1].data_ptr(), send.data_ptr(),
-                   rec.data_ptr(), counts.data_ptr(), _stream(dev))
+                   lens.data_ptr(), b, row4, row8, w, nseed, S, C, scratch.data_ptr(),
+                   send.data_ptr(), rec.data_ptr(), counts.data_ptr(), _stream(dev))
     return send, rec, counts
 
 

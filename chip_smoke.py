@@ -73,9 +73,10 @@ Phases; each passes or the script exits non-zero:
    shallow_scan_batch equal scan_shallow_literal's, and their lines the
    Python-driven vote's (ShallowVoter over those hits);
 15. routed: the phase-4 tier sharded four ways by seed bucket, the shards
-   on the one card: K11-K13 against their plain versions, the reads end to
-   end (and at capacity 8, through the fallback) equal to phase 4's; the
-   wide 2M tier's routed step against CPU shards;
+   on the one card: K11-K13 against their plain versions, and K11 at 16
+   owners too; the reads end to end (and at capacity 8, through the
+   fallback) equal to phase 4's; the wide 2M tier's routed step against
+   CPU shards;
 16. data parallel: two shards of the phase-4 table on the card, equal to
    phase 4's output;
 17. multi-host: two processes over gloo on the card, the merged output
@@ -152,6 +153,7 @@ XT_REDIST_QUERIES = 32_768
 XT_K = 29
 XT_OUTS = ("perq", "ref", "tax", "cov")
 ROUTED_SHARDS = 4  # phase 15's shards, all on the one card
+MANY_SHARDS = 16  # phase 15's K11 check above 8 owners
 DP_SHARDS = 2  # phase 16's
 WIDE_ROUTED_CHECK = 4096  # phase 15's wide reads held to the CPU shards
 
@@ -1449,6 +1451,29 @@ def routed_checks(sharded, tables, mesh, packed, vbits, lens, tag: str) -> list[
     return rows
 
 
+def k11_at_many_shards(nseed: int, packed, vbits, lens) -> None:
+    """K11 at MANY_SHARDS owners (a warp looks back for several) on one
+    shard's rows of the batch, at the step's capacity: equal to its plain
+    version on the same inputs, and timed."""
+    from utree_tpu_torch.parallel import routed as R
+
+    S = MANY_SHARDS
+    b, w = packed.shape[0] // S, packed.shape[1] * 4 - 31
+    c = max(128, math.ceil(b * w / S * R.CAPACITY_FACTOR / 128) * 128)
+    args, kw = (packed[:b], vbits[:b], lens[:b]), dict(nseed=nseed, num_shards=S, capacity=c)
+
+    def k11():
+        return R.route_displaced(*args, **kw)
+
+    want = R.route_displaced_plain(*args, **kw)
+    err = max_abs_err(k11(), want)
+    counts = want[2]
+    log(f"kernel route_displaced at {S} shards: equal to plain (max abs err {err}) at "
+        f"B/S={b} reads, W={w}, C={c}, nseed {nseed}; {cuda_ms(k11, 20):.4f} ms "
+        f"({device_ms(k11, 20):.4f} on the device); owner lanes "
+        f"{int(counts[:S].min())}-{int(counts[:S].max())}, overflow {int(counts[S])}")
+
+
 def phase_routed(dev, base: dict, work: pathlib.Path):
     """Phase 15: the phase-4 tier sharded ROUTED_SHARDS ways by seed bucket,
     the shards on one card (`_shard_devices`); then the wide 2M tier's
@@ -1472,7 +1497,9 @@ def phase_routed(dev, base: dict, work: pathlib.Path):
     log(f"routed: ShardedDisplacedIndex.build ({S} shards) and the copy to the card "
         f"in {place_s:.1f} s; nseed {sh.nseed}, t1 {tuple(sh.t1.shape)}, seeds "
         f"{tuple(sh.seeds.shape)}, t3 {tuple(sh.t3.shape)}")
-    rows = routed_checks(sh, tabs, mesh, *batch_tensors(dev, reads), "routed")
+    batch = batch_tensors(dev, reads)
+    rows = routed_checks(sh, tabs, mesh, *batch, "routed")
+    k11_at_many_shards(sh.nseed, *batch)
     out_txt = work / "smoke_routed.txt"
     expect = ("route_displaced", "owner_probe", "routed_finish", "histogram_packed")
     rps = e2e(pipe, base["reads_fa"], out_txt, len(reads), "routed e2e", expect)

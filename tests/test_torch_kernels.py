@@ -195,6 +195,95 @@ def test_wide_probes_match_plain(dev, kind):
     _probe_and_hists(table, packed, vbits, lens, wide.num_labels, probe)
 
 
+def _edge_reads(genome, n, seed, dev, width=192):
+    """n reads (n * W lanes is no multiple of K1/K4's 1024-lane tile, so
+    tiles start and end inside reads) of lengths 0-192, some shorter than
+    32 bases, with N's at random, at the first base and at the last one
+    (which only the window at len - 32 reads)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.choice([0, 5, 31, 32, 33, 63, 64, 150, 191, 192], n).astype(np.int32)
+    starts = rng.integers(0, len(genome) - width, n)
+    reads = genome[starts[:, None] + np.arange(width)].copy()
+    reads[rng.random(reads.shape) < 0.004] = ord("N")
+    reads[::7, 0] = ord("N")
+    last = np.flatnonzero(lens > 0)[::5]
+    reads[last, lens[last] - 1] = ord("N")
+    reads[np.arange(width)[None, :] >= lens[:, None]] = 0
+    return [torch.from_numpy(a).to(dev) for a in tl.pack_reads_host(reads, lens)]
+
+
+def _sentinel(t: torch.Tensor, seed: int) -> torch.Tensor:
+    """An 8-row "absent" level of t's width, of random words: never probed."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-2**31, 2**31 - 1, (8, t.shape[1]), generator=g,
+                         dtype=torch.int32).to(t.device)
+
+
+@pytest.fixture(scope="module")
+def edge_tables(tier, dev):
+    """(tables by kind, genome, num_labels) for narrow and wide labels: the
+    displaced table with its d3 in use and as the 8-row sentinel, the
+    ladder's chain geometry (c2 and c3 in use) and with both as sentinels."""
+    from utree_tpu_torch.hash_index import canonical_to_device
+
+    wide, wgenome, _ = _wide_tier()
+    out = {}
+    for labels, index, genome in (("narrow", tier["index"], tier["genome"]),
+                                  ("wide", wide, wgenome)):
+        disp = displaced_to_device(build_displaced_index(
+            index, load=0.98, spill_budget=index.num_records), dev)
+        chain = canonical_to_device(_ladder(index, "chain"), dev)
+        assert disp["d3"].shape[0] > 8 and chain["c2"].shape[0] > 8
+        tables = {"displaced": disp, "displaced-sentinel": dict(disp, d3=_sentinel(disp["d3"], 1)),
+                  "ladder": chain, "ladder-sentinel": dict(chain, c2=_sentinel(chain["c2"], 2),
+                                                           c3=_sentinel(chain["c3"], 3))}
+        out[labels] = (tables, genome, index.num_labels)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["displaced", "displaced-sentinel", "ladder",
+                                  "ladder-sentinel"])
+@pytest.mark.parametrize("labels", ["narrow", "wide"])
+def test_k1_k4_tile_edges_match_plain(edge_tables, dev, labels, kind):
+    """K1 and K4 at their tiles' edges, with and without RC, untrimmed and
+    trimmed to 152, 40 (nine windows) and 32 bases (one window: a tile then
+    spans more reads than its staged words hold, and its lanes read their
+    bases from device memory): equal to the plain version, and the same
+    over 20 launches."""
+    tables, genome, num_labels = edge_tables[labels]
+    table = tables[kind]
+    packed, vbits, lens = _edge_reads(genome, 777, 43, dev)
+    name = ("scan_probe" if kind.startswith("displaced") else "ladder_probe") + (
+        "_wide" if labels == "wide" else "")
+    bad = 0x7FFFFFFF if labels == "wide" else BAD
+    for do_rc in (True, False):
+        for true_len in (None, 152, 40, 32):
+            kw = dict(do_rc=do_rc, bad_ix=bad, true_len=true_len, num_labels=num_labels)
+            want = tl.window_ids_plain(table, packed, vbits, lens, **kw)
+            assert int((want < num_labels).sum()) > (0 if true_len == 32 else 1000)
+            n0 = kernels.launches[name]
+            for _ in range(20):
+                assert torch.equal(tl.window_ids(table, packed, vbits, lens, **kw), want)
+            assert kernels.launches[name] == n0 + 20
+
+
+def test_k1_k4_refuse_misaligned_rows(tier, dev):
+    """The two-slot rows load as 8 B vectors: a d1 or c1 that starts off an
+    8 B boundary raises before any launch."""
+    from utree_tpu_torch.hash_index import canonical_to_device
+
+    packed, vbits, lens = _packed_reads(tier["genome"], 64, 5, dev)
+    kw = dict(do_rc=True, bad_ix=BAD, num_labels=64)
+    ladder = canonical_to_device(_ladder(tier["index"], "default"), dev)
+    for table, key in ((tier["table"], "d1"), (ladder, "c1")):
+        t = table[key]
+        buf = torch.empty(t.numel() + 1, dtype=torch.int32, device=dev)
+        shifted = buf[1:].view(t.shape)
+        shifted.copy_(t)
+        with pytest.raises(ValueError, match="8 B aligned"):
+            tl.window_ids(dict(table, **{key: shifted}), packed, vbits, lens, **kw)
+
+
 def test_k2_layouts_at_long_read_widths(tier, dev):
     """Long-read chunks: 16,384 windows a row, so 2 x 16,384 ids with RC,
     far past the register path: every layout takes the streamed branch."""
@@ -746,11 +835,12 @@ def test_k11_route_displaced_matches_plain(routed, dev, case):
 
 @pytest.mark.parametrize("capacity", ["step", "8"])
 @pytest.mark.parametrize("buckets", ["nseed", "b1"])
-@pytest.mark.parametrize("S", [1, 2, 4, 8])
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 16, 32, 64])
 def test_k11_look_back_at_the_shard_shape(routed, dev, S, buckets, capacity):
     """K11 at phase 15's shard shape (16,384 reads of 192 positions: 2,637,824
-    lanes, 2,576 tiles, so the look-back crosses many tiles) for 1, 2, 4, 8
-    owners, a displaced seed count and b1, at the step's capacity (S = 1:
+    lanes, 2,576 tiles, so the look-back crosses many tiles) for 1 to 64
+    owners (above 8 a warp looks back for several), a displaced seed count
+    and b1, at the step's capacity (S = 1:
     the fallback's B*W) and at 8 (every owner overflows): equal to the plain
     version and the same over 20 launches (a look-back race shows only now
     and then)."""

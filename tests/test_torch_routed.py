@@ -338,27 +338,58 @@ def test_value_errors_match_jax(db, monkeypatch, case):
 
 
 
-@pytest.mark.parametrize("case", ["three", "six", "sixteen-cards"])
+class _Placed(Exception):
+    pass
+
+
+@pytest.mark.parametrize("case", ["three", "six", "sixteen-cards", "128-cards"])
 def test_routed_shard_counts_refused(db, monkeypatch, case):
     """Shard counts the routed mode cannot serve raise before the placement
     (JAX's build loops for ever on them): a count that is no power of two,
     in the pipeline and in ShardedDisplacedIndex.build, and more shards
-    than K11 takes on cards (the card count patched to 16)."""
-    devices = {"three": 3, "six": 6, "sixteen-cards": 16}[case]
+    than K11 takes on cards (128 > MAX_SHARDS, the card count patched).
+    16 shards on cards are within K11's limit: they reach the placement."""
+    devices = {"three": 3, "six": 6, "sixteen-cards": 16, "128-cards": 128}[case]
     dev = "cpu"
-    if case == "sixteen-cards":
+    if case.endswith("cards"):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 16)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: devices)
         dev = "cuda"
     else:
         with pytest.raises(ValueError, match=f"power-of-two shard count, got {devices}"):
             TR.ShardedDisplacedIndex.build(db["port"], devices)
     placed = []
-    monkeypatch.setattr(TR.ShardedDisplacedIndex, "build",
-                        classmethod(lambda *a, **k: placed.append(a)))
-    got = _message(lambda: SearchPipeline(db["port"], device=dev, batch_size=96 * 16,
-                                          devices=devices, lookup_mode="routed"))
-    assert got == ("--lookup-mode routed runs at most 8 shards on cards, got --devices 16"
-                   if devices == 16 else
+
+    def place(cls, index, num_shards, **kw):
+        placed.append(num_shards)
+        raise _Placed
+
+    monkeypatch.setattr(TR.ShardedDisplacedIndex, "build", classmethod(place))
+
+    def make():
+        return SearchPipeline(db["port"], device=dev, batch_size=96 * devices,
+                              devices=devices, lookup_mode="routed")
+
+    if case == "sixteen-cards":
+        assert TR.MAX_SHARDS == 64
+        with pytest.raises(_Placed):
+            make()
+        assert placed == [16]
+        return
+    got = _message(make)
+    assert got == (f"--lookup-mode routed runs at most 64 shards on cards, got --devices "
+                   f"{devices}" if devices == 128 else
                    f"--lookup-mode routed needs a power-of-two --devices, got {devices}")
     assert not placed
+
+
+def test_routed_pipeline_sixteen_shards_equals_jax(db, single, tmp_path):
+    """16 routed shards, past the 8 of JAX's CPU mesh: the port's bytes
+    equal utree_tpu's single-device search on the same DB."""
+    out = tmp_path / "port.txt"
+    pipe = SearchPipeline(db["port"], device="cpu", do_rc=True, batch_size=BATCH,
+                          devices=16, lookup_mode="routed")
+    assert pipe.table_kind == "routed-displaced" and len(pipe._tables) == 16
+    assert pipe._sharded.num_shards == 16
+    pipe.search_file(db["reads"], str(out))
+    assert out.read_bytes() == single

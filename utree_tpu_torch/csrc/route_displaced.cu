@@ -30,20 +30,22 @@
 // order, as the cumsum of routed.py:430-434 gives it, so that a batch that
 // overflows drops the same lanes as JAX.  A slot taken with atomicAdd would
 // not keep that order, so `route` is one pass of a prefix scan with a
-// decoupled look-back (Merrill and Garland) over tiles of 1024 lanes, S <= 8
-// sums at once; a block of 256 threads takes four lanes a thread, so that
-// more tiles are in flight to hide each one's chain of global round trips.
-// A block takes its tile from an atomic ticket, so every tile before it has
-// started; stages the tile's packed bytes and validity bits in shared
-// memory as aligned words (at most 8 KB + 4 KB: a lane adds at most 8 and 4
-// bytes) and cuts each lane's 32 bases from them with byte permutes and
-// funnel shifts, seven shared loads a lane where kmer::window_at makes 64
-// byte loads; counts its lanes per owner from warp ballots; warp o
-// publishes owner o's tile count as an aggregate, looks back over the flags
-// of the 32 tiles before it at a time until one holds an inclusive prefix,
-// and publishes its own.  Each lane then writes its record once, with its
-// final slot, and the payload of rank < C to `send`.  A flag word is
-// (status << 32 | value), status 0 until written, 1 an aggregate, 2 an
+// decoupled look-back (Merrill and Garland) over tiles of 1024 lanes, S <=
+// 64 sums at once; a block of 256 threads takes four lanes a thread, so that
+// more tiles are in flight to hide each one's chain of global round trips. A
+// block takes its tile from an atomic ticket, so every tile before it has
+// started; stages the tile's packed bytes and validity bits in shared memory
+// as aligned words (at most 8 KB + 4 KB: a lane adds at most 8 and 4 bytes)
+// and cuts each lane's 32 bases from them (kmer.cuh's staged windows, which
+// K1 and K4 share); counts its lanes per owner from warp ballots; warp w
+// takes owners w, w + 8, ... in turn: it publishes the owner's tile count as
+// an aggregate, looks back over the flags of the 32 tiles before it at a
+// time until one holds an inclusive prefix, and publishes its own (a tile's
+// later owners wait on its earlier owners' look-backs, which wait only on
+// earlier tiles, so none waits for ever).  The per-owner sums take 136 B of
+// dynamic shared memory an owner.  Each lane then writes its record once,
+// with its final slot, and the payload of rank < C to `send`.  A flag word
+// is (status << 32 | value), status 0 until written, 1 an aggregate, 2 an
 // inclusive prefix: one 64-bit store publishes both, so no fence orders
 // them.  The last tile writes the counts; `zero_tail` then zeroes each
 // owner's unwritten slots [count, C).
@@ -56,7 +58,7 @@ constexpr int TILE = 1024;  // lanes a tile
 constexpr int ITEMS = 4;    // lanes a thread: lane tile*TILE + j*TPB + thread
 constexpr int TPB = TILE / ITEMS;
 constexpr int NWARPS = TPB / 32;
-constexpr int MAX_SHARDS = 8;
+constexpr int MAX_SHARDS = 64;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 // Staged words of a tile (see the note above), with 3 words of slack for
 // the alignment and the reads past the last byte.
@@ -65,7 +67,6 @@ constexpr int VB_WORDS = 1032;
 constexpr unsigned long long AGGREGATE = 1ull << 32, PREFIX = 2ull << 32;
 
 static_assert(ITEMS * NWARPS == 32, "one warp scans an owner's 32 (slab, warp) counts");
-static_assert(NWARPS >= MAX_SHARDS, "a warp a shard looks back");
 
 __device__ __forceinline__ unsigned long long ld_flag(const unsigned long long* p) {
   unsigned long long v;
@@ -83,26 +84,6 @@ __device__ __forceinline__ int32_t warp_sum(int32_t v) {
   return v;
 }
 
-// Copy bytes [g0, g1] of `src` into `dst` as the aligned words that hold
-// them; returns the byte offset of dst[0] relative to src (<= g0).  The
-// three words after them are zeroed.
-__device__ __forceinline__ int64_t stage(const uint8_t* src, int64_t g0, int64_t g1,
-                                         uint32_t* dst) {
-  const int64_t lead = static_cast<int64_t>(reinterpret_cast<uintptr_t>(src + g0) & 3);
-  const int64_t base = g0 - lead;
-  const int nwords = static_cast<int>((g1 - base) >> 2) + 1;
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(src + base);
-  for (int k = threadIdx.x; k < nwords + 3; k += TPB) dst[k] = k < nwords ? w[k] : 0u;
-  return base;
-}
-
-// The bytes o..o+3 of the staged words as a big-endian word: 32 bits of
-// the MSB-first stream the packed bases and validity bits make.
-__device__ __forceinline__ uint32_t be32(const uint32_t* s, int o) {
-  const uint32_t sel = 0x0123u + 0x1111u * static_cast<uint32_t>(o & 3);
-  return __byte_perm(s[o >> 2], s[(o >> 2) + 1], sel);
-}
-
 // One lane: its owner (-1 for an invalid window), local bucket and key.
 struct Lane {
   int owner, fwd_le;
@@ -117,29 +98,27 @@ route(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits,
       unsigned long long* __restrict__ flags, unsigned* __restrict__ ticket,
       int4* __restrict__ rec, int32_t* __restrict__ send, int32_t* __restrict__ counts) {
   __shared__ uint32_t spk[PK_WORDS], svb[VB_WORDS];
-  // an owner's lanes in each (slab, warp) of the tile, then those before it
-  __shared__ int32_t wbefore[MAX_SHARDS][32];
-  __shared__ int32_t tbefore[MAX_SHARDS], ttotal[MAX_SHARDS];
-  // the tile, its first read, and the first and last packed and validity
-  // bytes its lanes need
-  __shared__ int64_t geo[6];
+  // S x 32 (an owner's lanes in each (slab, warp) of the tile, then those
+  // before it), then S (its lanes before the tile), then S (through it)
+  extern __shared__ int32_t sums[];
+  int32_t(*wbefore)[32] = reinterpret_cast<int32_t(*)[32]>(sums);
+  int32_t* tbefore = sums + 32 * S;
+  int32_t* ttotal = tbefore + S;
+  // the tile, and the bytes its lanes need
+  __shared__ int64_t tile_s;
+  __shared__ kmer::Span span;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
     const int64_t tile = atomicAdd(ticket, 1u);
     const int64_t p0 = tile * TILE, p1 = (p0 + TILE < P ? p0 + TILE : P) - 1;
-    const int64_t b0 = p0 / W, b1 = p1 / W, w0 = p0 - b0 * W, w1 = p1 - b1 * W;
-    geo[0] = tile;
-    geo[1] = b0;
-    geo[2] = b0 * row4 + (w0 >> 2);
-    geo[3] = b1 * row4 + ((w1 + 31) >> 2);
-    geo[4] = b0 * row8 + (w0 >> 3);
-    geo[5] = b1 * row8 + ((w1 + 31) >> 3);
+    tile_s = tile;
+    span = kmer::span_of(p0, p1, W, row4, row8);
   }
   __syncthreads();
-  const int64_t tile = geo[0], b0 = geo[1];
-  const int64_t pbase = stage(packed, geo[2], geo[3], spk);
-  const int64_t vbase = stage(vbits, geo[4], geo[5], svb);
+  const int64_t tile = tile_s, b0 = span.b0;
+  const int64_t pbase = kmer::stage<TPB>(packed, span.pk0, span.pk1, spk);
+  const int64_t vbase = kmer::stage<TPB>(vbits, span.vb0, span.vb1, svb);
   __syncthreads();
 
   Lane ln[ITEMS];
@@ -156,13 +135,10 @@ route(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits,
       const int32_t q = static_cast<int32_t>(p - b0 * W);  // < TILE + W
       const int32_t bl = q / W, w = q - bl * W;
       const int64_t b = b0 + bl;
-      const int o = static_cast<int>(b * row4 + (w >> 2) - pbase);
-      const uint32_t x0 = be32(spk, o), x1 = be32(spk, o + 4), x2 = be32(spk, o + 8);
-      const int r2 = 2 * (w & 3);
-      const uint32_t hi32 = __funnelshift_l(x1, x0, r2), lo32 = __funnelshift_l(x2, x1, r2);
-      const int ov = static_cast<int>(b * row8 + (w >> 3) - vbase);
-      const uint32_t ok = __funnelshift_l(be32(svb, ov + 4), be32(svb, ov), w & 7);
-      if (ok == FULL && w + 31 < lens[b]) {
+      uint32_t hi32, lo32;
+      if (kmer::staged_window(spk, svb, static_cast<int>(b * row4 + (w >> 2) - pbase),
+                              static_cast<int>(b * row8 + (w >> 3) - vbase), w, lens[b],
+                              hi32, lo32)) {
         l.fwd_le = kmer::canonical(hi32, lo32, l.k) ? 1 : 0;
         const uint32_t per_seed = static_cast<uint32_t>(nseed / S);
         const uint32_t g = kmer::fold_hash(l.k) & static_cast<uint32_t>(nseed - 1);
@@ -179,8 +155,7 @@ route(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits,
   }
   __syncthreads();
 
-  if (warp < S) {  // warp o: owner o's sums
-    const int o = warp;
+  for (int o = warp; o < S; o += NWARPS) {  // warp w: owners w, w + NWARPS, ...
     const int32_t c = wbefore[o][lane];
     int32_t inc = c;
 #pragma unroll
@@ -263,13 +238,14 @@ __global__ void zero_tail(int32_t* __restrict__ send, const int32_t* __restrict_
 }  // namespace
 
 // packed (B, row4) u8, vbits (B, row8) u8, lens (B,) i32; W windows a read;
-// nseed the global seed count (S divides it); S shards (1..8); C slots an
+// nseed the global seed count (S divides it); S shards (1..64); C slots an
 // owner; scratch: ceil(B*W/1024)*S + 1 int64 (the flags, then the ticket),
 // zeroed here; send (S, C, 3), rec (B*W, 4), counts (S+1,) int32.
 extern "C" int utree_route_displaced(
     const void* packed, const void* vbits, const void* lens, int64_t B, int64_t row4,
     int64_t row8, int32_t W, int64_t nseed, int32_t S, int32_t C, void* scratch,
     void* send, void* rec, void* counts, void* stream) {
+  if (S < 1 || S > MAX_SHARDS) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const int64_t P = B * W;
   const int64_t tiles = (P + TILE - 1) / TILE;
@@ -285,7 +261,8 @@ extern "C" int utree_route_displaced(
   auto* flags = static_cast<unsigned long long*>(scratch);
   err = cudaMemsetAsync(flags, 0, sizeof(unsigned long long) * (tiles * S + 1), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  route<<<static_cast<unsigned>(tiles), TPB, 0, st>>>(
+  const size_t sums = sizeof(int32_t) * 34 * static_cast<size_t>(S);
+  route<<<static_cast<unsigned>(tiles), TPB, sums, st>>>(
       static_cast<const uint8_t*>(packed), static_cast<const uint8_t*>(vbits),
       static_cast<const int32_t*>(lens), P, row4, row8, W, nseed, S, C, tiles, flags,
       reinterpret_cast<unsigned*>(flags + tiles * S), static_cast<int4*>(rec), sd, cn);

@@ -453,6 +453,14 @@ def _level(t: torch.Tensor, name: str, cps: int, dev):
     return t, t.shape[0], t.shape[1] // cps
 
 
+def _row_aligned(t: torch.Tensor, name: str, cps: int) -> None:
+    """K1 and K4 load a two-slot row as three 8 B (narrow) or two 16 B
+    (wide) vector loads: the table must start on that boundary."""
+    align = 16 if cps == 4 else 8
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align} B aligned for its two-slot rows")
+
+
 def window_ids(tables: dict, packed, vbits, lengths, *, do_rc: bool,
                bad_ix: int, num_labels: int, true_len: int | None = None,
                probe_iters: int | None = None) -> torch.Tensor:
@@ -461,7 +469,8 @@ def window_ids(tables: dict, packed, vbits, lengths, *, do_rc: bool,
     records, 'bin_ix') or K10 `hash_probe` (the legacy hash, 't1', whose
     full int32 ids serve narrow and wide labels alike); the plain version
     on CPU tensors.  K7 loops until every search range is empty, so it
-    needs no `probe_iters`."""
+    needs no `probe_iters`.  K1's d1 and a two-slot c1 must be 8 B aligned
+    (narrow) or 16 B (wide)."""
     if packed.device.type == "cpu":
         return window_ids_plain(tables, packed, vbits, lengths, do_rc=do_rc,
                                 bad_ix=bad_ix, num_labels=num_labels,
@@ -512,6 +521,7 @@ def window_ids(tables: dict, packed, vbits, lengths, *, do_rc: bool,
         nseed = 4 * seeds.shape[0]
         if t1.shape[1] != 2 * cps:
             raise ValueError("displaced t1 must have 2-slot rows")
+        _row_aligned(t1, "d1", cps)
         if nseed & (nseed - 1) or n3 & (n3 - 1):
             raise ValueError("seed table and d3 must have power-of-two sizes")
         kernels.launch("scan_probe" + suffix, *front, t1.data_ptr(), 2 * t1.shape[0],
@@ -520,6 +530,8 @@ def window_ids(tables: dict, packed, vbits, lengths, *, do_rc: bool,
         levels = [_level(tables[k], k, cps, dev) for k in ("c1", "c2", "c3")]
         if any(n & (n - 1) for _, n, _ in levels):
             raise ValueError("ladder levels must have power-of-two row counts")
+        if levels[0][2] == 2:
+            _row_aligned(levels[0][0], "c1", cps)
         kernels.launch("ladder_probe" + suffix, *front,
                        *(x for tt, n, s in levels for x in (tt.data_ptr(), n, s)),
                        *back)

@@ -63,7 +63,7 @@ from utree_tpu_torch.lookup import (_first_hit_wide, base_codes_packed,
                                     probe_rows_wide)
 from utree_tpu_torch.parallel.mesh import ShardMesh
 
-MAX_SHARDS = 8  # table shards: K11 keeps one block count per owner
+MAX_SHARDS = 64  # table shards on cards: K11 keeps a (32,) block count per owner
 CAPACITY_FACTOR = 1.3  # routing slots per (sender, owner) over the even share
 
 

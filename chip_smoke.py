@@ -37,13 +37,17 @@ Phases; each passes or the script exits non-zero:
    (--kmers 64-mers, 70,000 labels); `auto` must resolve to the 64-mer
    ladder and lookup_mode="displaced" gives the 64-mer displaced table; for
    each, K6 ladder_probe64 or K5 scan_probe64 and K2 histogram_unpacked
-   against their plain versions at B=65536 ASCII reads, the reads end to end
-   twice and the host check; the two outputs must be byte-identical; 2048
+   against their plain versions at B=65536 ASCII reads (K6's bound counts
+   the c64_2 and c64_3 rows its windows read, each level at most once),
+   the reads end to end twice and the host check; the two outputs must be
+   byte-identical; 2048
    short and 4 long reads (20-200 kbp) through the ladder, whose whole
    output must equal the host path's;
-10. bsearch: the phase-4 tier under lookup_mode="bsearch"; K7 bsearch_probe
-   against its plain version at phase 3's shapes; the reads end to end
-   twice; the output must equal phase 4's byte for byte;
+10. bsearch: the phase-4 tier under lookup_mode="bsearch" (the records on
+   the card, timed, and their 16 B rows built on the host, timed apart);
+   K7 bsearch_probe against its plain version at phase 3's shapes, with the
+   bound of the records' 16 B rows and of the three arrays; the reads end
+   to end twice; the output must equal phase 4's byte for byte;
 11. compact readback: K8 hist_compact against its plain version on phase
    3's batch, and its time on 1024 of those rows; on the phase-4 tier (displaced table, RC) with the first
    131,072 reads: support_ranges=8 twice through the compact layout (K1,
@@ -109,6 +113,9 @@ Phases; each passes or the script exits non-zero:
 
 Every path run (phases 4, 6-13, 15-19) starts with every launch count at 0
 and reads them just after; each kernel its path needs must have launched.
+Each kernel row prints events ms and device ms; K6 and K5 (phase 9), K7
+(phase 10) and K15 (phase 18) also print ptxas's registers, shared memory
+and spills.
 Prints the card line, a {"kernels": [...]} JSON line and, last, the
 {"ok": true, "device": {...}} line.  Imports nothing of JAX or of the JAX
 package: the tier recipe, the table cache and the host oracle are the
@@ -159,6 +166,13 @@ WIDE_ROUTED_CHECK = 4096  # phase 15's wide reads held to the CPU shards
 
 # launches summed over the path runs (each one counted from 0)
 PATH_LAUNCHES: dict[str, int] = {}
+# (entry function, usage) from the build's ptxas report (phase 2)
+PTXAS: list[tuple[str, str]] = []
+# the entry points whose rows print their kernels' ptxas usage, by the
+# kernel function's name in the mangled entry function
+PTXAS_ROWS = {"ladder_probe64": "ladder_probe64_kernel", "scan_probe64": "scan_probe64_kernel",
+              "bsearch_probe": "bsearch_probe_kernel",
+              "bsearch_probe_shard": "bsearch_probe_shard_kernel"}
 
 
 def fail(msg: str):
@@ -232,12 +246,12 @@ def windows(lens, k: int) -> int:
     return int((lens.long() - (k - 1)).clamp(min=0).sum())
 
 
-def probe_bytes(packed, vbits, lens, ids, k: int, sectors: int) -> int:
+def probe_bytes(packed, vbits, lens, ids, k: int, sectors: int, table) -> int:
     """A probe's bytes: the packed reads in, the ids out, and `sectors` 32 B
-    sectors of table rows for each valid window of k bases (one row a
-    window at 24 or 32 B, two at 48 B; the bsearch replay's words read a
-    bin offset and one record)."""
-    return nbytes(packed, vbits, lens, ids) + SECTOR * sectors * windows(lens, k)
+    sectors of `table`'s rows for each valid window of k bases (one row a
+    window at 24 or 32 B, two at 48 B), the table read at most once."""
+    return nbytes(packed, vbits, lens, ids) + min(SECTOR * sectors * windows(lens, k),
+                                                  nbytes(table))
 
 
 def check_kernel(name, source, replaces, kernel, plain, what: str, moved: int,
@@ -246,10 +260,10 @@ def check_kernel(name, source, replaces, kernel, plain, what: str, moved: int,
     events (ms), the entry point also with its calls queued ahead of the
     device (device_ms, no host time).  `moved` is the bytes the function
     must move on these inputs (inputs read once, outputs written once, one
-    sector per table row or record a valid window needs); its time at the
-    card's memory rate is the row's bound.  The work is integer compares
-    and adds, a few per byte, far under the card's operation rates, so
-    bytes bound every kernel.
+    sector per table row or record a valid window needs, each table at
+    most once); its time at the card's memory rate is the row's bound.
+    The work is integer compares and adds, a few per byte, far under the
+    card's operation rates, so bytes bound every kernel.
     `library`, where PyTorch computes the same function (K16's bincount),
     must give the kernel's values and is timed as library_ms; elsewhere no
     PyTorch call computes it and library_ms is null.  Returns its row of
@@ -268,6 +282,9 @@ def check_kernel(name, source, replaces, kernel, plain, what: str, moved: int,
     log(f"kernel {name}: equal to plain at {what}; {ms:.4f} ms ({dev_ms:.4f} on the "
         f"device) vs plain {plain_ms:.4f} ms{lib}; bound {bound_ms:.4f} ms "
         f"({moved:,} bytes)")
+    for fn, usage in PTXAS:
+        if name in PTXAS_ROWS and PTXAS_ROWS[name] in fn:
+            log(f"  ptxas {name}: {fn}: {usage}")
     return {"name": name, "route": "cuda", "source": f"utree_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -394,7 +411,7 @@ def phase_kernels(dev, table, reads, index, max_iters):
         check_kernel("scan_probe", "scan_probe.cu", "utree_tpu/lookup.py:887",
                      lambda: lookup.window_ids(table, packed, vbits, lens, **kw),
                      lambda: lookup.window_ids_plain(table, packed, vbits, lens, **kw),
-                     what, probe_bytes(packed, vbits, lens, ids, 32, 1)),
+                     what, probe_bytes(packed, vbits, lens, ids, 32, 1, table["d1"])),
         check_kernel("histogram", "histogram.cu", "utree_tpu/lookup.py:621",
                      lambda: lookup.histogram(ids, L, HIST_CAP),
                      lambda: lookup.compact_histogram(ids, L, HIST_CAP), what,
@@ -435,7 +452,8 @@ def phase_ladder(dev, base: dict, work: pathlib.Path):
     row = check_kernel("ladder_probe", "ladder_probe.cu", "utree_tpu/lookup.py:349",
                        lambda: lookup.window_ids(t, packed, vbits, lens, **kw),
                        lambda: lookup.window_ids_plain(t, packed, vbits, lens, **kw),
-                       f"B={packed.shape[0]}", probe_bytes(packed, vbits, lens, ids, 32, 1))
+                       f"B={packed.shape[0]}", probe_bytes(packed, vbits, lens, ids, 32, 1,
+                                                           t["c1"]))
     out_txt = work / "smoke_ladder.txt"
     rps = e2e(pipe, base["reads_fa"], out_txt, len(reads), "ladder e2e",
               ("ladder_probe", "histogram", "aufbau_vote"))
@@ -616,7 +634,7 @@ def phase_wide(dev, kmers: int, base: dict, work: pathlib.Path):
             name, source, replaces,
             lambda: lookup.window_ids(t, packed, vbits, lens, **kw),
             lambda: lookup.window_ids_plain(t, packed, vbits, lens, **kw), what,
-            probe_bytes(packed, vbits, lens, ids, 32, 1)))
+            probe_bytes(packed, vbits, lens, ids, 32, 1, t["d1" if "d1" in t else "c1"])))
         if kind == "ladder":
             hist = lookup.histogram_unpacked(ids, L, HIST_CAP)
             rows.append(check_kernel(
@@ -785,8 +803,18 @@ def phase_k64(dev, kmers: int, nreads: int, work: pathlib.Path):
             + ", ".join(f"{k} {tuple(v.shape)}" for k, v in tab.items()))
         what = f"B={b} ASCII reads, L=192, {L} labels"
         ids = lookup.window_ids64(tab, rt, lt, **kw)
-        # a 64-mer slot row is 48 B: two sectors a window
-        moved = nbytes(rt, lt, ids) + SECTOR * 2 * windows(lt, 64)
+        # a 64-mer slot row is 48 B: two sectors a window; on the ladder
+        # the windows c64_1 does not hold read a c64_2 row (and c64_3);
+        # each level at most once
+        first = tab["c64_1" if mode == "auto" else "d64_1"]
+        moved = nbytes(rt, lt, ids) + min(SECTOR * 2 * windows(lt, 64), nbytes(first))
+        if mode == "auto":
+            reach = ladder64_reach(tab, rt, lt)
+            for k in ("c64_2", "c64_3"):
+                rb = tab[k].shape[1] * 4  # row bytes
+                moved += min(reach[k] * SECTOR * -(-rb // SECTOR), nbytes(tab[k]))
+            log(f"k64 {kind}: {windows(lt, 64):,} valid windows, {reach['c64_2']:,} read "
+                f"c64_2, {reach['c64_3']:,} read c64_3 (the plain levels)")
         rows.append(check_kernel(
             name, f"{name}.cu", "utree_tpu/lookup.py:" + ("460" if mode == "auto" else "521"),
             lambda: lookup.window_ids64(tab, rt, lt, **kw),
@@ -808,6 +836,47 @@ def phase_k64(dev, kmers: int, nreads: int, work: pathlib.Path):
         fail("k64: the ladder's and the displaced table's outputs differ")
     log("k64: the two tables' whole outputs are byte-identical")
     return rows, stats
+
+
+def ladder64_reach(tab: dict, reads, lens) -> dict:
+    """Valid windows whose key c64_1 does not hold (they read a c64_2 row)
+    and those no earlier level holds (a c64_3 row), by the plain functions;
+    0 for an absent (8-row) level, which is never read."""
+    from utree_tpu_torch import lookup as lk
+    from utree_tpu_torch._u32 import i32
+
+    k0, k1, k2, k3, valid = lk.extract_windows64(lk.base_codes(reads, lens))
+    *c, _ = lk.canonicalize64(k0, k1, k2, k3)
+    ci = [i32(x) for x in c]
+
+    def missed(k, h):
+        t = tab[k]
+        va, vb = lk.probe_rows64(t[h & (t.shape[0] - 1)], ci, t.shape[1] // 6)
+        return (va | vb) == 0
+
+    miss = valid & missed("c64_1", lk._fold64(c))
+    present = {k: tab[k].shape[0] > 8 for k in ("c64_2", "c64_3")}
+    out = {"c64_2": int(miss.sum()) if present["c64_2"] else 0}
+    if present["c64_2"]:
+        miss &= missed("c64_2", lk.mix4(*c, 0x5BD1E995))
+    out["c64_3"] = int(miss.sum()) if present["c64_3"] else 0
+    return out
+
+
+def bsearch_bins(bin_ix, packed, vbits, lens, true_len: int) -> dict:
+    """The batch's words (both strands) by the size of their prefix bin, by
+    the plain functions: invalid, empty bin, one record, more."""
+    from utree_tpu_torch import lookup as lk
+
+    p, v = lk._trim(packed, vbits, true_len)
+    qpre, qhi, qlo, valid = lk.extract_windows(lk.base_codes_packed(p, v, lens))
+    out = {"invalid": 2 * int((~valid).sum()), "empty": 0, "one": 0, "more": 0}
+    for pre in (qpre, lk.rc_word_lanes(qpre, qhi, qlo)[0]):
+        pre = pre[valid]
+        size = bin_ix[pre + 1].long() - bin_ix[pre].long()
+        for k, m in (("empty", size == 0), ("one", size == 1), ("more", size > 1)):
+            out[k] += int(m.sum())
+    return out
 
 
 def long64(pipe, genome, reads, host, work: pathlib.Path) -> dict:
@@ -851,29 +920,48 @@ def long64(pipe, genome, reads, host, work: pathlib.Path) -> dict:
 
 def phase_bsearch(dev, base: dict, work: pathlib.Path):
     """Phase 10: the bsearch replay over the phase-4 tier's CTR records."""
+    import torch
+
     from utree_tpu_torch import lookup
+    from utree_tpu_torch.hash_index import bsearch_records
     from utree_tpu_torch.pipeline import SearchPipeline
 
     index, reads = base["index"], base["reads"]
     t = time.perf_counter()
     pipe = SearchPipeline(index, device=dev, do_rc=True, batch_size=BATCH,
                           hist_cap=HIST_CAP, lookup_mode="bsearch")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
     if pipe.table_kind != "bsearch" or pipe.layout != "vote":
         fail(f"bsearch: resolved to {pipe.table_kind}, layout {pipe.layout}")
     tab = base["k32_tables"]["bsearch"] = pipe._tables[0]
-    log(f"bsearch: records on the card in {time.perf_counter() - t:.1f} s, probe_iters "
-        f"{index.probe_iters}, " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in tab.items()
-                                             if not k.startswith("vt_")))
+    place_s = time.perf_counter() - t
+    t = time.perf_counter()
+    bsearch_records(index)
+    log(f"bsearch: the pipeline built, its records on the card, in {place_s:.2f} s; "
+        f"their 16 B rows rec ({nbytes(tab['rec']):,} bytes) take "
+        f"{time.perf_counter() - t:.2f} s of that to build on the host (timed again "
+        f"alone); probe_iters {index.probe_iters}, " + ", ".join(
+            f"{k} {tuple(v.shape)}" for k, v in tab.items() if not k.startswith("vt_")))
     packed, vbits, lens = batch_tensors(dev, reads)
     kw = dict(do_rc=True, bad_ix=0xFFFF, true_len=(READ_LEN + 7) & ~7,
               num_labels=index.num_labels, probe_iters=index.probe_iters)
     ids = lookup.window_ids(tab, packed, vbits, lens, **kw)
-    # both strands' words are probed apart; each reads a bin offset and the
-    # found record's suffix and id (suf_hi, suf_lo, ix): 2 x 4 sectors
+    # each valid word (both strands) reads a bin offset, each whose bin is
+    # not empty the record its descent ends on, each table at most once:
+    # K7's 16 B records, or, as the plain version reads them, the three
+    # arrays (a found word's id sector apart from its suffix's)
+    bins = bsearch_bins(tab["bin_ix"], packed, vbits, lens, kw["true_len"])
+    words, hit = sum(bins[k] for k in ("empty", "one", "more")), bins["one"] + bins["more"]
+    moved = nbytes(packed, vbits, lens, ids) + min(nbytes(tab["bin_ix"]), SECTOR * words)
+    arrays = moved + sum(min(nbytes(tab[k]), SECTOR * hit) for k in ("suf_hi", "suf_lo", "ix"))
+    moved += min(nbytes(tab["rec"]), SECTOR * hit)
+    log(f"bsearch: valid words by bin size {bins}; the three arrays' layout moves "
+        f"{arrays:,} bytes, a bound of {arrays / HBM_BYTES_PER_S * 1e3:.4f} ms")
     row = check_kernel("bsearch_probe", "bsearch_probe.cu", "utree_tpu/lookup.py:149",
                        lambda: lookup.window_ids(tab, packed, vbits, lens, **kw),
                        lambda: lookup.window_ids_plain(tab, packed, vbits, lens, **kw),
-                       f"B={packed.shape[0]}", probe_bytes(packed, vbits, lens, ids, 32, 8))
+                       f"B={packed.shape[0]}", moved)
     out_txt = work / "smoke_bsearch.txt"
     rps = e2e(pipe, base["reads_fa"], out_txt, len(reads), "bsearch e2e",
               ("bsearch_probe", "histogram", "aufbau_vote"))
@@ -1233,7 +1321,7 @@ def phase_hash(dev, base: dict, work: pathlib.Path):
                    == 0xFFFF).sum()) - (ids.numel() - words)
     # every valid word reads one 96 B t1 row (3 sectors), and each t1 miss a
     # t2 row, the t2 read at most once
-    moved = (probe_bytes(packed, vbits, lens, ids, 32, 6)
+    moved = (probe_bytes(packed, vbits, lens, ids, 32, 6, tab["t1"])
              + min(nbytes(tab["t2"]), 3 * SECTOR * t1_miss))
     log(f"hash batch: {words:,} words, {t1_miss:,} missing t1 "
         f"({t1_miss / words:.1%}), {int((ids != 0xFFFF).sum()):,} hits")
@@ -1348,8 +1436,8 @@ def routed_parts(sh, table: dict, b: int, w: int) -> dict:
                     lambda rec, reply: R.routed_finish(rec, reply, t3, **fin),
                     lambda rec, reply: R.routed_finish_plain(rec, reply, t3, **fin)),
             # a d1 row a written lane, bucket 0's row once for the unwritten
-            # slots, the seed words at most once each
-            owner_bytes=lambda written: (SECTOR * (written + 1)
+            # slots, d1 and the seed words at most once each
+            owner_bytes=lambda written: (min(nbytes(t1), SECTOR * (written + 1))
                                          + min(nbytes(ds), SECTOR * written)),
             tail=tail)
     t1, t2, t3 = table["t1"], table["t2"], table["t3"]
@@ -1386,8 +1474,9 @@ def routed_parts(sh, table: dict, b: int, w: int) -> dict:
                 lambda rec, reply: R.routed_canonical_finish(rec, reply, t2, t3, **fin),
                 lambda rec, reply: R.routed_canonical_finish_plain(rec, reply, t2, t3,
                                                                    **fin)),
-        # a c1 row a written lane, row 0 once for the unwritten slots
-        owner_bytes=lambda written: SECTOR * tail_sectors(t1) * (written + 1),
+        # a c1 row a written lane, row 0 once for the unwritten slots, c1
+        # at most once
+        owner_bytes=lambda written: min(nbytes(t1), SECTOR * tail_sectors(t1) * (written + 1)),
         tail=tail)
 
 
@@ -1758,14 +1847,17 @@ def phase_sharded(dev, base: dict):
     in_range = int((valid & (qpre >= lo) & (qpre < lo + per)).sum())
     del qpre, valid
     # each in-range word reads a bin offset and a (suf_hi, suf_lo) pair,
-    # about three sectors; a found one its id too
+    # about three sectors, a found one its id too; each of the slice's
+    # arrays at most once
+    slice_bytes = (sum(min(nbytes(s0[k]), SECTOR * in_range)
+                       for k in ("bin_ix", "suf_hi", "suf_lo"))
+                   + min(nbytes(s0["ix"]), SECTOR * int(found.sum())))
     rows.append(check_kernel(
         "bsearch_probe_shard", "bsearch_probe.cu", "utree_tpu/parallel/sharded.py:130",
         lambda: S.shard_probe(s0, packed, vbits, lens, **pkw),
         lambda: S.shard_probe_plain(s0, packed, vbits, lens, **pkw),
         f"{what}, slice 0 of 4 ({in_range:,} of {2 * b * w:,} words in range)",
-        nbytes(packed, vbits, lens, ix, found)
-        + SECTOR * (3 * in_range + int(found.sum()))))
+        nbytes(packed, vbits, lens, ix, found) + slice_bytes))
 
     # the long-read histogram over phase 8's long reads, a (4, 2) mesh
     m42 = make_mesh(4, 2, [dev] * 8)
@@ -2060,9 +2152,11 @@ def main() -> int:
 
     so, secs, ptxas = build()
     library()
+    PTXAS.extend(ptxas_usage(ptxas))
     log(f"build: {so.name} in {secs:.1f} s (0.0 = already built)")
-    for name, usage in ptxas_usage(ptxas):
+    for name, usage in PTXAS:
         # K2's streamed branch and K11's kernels by name, the rest by usage
+        # (and phases 9, 10 and 18 print K5, K6, K7 and K15's by name)
         named = "histogram_rows" in name or "route_displaced_cu" in name
         log(f"  ptxas: {name if named else '...'}: {usage}")
 

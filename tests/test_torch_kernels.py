@@ -435,6 +435,75 @@ def test_k7_on_an_abnormal_bin(dev):
         assert int((ids[:, 0] < 40).sum()) > 100  # stored words are found
 
 
+def _tile_edge_ns(reads, lens, W, k, tile=256):
+    """N at the first base of each tile's first window and at the last base
+    of each tile's last window, for windows of k bases in a (B, W) grid."""
+    n = reads.shape[0]
+    for p0 in range(0, n * W, tile):
+        for p, j in ((p0, 0), (min(p0 + tile, n * W) - 1, k - 1)):
+            b, w = divmod(p, W)
+            if w + j < reads.shape[1]:
+                reads[b, w + j] = ord("N")
+    return reads
+
+
+def _k7_edge_reads(genome, n, seed, dev, width=192):
+    """n reads of lengths 0-192 (some shorter than 32 bases), N's at random
+    and at the edges of K7's 256-lane blocks for the untrimmed grid, and
+    every 11th read all N (every window invalid)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.choice([0, 5, 31, 32, 33, 34, 63, 150, 191, 192], n).astype(np.int32)
+    starts = rng.integers(0, len(genome) - width, n)
+    reads = genome[starts[:, None] + np.arange(width)].copy()
+    reads[rng.random(reads.shape) < 0.003] = ord("N")
+    reads = _tile_edge_ns(reads, lens, width - 31, 32)
+    reads[::11] = ord("N")
+    reads[np.arange(width)[None, :] >= lens[:, None]] = 0
+    return [torch.from_numpy(a).to(dev) for a in tl.pack_reads_host(reads, lens)]
+
+
+@pytest.mark.parametrize("true_len", [None, 152, 104, 40, 32], ids=lambda t: f"true_len={t}")
+def test_k7_tile_edges_match_plain(tier, dev, true_len):
+    """K7 over grids whose W does not divide its 256-lane blocks (161,
+    121, 73 and 9 windows) and a true_len trim to one window; reads of
+    0-192 bases (1-3 windows at 32-34 bases), all-N reads and N's at the
+    blocks' edges; both strands' descents together; RC on and off: equal
+    to the plain version, and the same over 10 launches."""
+    index = tier["index"]
+    table = bsearch_to_device(index, dev)
+    packed, vbits, lens = _k7_edge_reads(tier["genome"], 777, 44, dev)
+    for do_rc in (True, False):
+        kw = dict(do_rc=do_rc, bad_ix=BAD, true_len=true_len, num_labels=64,
+                  probe_iters=index.probe_iters)
+        want = tl.window_ids_plain(table, packed, vbits, lens, **kw)
+        assert want.shape[1] == (2 if do_rc else 1) * ((true_len or 192) - 31)
+        assert int((want < 64).sum()) > (0 if (true_len or 192) < 40 else 1000)
+        n0 = kernels.launches["bsearch_probe"]
+        for _ in range(10):
+            assert torch.equal(tl.window_ids(table, packed, vbits, lens, **kw), want)
+        assert kernels.launches["bsearch_probe"] == n0 + 10
+        assert (want[::11] == BAD).all()  # the all-N reads
+
+
+def test_k7_refuses_records_it_cannot_read(tier, dev):
+    """K7 reads the records' 16 B copy: a table without it, or with one
+    that is misaligned or of the wrong shape, raises before any launch."""
+    index = tier["index"]
+    table = bsearch_to_device(index, dev)
+    packed, vbits, lens = _packed_reads(tier["genome"], 64, 5, dev)
+    kw = dict(do_rc=True, bad_ix=BAD, num_labels=64, probe_iters=index.probe_iters)
+    rec = table["rec"]
+    buf = torch.empty(rec.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = buf[1:].view(rec.shape)
+    shifted.copy_(rec)
+    n0 = kernels.launches["bsearch_probe"]
+    for bad in ({k: v for k, v in table.items() if k != "rec"}, dict(table, rec=shifted),
+                dict(table, rec=rec[:-1])):
+        with pytest.raises(ValueError, match="rec"):
+            tl.window_ids(bad, packed, vbits, lens, **kw)
+    assert kernels.launches["bsearch_probe"] == n0
+
+
 @pytest.fixture(scope="module")
 def k64(dev):
     index, genome, _ = tier64(40_000, 64)
@@ -524,6 +593,70 @@ def test_probe64_sentinels_match_plain(k64, dev, kind):
         assert torch.equal(ids, tl.window_ids64_plain(table, reads, lens, do_rc=do_rc,
                                                       bad_ix=65535))
         assert int((ids < 5).sum()) > 100
+
+
+def _k6_edge_reads(genome, n, seed, dev, width):
+    """n ASCII reads in rows of `width` (W = width - 63 windows), of lengths
+    0 to width with some shorter than 64 bases, lower case and N's at
+    random and at K6's tile edges, every 11th read all N."""
+    rng = np.random.default_rng(seed)
+    lens = rng.choice(sorted({0, 5, 63, 64, 65, 66, width - 1, width}), n).astype(np.int32)
+    starts = rng.integers(0, len(genome) - width, n)
+    reads = genome[starts[:, None] + np.arange(width)].copy()
+    reads[rng.random(reads.shape) < 0.003] = ord("N")
+    low = rng.random(reads.shape) < 0.02
+    reads[low] |= 0x20
+    reads = _tile_edge_ns(reads, lens, width - 63, 64)
+    reads[::11] = ord("N")
+    reads[np.arange(width)[None, :] >= lens[:, None]] = 0
+    return torch.from_numpy(reads).to(dev), torch.from_numpy(lens).to(dev)
+
+
+@pytest.mark.parametrize("width", [192, 200, 100, 73, 66, 65, 64], ids=lambda w: f"L={w}")
+@pytest.mark.parametrize("geometry", ["chain", "chain-sentinels", "no-c2"])
+def test_k6_tile_edges_match_plain(k64, dev, geometry, width):
+    """K6's staged ASCII windows over rows whose W does not divide 256
+    (129, 137, 37 and 10 windows), and rows of 1-3 windows, where a tile
+    spans more bytes than it stages and its lanes read their bases with
+    window_at; reads of 0 to L bases, all-N reads and N's at the tiles'
+    edges; the three-level chain, the chain with c64_2 and c64_3 both the
+    8-row "absent" sentinel, and with c64_2 absent and c64_3 in use; RC on
+    and off: equal to the plain version, and the same over 10 launches."""
+    table, _ = _table64(k64["index"], "chain", dev)
+    if geometry == "chain-sentinels":
+        table = dict(table, c64_2=_sentinel(table["c64_2"], 4),
+                     c64_3=_sentinel(table["c64_3"], 5))
+    elif geometry == "no-c2":
+        table = dict(table, c64_2=_sentinel(table["c64_2"], 6))
+    reads, lens = _k6_edge_reads(k64["genome"], 777, 45, dev, width)
+    nl = k64["index"].num_labels
+    for do_rc in (True, False):
+        kw = dict(do_rc=do_rc, bad_ix=0x7FFFFFFF)
+        want = tl.window_ids64_plain(table, reads, lens, **kw)
+        assert want.shape[1] == (2 if do_rc else 1) * (width - 63)
+        assert int((want < nl).sum()) > (100 if width >= 100 else 10)
+        n0 = kernels.launches["ladder_probe64"]
+        for _ in range(10):
+            assert torch.equal(tl.window_ids64(table, reads, lens, **kw), want)
+        assert kernels.launches["ladder_probe64"] == n0 + 10
+        assert (want[::11] == 0x7FFFFFFF).all()  # the all-N reads
+
+
+def test_k6_refuses_misaligned_levels(k64, dev):
+    """K6 loads its rows as 16 B vectors: a c64_1, c64_2 or c64_3 that
+    starts off a 16 B boundary raises before any launch."""
+    table, _ = _table64(k64["index"], "chain", dev)
+    reads, lens = _ascii_reads(k64["genome"], 64, 9, dev)
+    n0 = kernels.launches["ladder_probe64"]
+    for key in ("c64_1", "c64_2", "c64_3"):
+        t = table[key]
+        buf = torch.empty(t.numel() + 2, dtype=torch.int32, device=dev)
+        shifted = buf[2:].view(t.shape)  # 8 B past the allocation's start
+        shifted.copy_(t)
+        with pytest.raises(ValueError, match="16 B aligned"):
+            tl.window_ids64(dict(table, **{key: shifted}), reads, lens, do_rc=True,
+                            bad_ix=0x7FFFFFFF)
+    assert kernels.launches["ladder_probe64"] == n0
 
 
 @pytest.mark.parametrize("cap", [1, 8, 30])

@@ -525,6 +525,92 @@ def test_bsearch_window_ids_match_jax(tier, do_rc):
         assert torch.equal(t[:, :121], fwd)
 
 
+def test_bsearch_records_hold_the_three_arrays(tier):
+    """K7's 16 B records {suf_hi, suf_lo, ix, 0}: one row a record and the
+    sentinel, contiguous, equal to the three arrays JAX's lookup_kmers reads
+    (the JAX index's own); the table's suf_hi, suf_lo and ix are rec's
+    columns, not copies."""
+    from utree_tpu_torch.hash_index import bsearch_records, bsearch_to_device
+
+    index = tier["index"]
+    t = bsearch_to_device(tier["port"], "cpu")
+    rec, n = t["rec"], t["suf_hi"].shape[0] - 1
+    assert rec.dtype == torch.int32 and tuple(rec.shape) == (n + 1, 4)
+    assert rec.is_contiguous()
+    assert np.array_equal(bsearch_records(tier["port"]), _np(rec))
+    for col, k in enumerate(("suf_hi", "suf_lo", "ix")):
+        assert t[k]._base is rec and t[k].data_ptr() == rec[:, col].data_ptr()
+        assert t[k].shape == (n + 1,) and t[k].stride() == (4,)
+    assert not rec[:, 3].any()
+    jt = index.device_put()
+    assert np.array_equal(_np(rec[:, 0]), np.asarray(jt["suf_hi"]))
+    assert np.array_equal(_np(rec[:, 1]).view(np.uint32), np.asarray(jt["suf_lo"]))
+    assert np.array_equal(_np(rec[:, 2]), np.asarray(jt["ix"]))
+    assert np.array_equal(_np(t["bin_ix"]), np.asarray(jt["bin_ix"]))
+
+
+@pytest.mark.parametrize("true_len", [None, 104])
+def test_bsearch_bins_count_words_by_bin_size(tier, true_len):
+    """chip_smoke.bsearch_bins, which sizes K7's bound: both strands' words
+    by the size of their prefix bin (invalid, empty, one record, more),
+    against JAX's windows of the same reads cut to true_len and the JAX
+    index's bin offsets."""
+    from chip_smoke import bsearch_bins
+
+    index = tier["index"]
+    reads, lens = _reads(tier["genome"], 96, seed=13, width=192)
+    packed, vbits, lens = tl.pack_reads_host(reads, lens)
+    t = 192 if true_len is None else true_len
+    wj = jl.extract_windows(jl.base_codes_packed(packed[:, :t // 4], vbits[:, :t // 8], lens))
+    valid = np.asarray(wj[3])
+    bin_ix = np.asarray(index.bin_ix).astype(np.int64)
+    want = {"invalid": 2 * int((~valid).sum()), "empty": 0, "one": 0, "more": 0}
+    for pre in (wj[0], jl.rc_word_lanes(*wj[:3])[0]):
+        pre = np.asarray(pre).astype(np.uint32).astype(np.int64)[valid]
+        size = bin_ix[pre + 1] - bin_ix[pre]
+        for k, m in (("empty", size == 0), ("one", size == 1), ("more", size > 1)):
+            want[k] += int(m.sum())
+    got = bsearch_bins(torch.from_numpy(np.asarray(index.bin_ix)),
+                       *(torch.from_numpy(a) for a in (packed, vbits, lens)), true_len)
+    assert got == want and sum(want.values()) == 2 * valid.size
+    assert min(want.values()) > 0
+
+
+def test_replicated_records_stay_views(tier):
+    """mesh.replicate copies rec once a device and makes suf_hi, suf_lo and
+    ix views of that copy (the meta device copies as a card does); a
+    device the table is on keeps the table's own tensors."""
+    from utree_tpu_torch.hash_index import bsearch_to_device
+    from utree_tpu_torch.parallel.mesh import ShardMesh
+
+    t = bsearch_to_device(tier["port"], "cpu")
+    same, *copies = ShardMesh(["cpu", "meta", "meta"]).replicate(t)
+    assert list(same) == list(t) and all(same[k] is t[k] for k in t)
+    for r in copies:
+        assert list(r) == list(t) and r["rec"]._base is None
+        assert r["rec"].device.type == "meta" and r["rec"].shape == t["rec"].shape
+        assert r["bin_ix"].shape == t["bin_ix"].shape
+        for col, k in enumerate(("suf_hi", "suf_lo", "ix")):
+            assert r[k]._base is r["rec"] and r[k].shape == t[k].shape
+            assert r[k].stride() == (4,) and r[k].storage_offset() == col
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_row_alignment_checks(shift):
+    """The vector row loads' alignment rule: K6's 64-mer levels and K1/K4's
+    wide two-slot rows start on 16 B, the narrow ones on 8 B; a view that
+    starts off that boundary raises ValueError before any launch."""
+    buf = torch.zeros(4092 + 8, dtype=torch.int32)
+    off = (-buf.data_ptr() // 4) % 4 + shift  # int32 elements past a 16 B boundary
+    t = buf[off:off + 4092].view(-1, 12)
+    for align in (16, 8):
+        if (4 * shift) % align:
+            with pytest.raises(ValueError, match=f"c64_1 must be {align} B aligned"):
+                tl._row_aligned(t, "c64_1", align)
+        else:
+            tl._row_aligned(t, "c64_1", align)
+
+
 @pytest.mark.parametrize("step", ["vote", "packed", "unpacked"])
 def test_bsearch_steps_match_jax(tier, step):
     """The three packed steps over the CTR records, as the JAX pipeline

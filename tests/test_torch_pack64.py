@@ -233,6 +233,33 @@ def test_lookup64_matches_jax(geometry, do_rc):
     assert (t[..., ~valid] == MISS).all()
 
 
+@pytest.mark.parametrize("geometry", ["chain", "wide-c2"])
+def test_ladder64_reach_matches_jax(env, geometry):
+    """chip_smoke.ladder64_reach, which sizes K6's bound: the valid windows
+    c64_1 does not hold (they read a c64_2 row) and those c64_2 does not
+    hold either (a c64_3 row), against JAX's lookup over the first level
+    and then the first two; an absent (8-row) level counts 0."""
+    from chip_smoke import ladder64_reach
+
+    built = _geometry(env[4], geometry)
+    reads, lens = _reads(env["genome"], 200, seed=71)
+    *k, valid = jl.extract_windows64(jl.base_codes(reads, lens))
+    jt = built.device_put()
+    kw = dict(slots=built.slots, slots2=built.slots2, miss=MISS, do_rc=True)
+
+    def missed(tables):
+        a, b = (np.asarray(x) for x in jl.lookup_kmers_canonical64(tables, *k, valid, **kw))
+        return int((np.asarray(valid) & (a == MISS) & (b == MISS)).sum())
+
+    none2 = jnp.zeros((8, jt["c64_2"].shape[1]), jnp.int32)
+    reach2 = missed({"c64_1": jt["c64_1"], "c64_2": none2})
+    reach3 = missed({"c64_1": jt["c64_1"], "c64_2": jt["c64_2"]})
+    got = ladder64_reach(canonical64_to_device(built, "cpu"), torch.from_numpy(reads),
+                         torch.from_numpy(lens))
+    assert got == {"c64_2": reach2, "c64_3": reach3 if built.t3.shape[0] > 8 else 0}
+    assert reach2 > reach3 > 0
+
+
 @pytest.mark.parametrize("ixb", [4, 2], ids=["u32", "u16"])
 def test_lookup64_sentinels_match_jax(ixb):
     """A DB of seven words spills nothing: c64_2, c64_3 and d64_3 are the

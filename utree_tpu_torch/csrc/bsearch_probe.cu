@@ -16,18 +16,33 @@
 // step sums over the `table` axis.
 //
 // Bound: each word is a chain of dependent loads -- bin_ix[pre] and
-// bin_ix[pre+1] (64 MB, one random sector), then one random (suf_hi, suf_lo)
-// pair per halving of the bin, then ix[p].  At 20M records in 2^24 bins a bin
-// holds about 1.2 records, so a word costs about three dependent HBM round
-// trips; the replay is latency-bound, not bandwidth-bound.  K15 makes that
-// trip for the words of its slice only (a quarter of them at S = 4), but
-// decodes every window and writes five bytes for each.
+// bin_ix[pre+1] (64 MB, one random sector), then the records its descent
+// visits.  At 20M records in 2^24 bins a bin holds 1.2 records, but a
+// stored word's bin 2.2: of phase 10's 15.6M valid words (both strands)
+// 2.8M meet an empty bin, 5.3M a bin of one record and 7.5M a larger one.
+// The sectors are random, and K7 runs at the rate the card reads random
+// sectors from device memory (PERF.md §6), so it saves sectors: it reads
+// a record as one 16 B {suf_hi, suf_lo, ix, 0} entry of `rec` (a derived
+// copy the bsearch table's dict carries, hash_index.bsearch_records), one
+// sector where the three arrays cost three.  K15 makes its trip for the
+// words of its slice only (a quarter of them at S = 4), over the three
+// arrays, but decodes every window and writes five bytes for each.
 //
-// Design: one thread per (read, window), doing the forward word and, with
-// RC, its RC word, so the B*W chains are all in flight and occupancy hides
-// their latency.  The loop runs while the range is non-empty.  JAX runs a
-// fixed `probe_iters` = ceil(log2(max bin + 1)) trips instead, but a lane
-// whose size reached 0 is frozen there (no branch moves p or size), and
+// Design of K7: one thread a (read, window) lane, both strands' words in
+// flight together.  The thread cuts its forward word with window_at (K1's
+// staged windows bought nothing here: the front half hides behind the
+// chains), and its RC word is rev2(~lo32):rev2(~hi32).  Both words' bin
+// offsets are loaded before either descent, and both descend together.
+// A word in a one-record bin loads that record with its partner's first
+// probe, so it costs two dependent round trips, which the thread's two
+// words share; in a larger bin each probe's record replaces the one held
+// when the probe moves p, and the start record is loaded only by a
+// descent that ends on it (loading it with the first probe took 5% more
+// time on an H100: a sector more for most such words).
+//
+// The loop runs while the range is non-empty.  JAX runs a fixed
+// `probe_iters` = ceil(log2(max bin + 1)) trips instead, but a lane whose
+// size reached 0 is frozen there (no branch moves p or size), and
 // `probe_iters` trips always empty the largest bin, so both end on the same
 // p, on the quirky merged bins too.  A slice keeps the global bins' record
 // ranges (its offsets are the global ones less the slice's first record), so
@@ -35,20 +50,22 @@
 // `min(p, n)` keep every read inside the n+1 records; for K7 record n is the
 // sentinel (suffix 0, id bad_ix), for K15 n is the slice's padded length
 // (max_local over the slices, not its own count), so the clamp reads the
-// zero-suffix, id-bad_ix padding records exactly where JAX reads them.  K7's
-// invalid windows write bad_ix and read no bin (JAX searches bin 0 for them
-// and discards the result).
+// zero-suffix, id-bad_ix padding records exactly where JAX reads them.  An
+// invalid window writes bad_ix and reads no bin (JAX searches bin 0 for it
+// and discards the result).  The suffix compare is (hi, lo) with lo
+// unsigned.
 
 #include "kmer.cuh"
 
 namespace {
 
+// K15's slice of the records, as three arrays.
 struct Records {
-  const int32_t* bin_ix;  // bin starts: (2^24 + 1,), or a slice's (nbins + 1,)
+  const int32_t* bin_ix;  // a slice's bin starts (nbins + 1,)
   const int32_t* suf_hi;  // (n + 1,) suffix bits 39..32
   const uint32_t* suf_lo; // (n + 1,) suffix bits 31..0
   const int32_t* ix;      // (n + 1,) label ids
-  int64_t n;              // index of the sentinel (K7) or last padding record (K15)
+  int64_t n;              // index of the last padding record
 };
 
 // The probe sequence over the records [start, end) of a non-empty bin: the
@@ -77,17 +94,6 @@ __device__ __forceinline__ bool matches(const Records& t, int64_t p, int32_t qhi
   return t.suf_hi[p] == qhi && t.suf_lo[p] == qlo;
 }
 
-// One word's replay over the whole table: the label id of the record the
-// probe sequence ends on, or bad_ix.
-__device__ __forceinline__ int32_t replay(const Records& t, bool valid, uint32_t qpre,
-                                          int32_t qhi, uint32_t qlo, int32_t bad_ix) {
-  if (!valid) return bad_ix;
-  int64_t start = t.bin_ix[qpre], end = t.bin_ix[qpre + 1];
-  if (start >= end) return bad_ix;
-  int64_t p = descend(t, start, end, qhi, qlo);
-  return matches(t, p, qhi, qlo) ? t.ix[p] : bad_ix;
-}
-
 // One word's replay over a slice of `nbins` bins from prefix `lo`: writes
 // where(found, ix, 0) and found.
 __device__ __forceinline__ void replay_local(const Records& t, int64_t lo, int64_t nbins,
@@ -109,48 +115,129 @@ __device__ __forceinline__ void replay_local(const Records& t, int64_t lo, int64
   *found_out = found;
 }
 
-__global__ void bsearch_probe_kernel(
+// ---- K7 ---------------------------------------------------------------------
+
+constexpr int TPB = 256;
+
+// record <= (qhi, qlo) on a 16 B record {suf_hi, suf_lo, ix, 0}
+__device__ __forceinline__ bool rec_le(const int4& r, int32_t qhi, uint32_t qlo) {
+  return r.x < qhi || (r.x == qhi && static_cast<uint32_t>(r.y) <= qlo);
+}
+
+// The replay of NW words (the forward word, and with RC its RC word) over
+// the whole table, their chains interleaved: the label id of the record
+// each word's probe sequence ends on, or bad_ix.
+template <int NW>
+__device__ __forceinline__ void replay_words(const int32_t* __restrict__ bin_ix,
+                                             const int4* __restrict__ rec, int32_t n,
+                                             const uint32_t (&hi)[NW],
+                                             const uint32_t (&lo)[NW], int32_t bad_ix,
+                                             int32_t (&ids)[NW]) {
+  int32_t p[NW], size[NW];
+  int4 r[NW];    // the record at min(p, n), once `have`
+  bool have[NW];
+#pragma unroll
+  for (int s = 0; s < NW; ++s) {
+    const uint32_t pre = hi[s] >> 8;
+    const int32_t start = __ldg(bin_ix + pre), end = __ldg(bin_ix + pre + 1);
+    p[s] = start;
+    size[s] = end - start - 1;  // -1 (or less): an empty bin, no descent
+    r[s] = make_int4(0, 0, 0, 0);
+  }
+  // a one-record bin's record now; a larger bin's start record only if
+  // its descent ends there
+#pragma unroll
+  for (int s = 0; s < NW; ++s) {
+    have[s] = size[s] == 0;
+    if (have[s]) r[s] = __ldg(rec + (p[s] < n ? p[s] : n));
+  }
+  bool more = true;
+  while (more) {
+    int4 pr[NW];
+    int32_t w[NW];
+#pragma unroll
+    for (int s = 0; s < NW; ++s) {
+      if (size[s] > 0) {
+        w[s] = size[s] >> 1;
+        const int32_t probe = p[s] + w[s] + 1;  // <= p + size < end <= n
+        pr[s] = __ldg(rec + (probe < n ? probe : n));
+      }
+    }
+    more = false;
+#pragma unroll
+    for (int s = 0; s < NW; ++s) {
+      if (size[s] > 0) {
+        if (rec_le(pr[s], static_cast<int32_t>(hi[s] & 0xFFu), lo[s])) {
+          p[s] += w[s] + 1;
+          size[s] -= w[s] + 1;
+          r[s] = pr[s];
+          have[s] = true;
+        } else {
+          size[s] = w[s];
+        }
+        more |= size[s] > 0;
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < NW; ++s)
+    if (size[s] == 0 && !have[s]) r[s] = __ldg(rec + (p[s] < n ? p[s] : n));
+#pragma unroll
+  for (int s = 0; s < NW; ++s)
+    ids[s] = size[s] == 0 && r[s].x == static_cast<int32_t>(hi[s] & 0xFFu) &&
+                     static_cast<uint32_t>(r[s].y) == lo[s]
+                 ? r[s].z
+                 : bad_ix;
+}
+
+template <bool RC>
+__global__ void __launch_bounds__(TPB) bsearch_probe_kernel(
     const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits,
     const int32_t* __restrict__ lens, int64_t B, int64_t row4, int64_t row8,
-    int32_t W, Records t, int32_t do_rc, int32_t bad_ix,
-    int32_t* __restrict__ out) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    int32_t W, const int32_t* __restrict__ bin_ix, const int4* __restrict__ rec,
+    int32_t n, int32_t bad_ix, int32_t* __restrict__ out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * TPB + threadIdx.x;
   if (i >= B * W) return;
-  int64_t b = i / W;
-  int32_t w = static_cast<int32_t>(i - b * W);
+  const int64_t b = i / W;
+  const int32_t w = static_cast<int32_t>(i - b * W);
   uint32_t hi32, lo32;
-  bool valid = kmer::window_at(packed + b * row4, vbits + b * row8, lens[b], w,
-                               hi32, lo32);
-  int32_t fwd = replay(t, valid, hi32 >> 8, static_cast<int32_t>(hi32 & 0xFFu),
-                       lo32, bad_ix);
-  if (!do_rc) {
-    out[b * W + w] = fwd;
-    return;
+  const bool valid = kmer::window_at(packed + b * row4, vbits + b * row8, lens[b], w, hi32,
+                                     lo32);
+  if constexpr (RC) {
+    int32_t ids[2] = {bad_ix, bad_ix};
+    if (valid) {
+      // rc_word_lanes: rc(hi32:lo32) = rev2(~lo32):rev2(~hi32)
+      const uint32_t hi[2] = {hi32, kmer::rev2(~lo32)}, lo[2] = {lo32, kmer::rev2(~hi32)};
+      replay_words<2>(bin_ix, rec, n, hi, lo, bad_ix, ids);
+    }
+    out[b * 2 * W + w] = ids[0];
+    out[b * 2 * W + W + w] = ids[1];
+  } else {
+    int32_t ids[1] = {bad_ix};
+    if (valid) {
+      const uint32_t hi[1] = {hi32}, lo[1] = {lo32};
+      replay_words<1>(bin_ix, rec, n, hi, lo, bad_ix, ids);
+    }
+    out[b * W + w] = ids[0];
   }
-  // rc_word_lanes: rc(hi32:lo32) = rev2(~lo32):rev2(~hi32)
-  uint32_t rhi = kmer::rev2(~lo32), rlo = kmer::rev2(~hi32);
-  out[b * 2 * W + w] = fwd;
-  out[b * 2 * W + W + w] = replay(t, valid, rhi >> 8,
-                                  static_cast<int32_t>(rhi & 0xFFu), rlo, bad_ix);
 }
 
 }  // namespace
 
+// rec: (n + 1, 4) int32 records {suf_hi, suf_lo, ix, 0}, 16 B aligned;
+// n < 2^31 - 1.  Writes (B, 2W) [fwd | rc] ids with RC, else (B, W).
 extern "C" int utree_bsearch_probe(
     const void* packed, const void* vbits, const void* lens, int64_t B,
-    int64_t row4, int64_t row8, int32_t W, const void* bin_ix,
-    const void* suf_hi, const void* suf_lo, const void* ix, int64_t n,
-    int32_t do_rc, int32_t bad_ix, void* out, void* stream) {
-  const int threads = 256;
+    int64_t row4, int64_t row8, int32_t W, const void* bin_ix, const void* rec,
+    int64_t n, int32_t do_rc, int32_t bad_ix, void* out, void* stream) {
   int64_t total = B * W;
   if (total > 0) {
-    Records t{static_cast<const int32_t*>(bin_ix), static_cast<const int32_t*>(suf_hi),
-              static_cast<const uint32_t*>(suf_lo), static_cast<const int32_t*>(ix), n};
-    bsearch_probe_kernel<<<utree_blocks(total, threads), threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+    auto* kernel = do_rc ? bsearch_probe_kernel<true> : bsearch_probe_kernel<false>;
+    kernel<<<utree_blocks(total, TPB), TPB, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(packed), static_cast<const uint8_t*>(vbits),
-        static_cast<const int32_t*>(lens), B, row4, row8, W, t, do_rc, bad_ix,
-        static_cast<int32_t*>(out));
+        static_cast<const int32_t*>(lens), B, row4, row8, W,
+        static_cast<const int32_t*>(bin_ix), static_cast<const int4*>(rec),
+        static_cast<int32_t>(n), bad_ix, static_cast<int32_t*>(out));
   }
   UTREE_LAUNCH_RESULT();
 }

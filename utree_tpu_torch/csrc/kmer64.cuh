@@ -1,12 +1,13 @@
 // The front half shared by the 64-mer probe kernels (K5 scan_probe64, K6
-// ladder_probe64): one (read, window) of an ASCII read -> its four-lane
-// 64-mer, the lex-min canonical key, the mix4 hashes the 64-mer placement
-// uses, the 6-column slot compare over one gathered row, and the decode into
-// per-window label ids.
+// ladder_probe64, K9 xtree_probe): one (read, window) of an ASCII read ->
+// its four-lane 64-mer, the lex-min canonical key, the mix4 hashes the
+// 64-mer placement uses, the 6-column slot compare over one gathered row,
+// and the decode into per-window label ids.  K5 cuts each window with
+// window_at, K6 from a staged tile (staged_lane); K9 takes base_code.
 //
 // Twins (utree_tpu/lookup.py): base_codes :31 with its _DEV_CODE table :23,
-// extract_windows64 :395 (window_at), rc_lanes64 :412 and _canonicalize64
-// :421 (canonical), _probe64 :442 (probe_row), the decode of
+// extract_windows64 :395 (window_at, staged_lane), rc_lanes64 :412 and
+// _canonicalize64 :421 (canonical), _probe64 :442 (probe_row), the decode of
 // lookup_kmers_canonical64 :513-518 / lookup_kmers_displaced64 :560-565 and
 // search_step's [ix_a | ix_b] concat :613 (write_ids); mix4 is
 // utree_tpu/hash_index64.py:30.  Arithmetic is true uint32, wrapping exactly
@@ -48,6 +49,114 @@ __device__ __forceinline__ bool window_at(const uint8_t* row, int32_t len,
     k[lane] = x;
   }
   return valid;
+}
+
+// ---- staged ASCII windows (K6) ----------------------------------------------
+// A block takes a tile of consecutive lanes p = b*W + w of a (B, L) ASCII
+// matrix (W = L - 63), stages the bytes its lanes need, decoded once, into
+// shared memory (`stage_ascii`), and cuts each lane's four lanes from them
+// with funnel shifts (`staged_lane`): eight shared loads a lane where
+// window_at makes 64 byte loads and 64 decodes.
+
+// Four ASCII bytes (the first at the lowest address) -> their 2-bit codes
+// MSB-first in the low 8 bits (an invalid byte codes 0) and their validity
+// bits MSB-first in the low 4 (ACGT or acgt: base_code below 4).
+__device__ __forceinline__ void decode4(uint32_t x, uint32_t& codes, uint32_t& ok) {
+  const uint32_t l = x | 0x20202020u;  // A/a -> a, ...; nothing else -> acgt
+  const uint32_t m = __vcmpeq4(l, 0x61616161u) | __vcmpeq4(l, 0x63636363u) |
+                     __vcmpeq4(l, 0x67676767u) | __vcmpeq4(l, 0x74747474u);
+  const uint32_t c = ((l >> 1) ^ (l >> 2)) & 0x03030303u & m;  // a0 c1 g2 t3
+  codes = ((c << 6) & 0xC0u) | ((c >> 4) & 0x30u) | ((c >> 14) & 0x0Cu) | (c >> 24);
+  ok = ((m << 3) & 8u) | ((m >> 6) & 4u) | ((m >> 15) & 2u) | (m >> 31);
+}
+
+// Stage bytes [g0, g1] of `src`, from the 16 B boundary at or below g0, as
+// 32 B chunks, one a thread of NT: chunk c becomes code words 2c and 2c+1
+// (16 bases each, MSB-first) and validity word c (32 bases, MSB-first).  One
+// zero chunk follows them; the caller checks that they fit.  Returns base,
+// the offset of the first staged byte.  A 16 B load that starts past g1 is
+// not made; one that starts at or before it lies in the 16 B-aligned block
+// of an in-bounds byte.
+template <int NT>
+__device__ __forceinline__ int64_t stage_ascii(const uint8_t* src, int64_t g0, int64_t g1,
+                                               uint32_t* codes, uint32_t* valid) {
+  const int64_t base = g0 - static_cast<int64_t>(reinterpret_cast<uintptr_t>(src + g0) & 15);
+  const int nchunks = static_cast<int>((g1 - base) >> 5) + 1;
+  for (int c = threadIdx.x; c <= nchunks; c += NT) {
+    uint32_t cw[2] = {0u, 0u}, vw = 0u;
+    if (c < nchunks) {
+      const int4* q = reinterpret_cast<const int4*>(src + base) + 2 * c;
+      const int4 a = __ldg(q);
+      const int4 b = base + 32 * c + 16 <= g1 ? __ldg(q + 1) : make_int4(0, 0, 0, 0);
+      const uint32_t x[8] = {static_cast<uint32_t>(a.x), static_cast<uint32_t>(a.y),
+                             static_cast<uint32_t>(a.z), static_cast<uint32_t>(a.w),
+                             static_cast<uint32_t>(b.x), static_cast<uint32_t>(b.y),
+                             static_cast<uint32_t>(b.z), static_cast<uint32_t>(b.w)};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        uint32_t cd, ok;
+        decode4(x[i], cd, ok);
+        cw[i >> 2] |= cd << (8 * (3 - (i & 3)));
+        vw |= ok << (4 * (7 - i));
+      }
+    }
+    codes[2 * c] = cw[0];
+    codes[2 * c + 1] = cw[1];
+    valid[c] = vw;
+  }
+  return base;
+}
+
+// One lane of a staged 64-mer tile: its read and window, whether it lies in
+// the grid (live) and is valid, and its four lanes (meaningful only when
+// valid).
+struct Lane {
+  int64_t b;
+  int32_t w;
+  bool live, valid;
+  uint32_t k[4];
+};
+
+// The tile of NT lanes from p0 of a (B, W) grid of P lanes over a (B, L)
+// ASCII matrix, one lane a thread: thread t's lane is p0 + t.  The bytes
+// the tile's lanes read are staged (stage_ascii) where they fit, with the
+// zero chunk, in `chunks` chunks of 32 B (codes: 2 * chunks words, valid:
+// chunks), which they do unless W is far below L; otherwise the lane reads
+// its bases with window_at.  A window is valid when its 64 bytes are bases
+// and w + 63 < len, which is window_at's test.  Synchronises the block
+// once.
+template <int NT>
+__device__ __forceinline__ Lane staged_lane(const uint8_t* reads, const int32_t* lens,
+                                            int64_t P, int64_t L, int32_t W, int64_t p0,
+                                            uint32_t* codes, uint32_t* valid, int chunks) {
+  const int64_t p1 = (p0 + NT < P ? p0 + NT : P) - 1;
+  const int64_t b0 = p0 / W, b1 = p1 / W;
+  const int64_t g0 = b0 * L + (p0 - b0 * W), g1 = b1 * L + (p1 - b1 * W) + 63;
+  const bool staged = ((g1 - g0 + 15) >> 5) + 2 <= chunks;
+  int64_t base = 0;
+  if (staged) base = stage_ascii<NT>(reads, g0, g1, codes, valid);
+  __syncthreads();
+  Lane l{0, 0, p0 + threadIdx.x < P, false, {0u, 0u, 0u, 0u}};
+  if (l.live) {
+    const int32_t q = static_cast<int32_t>(p0 + threadIdx.x - b0 * W);  // < NT + W
+    const int32_t bl = q / W;
+    l.b = b0 + bl;
+    l.w = q - bl * W;
+    const int32_t len = lens[l.b];
+    if (staged) {
+      const int o = static_cast<int>(l.b * L + l.w - base);
+      const int j = o >> 4, r = 2 * (o & 15);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) l.k[i] = __funnelshift_l(codes[j + i + 1], codes[j + i], r);
+      const int jv = o >> 5, s = o & 31;
+      const uint32_t v0 = __funnelshift_l(valid[jv + 1], valid[jv], s);
+      const uint32_t v1 = __funnelshift_l(valid[jv + 2], valid[jv + 1], s);
+      l.valid = (v0 & v1) == 0xFFFFFFFFu && l.w + 63 < len;
+    } else {
+      l.valid = window_at(reads + l.b * L, len, l.w, l.k);
+    }
+  }
+  return l;
 }
 
 // A canonical 64-mer key: its u32 lanes and their int32 bits (the table's).

@@ -26,7 +26,8 @@ All move to a device as int32 tensors under the JAX pytree's keys:
   hash_to_device         {t1, t2}
   displaced64_to_device  {d64_1, d64_s, d64_3}   (hash_index64)
   canonical64_to_device  {c64_1, c64_2, c64_3}   (hash_index64)
-  bsearch_to_device      {bin_ix, suf_hi, suf_lo, ix} (the CTR records)
+  bsearch_to_device      {bin_ix, rec, and rec's columns suf_hi, suf_lo, ix}
+                         (the CTR records)
 
 Narrow and wide (4-column slot) rows travel alike.  The geometry constants
 were tuned on a TPU (ROADMAP A.11); any geometry is exact, since a probe
@@ -938,14 +939,26 @@ def canonical64_to_device(canon: CanonicalHash64Arrays, device) -> dict[str, tor
                        ("c64_3", canon.t3)), device)
 
 
+def bsearch_records(index: DeviceIndexArrays) -> np.ndarray:
+    """The CTR records as K7 reads them: (N+1, 4) int32 rows {suf_hi,
+    suf_lo, ix, 0}, the sentinel last, 16 B each, so that a record costs one
+    32 B sector where three arrays cost three."""
+    rec = np.zeros((index.suf_hi.shape[0], 4), np.int32)
+    rec[:, 0], rec[:, 1], rec[:, 2] = index.suf_hi, index.suf_lo.view(np.int32), index.ix
+    return rec
+
+
 def bsearch_to_device(index: DeviceIndexArrays, device) -> dict[str, torch.Tensor]:
-    """The PACKSIZE=32 CTR records for the bsearch replay: bin_ix (2^24+1,),
-    suf_hi, suf_lo, ix (N+1,) with the index's sentinel record, all int32;
-    suf_lo (uint32) travels as its int32 bits and is compared unsigned."""
+    """The PACKSIZE=32 CTR records for the bsearch replay: bin_ix (2^24+1,)
+    and rec (N+1, 4) (bsearch_records), whose columns suf_hi, suf_lo and ix
+    (N+1,) are views, all int32; suf_lo (uint32) travels as its int32 bits
+    and is compared unsigned.  K7 reads rec, the plain version the views:
+    16 (N+1) bytes of records, 320 MB at 20M."""
     if index.bin_ix.dtype != np.int32:
         raise ValueError(
             f"the bsearch replay takes int32 bin offsets; this index holds "
             f"{index.num_records:,} records (int64 offsets from 2^31)")
-    return _to_device((("bin_ix", index.bin_ix), ("suf_hi", index.suf_hi),
-                       ("suf_lo", index.suf_lo.view(np.int32)), ("ix", index.ix)),
-                      device)
+    t = _to_device((("bin_ix", index.bin_ix), ("rec", bsearch_records(index))), device)
+    rec = t["rec"]
+    return {"bin_ix": t["bin_ix"], "suf_hi": rec[:, 0], "suf_lo": rec[:, 1],
+            "ix": rec[:, 2], "rec": rec}

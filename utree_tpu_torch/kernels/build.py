@@ -48,7 +48,7 @@ SIGNATURES = {
     "utree_ladder_probe": _LADDER,
     "utree_ladder_probe_wide": _LADDER,
     "utree_bsearch_probe": [P, P, P, I64, I64, I64, I32,
-                            P, P, P, P, I64,  # bin_ix, suf_hi, suf_lo, ix, n
+                            P, P, I64,  # bin_ix, rec (n + 1, 4), n
                             I32, I32, P, P],
     # K15: the K7 front, then one slice (bin_ix, suf_hi, suf_lo, ix, n), its
     # first prefix and bin count; do_rc, ix out, found out, stream
@@ -117,15 +117,17 @@ def _nvcc() -> str:
 @functools.cache
 def build() -> tuple[pathlib.Path, float, str]:
     """Compile the kernels if no build of these exact sources exists.
-    Returns (library path, seconds spent compiling, nvcc's ptxas report)."""
+    Returns (library path, seconds spent compiling, nvcc's ptxas report,
+    kept beside the library for a later call)."""
     srcs = _sources()
     digest = hashlib.sha1()
     for s in srcs:
         digest.update(s.name.encode() + b"\0" + s.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     so = BUILD_DIR / f"libutree_kernels_{digest.hexdigest()[:16]}.so"
+    report = so.with_suffix(".ptxas.txt")
     if so.exists():
-        return so, 0.0, ""
+        return so, 0.0, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(exist_ok=True)
     nvcc = _nvcc()
     tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
@@ -153,6 +155,7 @@ def build() -> tuple[pathlib.Path, float, str]:
         obj.unlink(missing_ok=True)
     if failed:
         raise RuntimeError("\n".join(failed))
+    report.write_text("".join(reports))
     os.replace(tmp, so)  # atomic: a concurrent build never loads a torn file
     return so, time.perf_counter() - t0, "".join(reports)
 

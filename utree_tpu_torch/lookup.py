@@ -18,7 +18,7 @@ masked to 32 bits (see `_u32`), and a wrapper:
 
   window_ids          -> K1 `csrc/scan_probe.cu`    (d1: scan_probe[_wide])
                          K4 `csrc/ladder_probe.cu`  (c1: ladder_probe[_wide])
-                         K7 `csrc/bsearch_probe.cu` (bin_ix: bsearch_probe)
+                         K7 `csrc/bsearch_probe.cu` (bin_ix + rec: bsearch_probe)
                          K10 `csrc/hash_probe.cu`   (t1: hash_probe)
                          (plain: window_ids_plain)
   ascii_pack          -> K14 `csrc/ascii_pack.cu`    (plain: ascii_pack_plain)
@@ -453,12 +453,12 @@ def _level(t: torch.Tensor, name: str, cps: int, dev):
     return t, t.shape[0], t.shape[1] // cps
 
 
-def _row_aligned(t: torch.Tensor, name: str, cps: int) -> None:
+def _row_aligned(t: torch.Tensor, name: str, align: int) -> None:
     """K1 and K4 load a two-slot row as three 8 B (narrow) or two 16 B
-    (wide) vector loads: the table must start on that boundary."""
-    align = 16 if cps == 4 else 8
+    (wide) vector loads, K6 its 64-mer rows as 16 B loads: the table must
+    start on that boundary."""
     if t.data_ptr() % align:
-        raise ValueError(f"{name} must be {align} B aligned for its two-slot rows")
+        raise ValueError(f"{name} must be {align} B aligned for its vector row loads")
 
 
 def window_ids(tables: dict, packed, vbits, lengths, *, do_rc: bool,
@@ -466,11 +466,12 @@ def window_ids(tables: dict, packed, vbits, lengths, *, do_rc: bool,
                probe_iters: int | None = None) -> torch.Tensor:
     """On CUDA tensors K1 `scan_probe[_wide]` (displaced table, 'd1'), K4
     `ladder_probe[_wide]` (ladder, 'c1'), K7 `bsearch_probe` (the CTR
-    records, 'bin_ix') or K10 `hash_probe` (the legacy hash, 't1', whose
-    full int32 ids serve narrow and wide labels alike); the plain version
-    on CPU tensors.  K7 loops until every search range is empty, so it
-    needs no `probe_iters`.  K1's d1 and a two-slot c1 must be 8 B aligned
-    (narrow) or 16 B (wide)."""
+    records: 'bin_ix' and 'rec', whose columns are suf_hi, suf_lo, ix) or
+    K10 `hash_probe` (the legacy hash, 't1', whose full int32 ids serve
+    narrow and wide labels alike); the plain version on CPU tensors.  K7 loops
+    until every search range is empty, so it needs no `probe_iters`.  K1's
+    d1 and a two-slot c1 must be 8 B aligned (narrow) or 16 B (wide), K7's
+    rec 16 B."""
     if packed.device.type == "cpu":
         return window_ids_plain(tables, packed, vbits, lengths, do_rc=do_rc,
                                 bad_ix=bad_ix, num_labels=num_labels,
@@ -496,15 +497,20 @@ def window_ids(tables: dict, packed, vbits, lengths, *, do_rc: bool,
             torch.cuda.current_stream(dev).cuda_stream)
     suffix = "_wide" if wide else ""
     if "bin_ix" in tables:
-        arrs = [tables[k] for k in ("bin_ix", "suf_hi", "suf_lo", "ix")]
-        for k, a in zip(("bin_ix", "suf_hi", "suf_lo", "ix"), arrs):
-            kernels.require(a, k, torch.int32, 1, dev)
-        n = arrs[1].shape[0] - 1
-        if arrs[0].shape[0] != (1 << 24) + 1 or n < 0 or any(
-                a.shape[0] != n + 1 for a in arrs[2:]):
-            raise ValueError("bin_ix must have 2^24+1 entries and suf_hi, "
-                             "suf_lo, ix one record each plus the sentinel")
-        kernels.launch("bsearch_probe", *front, *(a.data_ptr() for a in arrs), n,
+        bin_ix, rec = tables["bin_ix"], tables.get("rec")
+        if rec is None:
+            raise ValueError("K7 reads the records as 'rec' (n + 1, 4) "
+                             "(hash_index.bsearch_to_device makes it)")
+        kernels.require(bin_ix, "bin_ix", torch.int32, 1, dev)
+        kernels.require(rec, "rec", torch.int32, 2, dev)
+        n = tables["suf_hi"].shape[0] - 1
+        if bin_ix.shape[0] != (1 << 24) + 1:
+            raise ValueError("bin_ix must have 2^24+1 entries")
+        if tuple(rec.shape) != (n + 1, 4) or n < 0 or n >= 0x7FFFFFFF:
+            raise ValueError("rec must be (n + 1, 4) int32 records {suf_hi, suf_lo, "
+                             "ix, 0}, one a record and the sentinel, n < 2^31 - 1")
+        _row_aligned(rec, "rec", 16)
+        kernels.launch("bsearch_probe", *front, bin_ix.data_ptr(), rec.data_ptr(), n,
                        *back)
     elif "t1" in tables:
         levels = [_level(tables[k], k, 3, dev) for k in ("t1", "t2")]
@@ -521,7 +527,7 @@ def window_ids(tables: dict, packed, vbits, lengths, *, do_rc: bool,
         nseed = 4 * seeds.shape[0]
         if t1.shape[1] != 2 * cps:
             raise ValueError("displaced t1 must have 2-slot rows")
-        _row_aligned(t1, "d1", cps)
+        _row_aligned(t1, "d1", 16 if wide else 8)
         if nseed & (nseed - 1) or n3 & (n3 - 1):
             raise ValueError("seed table and d3 must have power-of-two sizes")
         kernels.launch("scan_probe" + suffix, *front, t1.data_ptr(), 2 * t1.shape[0],
@@ -531,7 +537,7 @@ def window_ids(tables: dict, packed, vbits, lengths, *, do_rc: bool,
         if any(n & (n - 1) for _, n, _ in levels):
             raise ValueError("ladder levels must have power-of-two row counts")
         if levels[0][2] == 2:
-            _row_aligned(levels[0][0], "c1", cps)
+            _row_aligned(levels[0][0], "c1", 16 if wide else 8)
         kernels.launch("ladder_probe" + suffix, *front,
                        *(x for tt, n, s in levels for x in (tt.data_ptr(), n, s)),
                        *back)
@@ -674,9 +680,9 @@ def hist_compact(rows: torch.Tensor, over_cap: int) -> torch.Tensor:
 
 
 # ---- the device steps --------------------------------------------------------
-# `table` holds d1/ds/d3, c1/c2/c3, t1/t2 or bin_ix/suf_hi/suf_lo/ix (and, for the
-# vote, the vote tables under `vt_*` keys); `probe_iters` is read by the
-# bsearch replay's plain version only.
+# `table` holds d1/ds/d3, c1/c2/c3, t1/t2 or bin_ix/suf_hi/suf_lo/ix/rec (and,
+# for the vote, the vote tables under `vt_*` keys); `probe_iters` is read by
+# the bsearch replay's plain version only.
 
 def search_step_vote_compact(table: dict, packed, vbits, lengths, *,
                              do_rc: bool, bad_ix: int, num_labels: int,
@@ -914,7 +920,8 @@ def window_ids64_plain(table: dict, reads, lengths, *, do_rc: bool,
 def window_ids64(table: dict, reads, lengths, *, do_rc: bool,
                  bad_ix: int) -> torch.Tensor:
     """On CUDA tensors K5 `scan_probe64` (displaced, 'd64_1') or K6
-    `ladder_probe64` (ladder, 'c64_1'); the plain version on CPU tensors."""
+    `ladder_probe64` (ladder, 'c64_1', whose levels must be 16 B aligned:
+    K6 reads its rows as 16 B loads); the plain version on CPU tensors."""
     if reads.device.type == "cpu":
         return window_ids64_plain(table, reads, lengths, do_rc=do_rc, bad_ix=bad_ix)
     dev = reads.device
@@ -946,6 +953,8 @@ def window_ids64(table: dict, reads, lengths, *, do_rc: bool,
         levels = [_level(table[k], k, 6, dev) for k in ("c64_1", "c64_2", "c64_3")]
         if any(n & (n - 1) for _, n, _ in levels):
             raise ValueError("ladder levels must have power-of-two row counts")
+        for k, (tt, _, _) in zip(("c64_1", "c64_2", "c64_3"), levels):
+            _row_aligned(tt, k, 16)
         kernels.launch("ladder_probe64", *front,
                        *(x for tt, n, s in levels for x in (tt.data_ptr(), n, s)),
                        *back)

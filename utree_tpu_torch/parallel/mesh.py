@@ -25,6 +25,21 @@ import torch
 AXES = ("data", "table")
 
 
+def _copy_to(table: dict[str, torch.Tensor], dev) -> dict[str, torch.Tensor]:
+    out = {k: v.to(dev) for k, v in table.items() if v._base is None}
+    for k, v in table.items():
+        if v._base is None:
+            continue
+        base = next((b for b, u in table.items() if u is v._base and u.is_contiguous()),
+                    None)
+        if base is None or out[base] is table[base]:  # v itself if nothing moved
+            out[k] = v.to(dev)
+        else:
+            out[k] = out[base].as_strided(v.shape, v.stride(),
+                                          v.storage_offset() - table[base].storage_offset())
+    return {k: out[k] for k in table}
+
+
 class ShardMesh:
     def __init__(self, devices, shape: tuple[int, int] | None = None):
         self.devices = [torch.device(d) for d in devices]
@@ -46,8 +61,10 @@ class ShardMesh:
 
     def replicate(self, table: dict[str, torch.Tensor]) -> list[dict[str, torch.Tensor]]:
         """One copy of `table` a device (devices that are one device share
-        one), for the steps that hold a table whole on every device."""
-        return [{k: v.to(dev) for k, v in table.items()} for dev in self.devices]
+        one), for the steps that hold a table whole on every device.  An
+        entry that views another (the bsearch records' columns suf_hi,
+        suf_lo, ix view `rec`) views that entry's copy."""
+        return [_copy_to(table, dev) for dev in self.devices]
 
     def all_to_all(self, blocks: list[torch.Tensor]) -> list[torch.Tensor]:
         """`jax.lax.all_to_all` over "table" with split and concat axis 0,

@@ -114,8 +114,8 @@ Phases; each passes or the script exits non-zero:
 Every path run (phases 4, 6-13, 15-19) starts with every launch count at 0
 and reads them just after; each kernel its path needs must have launched.
 Each kernel row prints events ms and device ms; K6 and K5 (phase 9), K7
-(phase 10) and K15 (phase 18) also print ptxas's registers, shared memory
-and spills.
+(phase 10), K10 (phase 13) and K15 (phase 18) also print ptxas's
+registers, shared memory and spills.
 Prints the card line, a {"kernels": [...]} JSON line and, last, the
 {"ok": true, "device": {...}} line.  Imports nothing of JAX or of the JAX
 package: the tier recipe, the table cache and the host oracle are the
@@ -172,7 +172,8 @@ PTXAS: list[tuple[str, str]] = []
 # kernel function's name in the mangled entry function
 PTXAS_ROWS = {"ladder_probe64": "ladder_probe64_kernel", "scan_probe64": "scan_probe64_kernel",
               "bsearch_probe": "bsearch_probe_kernel",
-              "bsearch_probe_shard": "bsearch_probe_shard_kernel"}
+              "bsearch_probe_shard": "bsearch_probe_shard_kernel",
+              "hash_probe": "hash_probe_kernel"}
 
 
 def fail(msg: str):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the probes K1 scan_probe[_wide], K4 ladder_probe[_wide], K7
-bsearch_probe, K15 bsearch_probe_shard, K5 scan_probe64 and K6
-ladder_probe64, K2's histograms and K11 route_displaced of one or more
+bsearch_probe, K15 bsearch_probe_shard, K10 hash_probe, K5 scan_probe64 and
+K6 ladder_probe64, K2's histograms and K11 route_displaced of one or more
 checkouts of this repository on one NVIDIA GPU, on the same inputs, at
 chip_smoke.py's shapes, with each call's device time split by launch.
 
@@ -11,10 +11,11 @@ Each TREE is the root of a checkout (default: this one); give the same tree
 more than once to interleave, e.g. `kernel_ab.py old . . old` for an A/B
 (old, new, new, old).  The inputs are made once, by this checkout's code on
 the card, and only those the selected calls need: chip_smoke's 20M-k-mer
-tier (4096 labels) with its CTR records, its displaced table and its
-canonical ladder, phase 7's 2M-k-mer tier of 70,000 labels (IXTYPE=u32)
-with both tables, and phase 9's 20M 64-mer tier of 70,000 labels
-(chip_smoke.tier64) with its 64-mer ladder and displaced table;
+tier (4096 labels) with its CTR records, its legacy hash (t1/t2), its
+displaced table and its canonical ladder, phase 7's 2M-k-mer tier of
+70,000 labels (IXTYPE=u32) with both tables, and phase 9's 20M 64-mer tier
+of 70,000 labels (chip_smoke.tier64) with its 64-mer ladder and displaced
+table;
 
 - K1 and K4 at phase 3's and phase 6's shape (65,536 reads of 150 bp,
   true_len 152, 121 windows, RC) on the 20M tier's tables, and their
@@ -29,11 +30,16 @@ with both tables, and phase 9's 20M 64-mer tier of 70,000 labels
   strands over the records' sorted 64-bit keys;
 - K15 at phase 18's (1, 8) shape: slice 0 of the 20M tier's records cut
   eight ways, the batch's reads packed by K14 at width 150, RC;
+- K10 at phase 13's shape (the same batch, true_len 152, RC) on the 20M
+  tier's t1/t2, with the count of valid words t1 does not answer; as a
+  yardstick, not K10's function, torch.index_select of the valid words'
+  t1 rows, forward and RC (96 B a row, each also written out);
 - K6 and K5 at phase 9's shape (65,536 ASCII reads of 150 bp in rows of
   192, 129 windows of which 87 valid, RC) on the 64-mer ladder and
   displaced table, with the count of valid windows whose key reaches
-  c64_2 and c64_3; as a yardstick, torch.index_select of the valid
-  windows' c64_1 rows;
+  c64_2 and c64_3 and the size of K5's seed table d64_s; as yardsticks,
+  torch.index_select of the valid windows' c64_1 rows and of their d64_1
+  rows;
 - K2 `histogram_packed` at each of phase 8's 16 long reads' chunk shapes
   (2-64 rows of 16,834-31,250 ids, as SearchPipeline.classify_long_read
   cuts them; calls `histogram_packed long read 0` to `15`, their shapes
@@ -56,9 +62,10 @@ shared memory and spills of the probes.  The outputs of every tree must
 be byte-identical.  Prints one JSON line per tree run and writes them all
 to FILE (.bench_cache/kernel_ab.json by default).  --only times the calls
 whose names match a regular expression, and makes only their inputs,
-e.g. 'bsearch' (K7, K15 and the searchsorted yardstick), 'probe64' (K5,
-K6 and the c64_1 yardstick), '^(scan|ladder)_probe ' (K1 and K4 narrow),
-'histogram' or 'route'.
+e.g. 'bsearch' (K7, K15 and the searchsorted yardstick), 'hash_probe'
+(K10 and its t1 yardstick), 'probe64' (K5, K6 and their yardsticks),
+'scan_probe64|hash_probe' (K5 and K10), '^(scan|ladder)_probe ' (K1 and
+K4 narrow), 'histogram' or 'route'.
 """
 
 from __future__ import annotations
@@ -81,6 +88,7 @@ TRUE_LEN = 152  # chip_smoke's true_len for 150 bp reads: W = 121 windows
 QUEUED = 50  # calls queued behind a device sleep of QUEUE_CYCLES (> 50 ms)
 QUEUE_CYCLES = 100_000_000
 HIST_CAP = 8
+L2_BYTES = 50 << 20  # an H100's L2 cache (NVIDIA's data sheet)
 
 
 def _first_rows(table: dict, packed, vbits, lens) -> tuple:
@@ -133,6 +141,33 @@ def _bsearch_words(bs: dict, packed, vbits, lens):
     return keys, torch.cat(words)
 
 
+def _t1_rows(t1, packed, vbits, lens):
+    """The t1 row of each valid word of the batch, forward words then RC
+    words, by the plain functions (lookup_kmers_hash's t1 bucket)."""
+    import torch
+
+    from utree_tpu_torch import lookup as lk
+
+    p, v = lk._trim(packed, vbits, TRUE_LEN)
+    qpre, qhi, qlo, valid = lk.extract_windows(lk.base_codes_packed(p, v, lens))
+    return torch.cat([(lk.mix(*w) & (t1.shape[0] - 1))[valid]
+                      for w in ((qpre, qhi, qlo), lk.rc_word_lanes(qpre, qhi, qlo))])
+
+
+def _d64_1_rows(tab: dict, reads, lens):
+    """The d64_1 row of each valid window of an ASCII batch, by the plain
+    functions (lookup_kmers_displaced64's seed and slot)."""
+    from utree_tpu_torch import lookup as lk
+
+    k0, k1, k2, k3, valid = lk.extract_windows64(lk.base_codes(reads, lens))
+    *c, _ = lk.canonicalize64(k0, k1, k2, k3)
+    seeds, t1 = tab["d64_s"], tab["d64_1"]
+    seed = lk.displaced_seed(seeds, lk._fold64(c) & (4 * seeds.shape[0] - 1))
+    h = (lk.mul32(lk.mix4(*c, 0x94D049BB) ^ lk.mul32(seed, 0x85EBCA6B), 0xC2B2AE35)
+         ^ lk.mul32(lk.mix4(*c, 0x7FEB352D) ^ lk.mul32(seed, 0xC2B2AE35), 0x85EBCA6B))
+    return ((h % (2 * t1.shape[0])) >> 1)[valid]
+
+
 def _c64_1_rows(tab: dict, reads, lens):
     """The c64_1 row of each valid window of an ASCII batch, by the plain
     functions."""
@@ -152,10 +187,11 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
     from utree_tpu_torch import lookup
     from utree_tpu_torch.hash_index import (_canonical_groups, bsearch_to_device,
                                             build_canonical_hash_index,
-                                            build_displaced_index,
+                                            build_displaced_index, build_hash_index,
                                             canonical64_to_device,
                                             canonical_to_device, displaced64_to_device,
-                                            displaced_nseed, displaced_to_device)
+                                            displaced_nseed, displaced_to_device,
+                                            hash_to_device)
     from utree_tpu_torch.hash_index64 import (build_canonical_hash_index64,
                                               build_displaced_index64)
     from utree_tpu_torch.parallel import sharded as S
@@ -186,16 +222,32 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
         rt = torch.from_numpy(np.ascontiguousarray(reads)).to(dev)
         rl = torch.full((rt.shape[0],), cs.READ_LEN, dtype=torch.int32, device=dev)
         spk, svb = lookup.ascii_pack(rt, rl)
+        # K10 at phase 13's shape: the 20M tier's legacy hash; the words t1
+        # does not answer read a t2 row (the plain version over t1 alone)
+        th = time.perf_counter()
+        hashed = hash_to_device(build_hash_index(index), dev)
+        hash_s = time.perf_counter() - th
+        t1_rows = _t1_rows(hashed["t1"], *batch)
+        t1_only = {"t1": hashed["t1"], "t2": torch.full((8, 24), -1, dtype=torch.int32,
+                                                        device=dev)}
+        t1_miss = int((lookup.window_ids_plain(
+            t1_only, *batch, do_rc=True, bad_ix=0xFFFF, num_labels=L, true_len=TRUE_LEN)
+            == 0xFFFF).sum()) - (2 * packed.shape[0] * (TRUE_LEN - 31) - t1_rows.numel())
         out.update(num_labels=L, probe_iters=index.probe_iters,
                    batch=[x.cpu() for x in batch], bsearch=cpu(bs), bins=bins,
                    bs_keys=keys.cpu(), bs_words=words.cpu(),
                    shard=dict(table=s0, batch=[x.cpu() for x in (spk, svb, rl)],
-                              prefix_lo=int(sh.prefix_lo[0]), width=cs.READ_LEN))
+                              prefix_lo=int(sh.prefix_lo[0]), width=cs.READ_LEN),
+                   hash=cpu(hashed), t1_rows=t1_rows.cpu())
         notes.append(f"K7: {kmers:,} records on the card in {time.perf_counter() - tb:.2f} s "
                      f"({', '.join(f'{k} {tuple(v.shape)}' for k, v in bs.items())}); "
                      f"words by bin size {json.dumps(bins)}; searchsorted "
                      f"{words.numel():,} words over {keys.numel():,} keys; K15 slice 0 of 8, "
                      f"{s0['suf_hi'].shape[0]:,} records")
+        notes.append(f"K10: t1/t2 built and placed in {hash_s:.1f} s (" + ", ".join(
+            f"{k} {tuple(v.shape)} {v.numel() * 4:,} B" for k, v in hashed.items())
+                     + f"); {t1_rows.numel():,} valid words, {t1_miss:,} missing t1 "
+                     f"({t1_miss / t1_rows.numel():.4f})")
     if "tables" in want:
         canon = build_canonical_hash_index(index)
         ladder = canonical_to_device(canon, dev)
@@ -252,14 +304,18 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
         t64 = {"ladder64": canonical64_to_device(build_canonical_hash_index64(index64), dev),
                "displaced64": displaced64_to_device(build_displaced_index64(index64), dev)}
         rows64 = _c64_1_rows(t64["ladder64"], rt, rl)
+        d64_rows = _d64_1_rows(t64["displaced64"], rt, rl)
         reach = {"lanes": rt.shape[0] * (rt.shape[1] - 63), "valid": int(rows64.numel()),
                  **cs.ladder64_reach(t64["ladder64"], rt, rl)}
+        seed_bytes = t64["displaced64"]["d64_s"].numel() * 4
         out.update(k64={"labels": index64.num_labels, "reads": rt.cpu(), "lens": rl.cpu(),
-                        "rows": rows64.cpu(), "reach": reach,
+                        "rows": rows64.cpu(), "d64_rows": d64_rows.cpu(), "reach": reach,
                         **{k: cpu(v) for k, v in t64.items()}})
         notes.append(f"K5/K6: {index64.num_records:,} 64-mers, " + ", ".join(
             f"{k} {tuple(v.shape)}" for tab in t64.values() for k, v in tab.items())
-                     + f"; windows {json.dumps(reach)}")
+                     + f"; windows {json.dumps(reach)}; K5's seed table d64_s "
+                     f"{seed_bytes:,} B, {'within' if seed_bytes <= L2_BYTES else 'above'} "
+                     "the card's 50 MB L2")
     torch.save(out, path)
     note = "inputs: " + "; ".join(notes) + f" ({time.perf_counter() - t:.1f} s)"
     print(note, flush=True)
@@ -344,9 +400,27 @@ def _calls(inp: dict | None, dev) -> list[tuple[str, str, Callable]]:
         c1, r = get("k64", "ladder64")["c64_1"], get("k64", "rows")
         return lambda: torch.index_select(c1, 0, r)
 
+    def d64_rows():
+        # a yardstick, not K5's function: the valid windows' d64_1 rows
+        d1, r = get("k64", "displaced64")["d64_1"], get("k64", "d64_rows")
+        return lambda: torch.index_select(d1, 0, r)
+
+    def k10():
+        tab, batch = get("hash"), get("batch")
+        return lambda: lookup.window_ids(tab, *batch, bad_ix=0xFFFF,
+                                         num_labels=inp["num_labels"], **pkw)
+
+    def t1_rows():
+        # a yardstick, not K10's function: the valid words' t1 rows (96 B
+        # each, written out too), forward then RC
+        t1, r = get("hash")["t1"], get("t1_rows")
+        return lambda: torch.index_select(t1, 0, r)
+
     out = [("tier", "bsearch_probe main", k7),
            ("tier", "bsearch_probe words by searchsorted", searchsorted),
-           ("tier", "bsearch_probe_shard (1, 8) slice 0", k15)]
+           ("tier", "bsearch_probe_shard (1, 8) slice 0", k15),
+           ("tier", "hash_probe main", k10),
+           ("tier", "hash_probe rows by index_select", t1_rows)]
     for group, sfx, batch, labels, bad, tabs in (
             ("tables", "", "batch", "num_labels", 0xFFFF, (("displaced",), ("ladder",))),
             ("wide", "_wide", "wide_batch", "wide_labels", 0x7FFFFFFF,
@@ -366,7 +440,8 @@ def _calls(inp: dict | None, dev) -> list[tuple[str, str, Callable]]:
             for tag in ("nseed", "b1")]
     out += [("k64", "ladder_probe64 main", lambda: probe64("ladder64")),
             ("k64", "scan_probe64 main", lambda: probe64("displaced64")),
-            ("k64", "ladder_probe64 rows by index_select", c64_rows)]
+            ("k64", "ladder_probe64 rows by index_select", c64_rows),
+            ("k64", "scan_probe64 rows by index_select", d64_rows)]
     return out
 
 
@@ -427,7 +502,7 @@ def _worker(tree: pathlib.Path, inputs: pathlib.Path, dev, only: str) -> dict:
                      "device_ms": q0.elapsed_time(q1) / QUEUED, "sha1": digest,
                      "split": split}
     usage = {k: v for k, v in ptxas_usage(report)
-             if re.search(r"probe|route|k[67]_", k)}
+             if re.search(r"probe|route|k\d+_", k)}
     return {"tree": str(tree), "build_s": secs, "ptxas": usage, "calls": res}
 
 

@@ -447,16 +447,17 @@ def _tile_edge_ns(reads, lens, W, k, tile=256):
     return reads
 
 
-def _k7_edge_reads(genome, n, seed, dev, width=192):
+def _k7_edge_reads(genome, n, seed, dev, width=192, tile=256):
     """n reads of lengths 0-192 (some shorter than 32 bases), N's at random
-    and at the edges of K7's 256-lane blocks for the untrimmed grid, and
-    every 11th read all N (every window invalid)."""
+    and at the edges of the kernel's blocks of `tile` windows (K7's 256,
+    K10's 128 with RC) for the untrimmed grid, and every 11th read all N
+    (every window invalid)."""
     rng = np.random.default_rng(seed)
     lens = rng.choice([0, 5, 31, 32, 33, 34, 63, 150, 191, 192], n).astype(np.int32)
     starts = rng.integers(0, len(genome) - width, n)
     reads = genome[starts[:, None] + np.arange(width)].copy()
     reads[rng.random(reads.shape) < 0.003] = ord("N")
-    reads = _tile_edge_ns(reads, lens, width - 31, 32)
+    reads = _tile_edge_ns(reads, lens, width - 31, 32, tile)
     reads[::11] = ord("N")
     reads[np.arange(width)[None, :] >= lens[:, None]] = 0
     return [torch.from_numpy(a).to(dev) for a in tl.pack_reads_host(reads, lens)]
@@ -613,21 +614,30 @@ def _k6_edge_reads(genome, n, seed, dev, width):
 
 
 @pytest.mark.parametrize("width", [192, 200, 100, 73, 66, 65, 64], ids=lambda w: f"L={w}")
-@pytest.mark.parametrize("geometry", ["chain", "chain-sentinels", "no-c2"])
-def test_k6_tile_edges_match_plain(k64, dev, geometry, width):
-    """K6's staged ASCII windows over rows whose W does not divide 256
-    (129, 137, 37 and 10 windows), and rows of 1-3 windows, where a tile
-    spans more bytes than it stages and its lanes read their bases with
-    window_at; reads of 0 to L bases, all-N reads and N's at the tiles'
-    edges; the three-level chain, the chain with c64_2 and c64_3 both the
-    8-row "absent" sentinel, and with c64_2 absent and c64_3 in use; RC on
-    and off: equal to the plain version, and the same over 10 launches."""
-    table, _ = _table64(k64["index"], "chain", dev)
-    if geometry == "chain-sentinels":
-        table = dict(table, c64_2=_sentinel(table["c64_2"], 4),
-                     c64_3=_sentinel(table["c64_3"], 5))
-    elif geometry == "no-c2":
-        table = dict(table, c64_2=_sentinel(table["c64_2"], 6))
+@pytest.mark.parametrize("geometry", ["chain", "chain-sentinels", "no-c2", "displaced",
+                                      "displaced-spill", "displaced-sentinel"])
+def test_k5_k6_tile_edges_match_plain(k64, dev, geometry, width):
+    """K5's and K6's staged ASCII windows over rows whose W does not divide
+    256 (129, 137, 37 and 10 windows), and rows of 1-3 windows, where a
+    tile spans more bytes than it stages and its lanes read their bases
+    with window_at; reads of 0 to L bases, all-N reads and N's at the
+    tiles' edges; K6 on the three-level chain, the chain with c64_2 and
+    c64_3 both the 8-row "absent" sentinel, and with c64_2 absent and c64_3
+    in use; K5 on the default displaced table, one that spills into d64_3,
+    and that one with d64_3 the 8-row sentinel; RC on and off: equal to the
+    plain version, and the same over 10 launches."""
+    if geometry.startswith("displaced"):
+        table, probe = _table64(k64["index"], "displaced" if geometry == "displaced"
+                                else "displaced-spill", dev)
+        if geometry == "displaced-sentinel":
+            table = dict(table, d64_3=_sentinel(table["d64_3"], 7))
+    else:
+        table, probe = _table64(k64["index"], "chain", dev)
+        if geometry == "chain-sentinels":
+            table = dict(table, c64_2=_sentinel(table["c64_2"], 4),
+                         c64_3=_sentinel(table["c64_3"], 5))
+        elif geometry == "no-c2":
+            table = dict(table, c64_2=_sentinel(table["c64_2"], 6))
     reads, lens = _k6_edge_reads(k64["genome"], 777, 45, dev, width)
     nl = k64["index"].num_labels
     for do_rc in (True, False):
@@ -635,28 +645,31 @@ def test_k6_tile_edges_match_plain(k64, dev, geometry, width):
         want = tl.window_ids64_plain(table, reads, lens, **kw)
         assert want.shape[1] == (2 if do_rc else 1) * (width - 63)
         assert int((want < nl).sum()) > (100 if width >= 100 else 10)
-        n0 = kernels.launches["ladder_probe64"]
+        n0 = kernels.launches[probe]
         for _ in range(10):
             assert torch.equal(tl.window_ids64(table, reads, lens, **kw), want)
-        assert kernels.launches["ladder_probe64"] == n0 + 10
+        assert kernels.launches[probe] == n0 + 10
         assert (want[::11] == 0x7FFFFFFF).all()  # the all-N reads
 
 
 def test_k6_refuses_misaligned_levels(k64, dev):
-    """K6 loads its rows as 16 B vectors: a c64_1, c64_2 or c64_3 that
-    starts off a 16 B boundary raises before any launch."""
-    table, _ = _table64(k64["index"], "chain", dev)
+    """K6 and K5 load their rows as 16 B vectors: a c64_1, c64_2, c64_3,
+    d64_1 or d64_3 that starts off a 16 B boundary raises before any
+    launch."""
     reads, lens = _ascii_reads(k64["genome"], 64, 9, dev)
-    n0 = kernels.launches["ladder_probe64"]
-    for key in ("c64_1", "c64_2", "c64_3"):
-        t = table[key]
-        buf = torch.empty(t.numel() + 2, dtype=torch.int32, device=dev)
-        shifted = buf[2:].view(t.shape)  # 8 B past the allocation's start
-        shifted.copy_(t)
-        with pytest.raises(ValueError, match="16 B aligned"):
-            tl.window_ids64(dict(table, **{key: shifted}), reads, lens, do_rc=True,
-                            bad_ix=0x7FFFFFFF)
-    assert kernels.launches["ladder_probe64"] == n0
+    for geometry, keys in (("chain", ("c64_1", "c64_2", "c64_3")),
+                           ("displaced-spill", ("d64_1", "d64_3"))):
+        table, probe = _table64(k64["index"], geometry, dev)
+        n0 = kernels.launches[probe]
+        for key in keys:
+            t = table[key]
+            buf = torch.empty(t.numel() + 2, dtype=torch.int32, device=dev)
+            shifted = buf[2:].view(t.shape)  # 8 B past the allocation's start
+            shifted.copy_(t)
+            with pytest.raises(ValueError, match="16 B aligned"):
+                tl.window_ids64(dict(table, **{key: shifted}), reads, lens, do_rc=True,
+                                bad_ix=0x7FFFFFFF)
+        assert kernels.launches[probe] == n0
 
 
 @pytest.mark.parametrize("cap", [1, 8, 30])
@@ -723,6 +736,43 @@ def _placed_tables(packed, vbits, lens, seed):
         t[level][row, 3 * s:3 * s + 3] = np.array([lo, (pre << 8) | hi, ix],
                                                   np.int64).astype(np.uint32).view(np.int32)
     return {"t1": torch.from_numpy(t[0]), "t2": torch.from_numpy(t[1])}
+
+
+@pytest.fixture(scope="module")
+def hash_tables(tier, dev):
+    """The legacy hash of the narrow tier and of the wide one (70,064 labels,
+    IXTYPE=u32), with their genomes and label counts."""
+    from utree_tpu_torch.hash_index import build_hash_index, hash_to_device
+
+    wide, wgenome, _ = _wide_tier()
+    return {labels: (hash_to_device(build_hash_index(index), dev), genome, index.num_labels)
+            for labels, index, genome in (("narrow", tier["index"], tier["genome"]),
+                                          ("wide", wide, wgenome))}
+
+
+@pytest.mark.parametrize("labels", ["narrow", "wide"])
+def test_k10_tile_edges_match_plain(hash_tables, dev, labels):
+    """K10's staged raw words at its tiles' edges (128 windows a block with
+    RC, 256 without; W = 161, 121 and 9 divide neither), with and without
+    RC, untrimmed and trimmed to 152, 40 (nine windows) and 32 bases (one
+    window: a tile then spans more reads than its staged words hold, and it
+    reads its bases with window_at); reads of 0-192 bases, all-N reads and
+    N's at the tiles' edges: equal to the plain version, and the same over
+    20 launches."""
+    table, genome, num_labels = hash_tables[labels]
+    packed, vbits, lens = _k7_edge_reads(genome, 777, 46, dev, tile=128)
+    bad = 0x7FFFFFFF if labels == "wide" else BAD
+    for do_rc in (True, False):
+        for true_len in (None, 152, 40, 32):
+            kw = dict(do_rc=do_rc, bad_ix=bad, true_len=true_len, num_labels=num_labels)
+            want = tl.window_ids_plain(table, packed, vbits, lens, **kw)
+            assert want.shape[1] == (2 if do_rc else 1) * ((true_len or 192) - 31)
+            assert int((want < num_labels).sum()) > (0 if (true_len or 192) < 40 else 1000)
+            n0 = kernels.launches["hash_probe"]
+            for _ in range(20):
+                assert torch.equal(tl.window_ids(table, packed, vbits, lens, **kw), want)
+            assert kernels.launches["hash_probe"] == n0 + 20
+            assert (want[::11] == bad).all()  # the all-N reads
 
 
 def test_k10_on_random_tables(tier, dev):

@@ -10,21 +10,29 @@
 // rows of 8 slots of (key_lo, key_hi, ix) int32, 96 B a row.
 //
 // Bound: bytes.  Each valid word reads one random 96 B t1 row (three 32 B
-// sectors), and each word that t1 does not hold one t2 row as well; the
-// integer work is two mixes and 16 slot compares a word.  With RC about half
-// the words miss t1 (a read's RC words are mostly absent from a DB of
-// forward k-mers), so a batch moves about 1.5 t1-sized rows a word.
+// sectors; t1 is 805 MB at 20M k-mers, so every row is a trip to device
+// memory), and each word that t1 does not hold one t2 row as well, which L2
+// serves (786 KB at 20M); the integer work is two mixes and 16 slot
+// compares a word.  With RC two thirds of the words miss t1 (a read's RC
+// words are mostly absent from a DB of forward k-mers).  The t1 rows alone
+// take as long as the kernel: on an H100 it reads random sectors at about
+// 53G/s, faster than K1 and K7, and its time follows the sectors a word
+// reads (PERF.md §6), so only a layout of fewer sectors a word moves it.
 //
 // Design: one thread per (read, window), doing the forward word and, with
 // RC, its RC word, as K7 does, so every row gather of the batch is in
-// flight at once.  A row is read as six 16 B vector loads (a row starts at
-// a multiple of 96 B, so each load is aligned).  The match rule is JAX's:
-// a slot matches on both key words and ix >= 0, and a later matching slot
-// wins, so all 8 slots are compared (a stored ix may be negative: under
-// IXTYPE=u32 the bad_ix 2^32-1 is stored as -1, and such a slot never
-// matches, nor ends the row).  t2 is read only where t1 matched nothing,
-// which is where JAX's where(f1, ix1, ...) takes t2's answer.  Invalid
-// windows write bad_ix without a probe (JAX probes bucket 0 and masks it).
+// flight at once.  A thread a word, both words' rows loaded before either
+// compare, a word's t2 row loaded with its t1 row, K1's staged windows and
+// a register cap were each no faster (PERF.md §6): they change the trips
+// and the threads, not the sectors.  A row is read as six 16 B vector loads
+// (a row starts at a multiple of 96 B, so each load is aligned).  The match
+// rule is JAX's: a slot matches on both key words and ix >= 0, and a later
+// matching slot wins, so all 8 slots are compared (a stored ix may be
+// negative: under IXTYPE=u32 the bad_ix 2^32-1 is stored as -1, and such a
+// slot never matches, nor ends the row).  t2 is read only where t1 matched
+// nothing, which is where JAX's where(f1, ix1, ...) takes t2's answer.
+// Invalid windows write bad_ix without a probe (JAX probes bucket 0 and
+// masks it).
 
 #include "kmer.cuh"
 

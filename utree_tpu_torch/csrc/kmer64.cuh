@@ -2,14 +2,15 @@
 // ladder_probe64, K9 xtree_probe): one (read, window) of an ASCII read ->
 // its four-lane 64-mer, the lex-min canonical key, the mix4 hashes the
 // 64-mer placement uses, the 6-column slot compare over one gathered row,
-// and the decode into per-window label ids.  K5 cuts each window with
-// window_at, K6 from a staged tile (staged_lane); K9 takes base_code.
+// and the decode into per-window label ids.  K5 and K6 cut their windows
+// from a staged tile (staged_lane) and read their rows as 16 B loads
+// (probe_row16); K9 takes base_code.
 //
 // Twins (utree_tpu/lookup.py): base_codes :31 with its _DEV_CODE table :23,
 // extract_windows64 :395 (window_at, staged_lane), rc_lanes64 :412 and
-// _canonicalize64 :421 (canonical), _probe64 :442 (probe_row), the decode of
-// lookup_kmers_canonical64 :513-518 / lookup_kmers_displaced64 :560-565 and
-// search_step's [ix_a | ix_b] concat :613 (write_ids); mix4 is
+// _canonicalize64 :421 (canonical), _probe64 :442 (probe_row, probe_row16),
+// the decode of lookup_kmers_canonical64 :513-518 / lookup_kmers_displaced64
+// :560-565 and search_step's [ix_a | ix_b] concat :613 (write_ids); mix4 is
 // utree_tpu/hash_index64.py:30.  Arithmetic is true uint32, wrapping exactly
 // as the jnp.uint32 code.
 #pragma once
@@ -51,7 +52,7 @@ __device__ __forceinline__ bool window_at(const uint8_t* row, int32_t len,
   return valid;
 }
 
-// ---- staged ASCII windows (K6) ----------------------------------------------
+// ---- staged ASCII windows (K5, K6) ------------------------------------------
 // A block takes a tile of consecutive lanes p = b*W + w of a (B, L) ASCII
 // matrix (W = L - 63), stages the bytes its lanes need, decoded once, into
 // shared memory (`stage_ascii`), and cuts each lane's four lanes from them
@@ -216,6 +217,27 @@ __device__ __forceinline__ kmer::Raw probe_row(const int32_t* row, int nslots,
     if (e[0] == k.ci[0] && e[1] == k.ci[1] && e[2] == k.ci[2] &&
         e[3] == k.ci[3] && (a | b) != 0)
       r = kmer::Raw{a, b};
+  }
+  return r;
+}
+
+// probe_row over a row that starts on a 16 B boundary, read as 16 B loads,
+// three a pair of slots (48 B), where the slot count is even; a row of an
+// odd slot count is read slot by slot (probe_row).  The caller checks the
+// table's alignment.
+__device__ __forceinline__ kmer::Raw probe_row16(const int32_t* row, int nslots, const Key& k) {
+  if (nslots & 1) return probe_row(row, nslots, k);
+  kmer::Raw r{0, 0};
+  const int4* q = reinterpret_cast<const int4*>(row);
+  for (int s = 0; s < nslots; s += 2, q += 3) {
+    // slots s and s+1: (k0 k1 k2 k3) (va vb) | (k0 k1) (k2 k3 va vb)
+    const int4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+    if (a.x == k.ci[0] && a.y == k.ci[1] && a.z == k.ci[2] && a.w == k.ci[3] &&
+        (b.x | b.y) != 0)
+      r = kmer::Raw{b.x, b.y};
+    if (b.z == k.ci[0] && b.w == k.ci[1] && c.x == k.ci[2] && c.y == k.ci[3] &&
+        (c.z | c.w) != 0)
+      r = kmer::Raw{c.z, c.w};
   }
   return r;
 }

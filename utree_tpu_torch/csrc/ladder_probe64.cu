@@ -49,21 +49,7 @@ constexpr int CHUNKS = 64;
 __device__ __forceinline__ kmer::Raw probe_level(const Level& lv, uint32_t h,
                                                  bool valid, const kmer64::Key& k) {
   const uint32_t bkt = valid ? h & static_cast<uint32_t>(lv.nrows - 1) : 0u;
-  const int32_t* row = lv.rows + static_cast<int64_t>(bkt) * 6 * lv.slots;
-  if (lv.slots & 1) return kmer64::probe_row(row, lv.slots, k);
-  kmer::Raw r{0, 0};
-  const int4* q = reinterpret_cast<const int4*>(row);
-  for (int s = 0; s < lv.slots; s += 2, q += 3) {
-    // slots s and s+1: (k0 k1 k2 k3) (va vb) | (k0 k1) (k2 k3 va vb)
-    const int4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
-    if (a.x == k.ci[0] && a.y == k.ci[1] && a.z == k.ci[2] && a.w == k.ci[3] &&
-        (b.x | b.y) != 0)
-      r = kmer::Raw{b.x, b.y};
-    if (b.z == k.ci[0] && b.w == k.ci[1] && c.x == k.ci[2] && c.y == k.ci[3] &&
-        (c.z | c.w) != 0)
-      r = kmer::Raw{c.z, c.w};
-  }
-  return r;
+  return kmer64::probe_row16(lv.rows + static_cast<int64_t>(bkt) * 6 * lv.slots, lv.slots, k);
 }
 
 __global__ void __launch_bounds__(TPB) ladder_probe64_kernel(

@@ -455,8 +455,8 @@ def _level(t: torch.Tensor, name: str, cps: int, dev):
 
 def _row_aligned(t: torch.Tensor, name: str, align: int) -> None:
     """K1 and K4 load a two-slot row as three 8 B (narrow) or two 16 B
-    (wide) vector loads, K6 its 64-mer rows as 16 B loads: the table must
-    start on that boundary."""
+    (wide) vector loads, K5 and K6 their 64-mer rows as 16 B loads: the
+    table must start on that boundary."""
     if t.data_ptr() % align:
         raise ValueError(f"{name} must be {align} B aligned for its vector row loads")
 
@@ -920,8 +920,9 @@ def window_ids64_plain(table: dict, reads, lengths, *, do_rc: bool,
 def window_ids64(table: dict, reads, lengths, *, do_rc: bool,
                  bad_ix: int) -> torch.Tensor:
     """On CUDA tensors K5 `scan_probe64` (displaced, 'd64_1') or K6
-    `ladder_probe64` (ladder, 'c64_1', whose levels must be 16 B aligned:
-    K6 reads its rows as 16 B loads); the plain version on CPU tensors."""
+    `ladder_probe64` (ladder, 'c64_1'); the plain version on CPU tensors.
+    Both kernels read their rows as 16 B loads, so d64_1 and d64_3, or
+    c64_1, c64_2 and c64_3, must be 16 B aligned."""
     if reads.device.type == "cpu":
         return window_ids64_plain(table, reads, lengths, do_rc=do_rc, bad_ix=bad_ix)
     dev = reads.device
@@ -947,6 +948,8 @@ def window_ids64(table: dict, reads, lengths, *, do_rc: bool,
             raise ValueError("displaced64 t1 must have 2-slot rows")
         if nseed & (nseed - 1) or n3 & (n3 - 1):
             raise ValueError("seed table and d64_3 must have power-of-two sizes")
+        _row_aligned(t1, "d64_1", 16)
+        _row_aligned(t3, "d64_3", 16)
         kernels.launch("scan_probe64", *front, t1.data_ptr(), 2 * t1.shape[0],
                        seeds.data_ptr(), nseed, t3.data_ptr(), n3, s3, *back)
     else:

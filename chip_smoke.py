@@ -173,7 +173,7 @@ PTXAS: list[tuple[str, str]] = []
 PTXAS_ROWS = {"ladder_probe64": "ladder_probe64_kernel", "scan_probe64": "scan_probe64_kernel",
               "bsearch_probe": "bsearch_probe_kernel",
               "bsearch_probe_shard": "bsearch_probe_shard_kernel",
-              "hash_probe": "hash_probe_kernel"}
+              "hash_probe": "hash_probe_kernel", "xtree_probe": "xtree_probe_kernel"}
 
 
 def fail(msg: str):
@@ -1845,20 +1845,37 @@ def phase_sharded(dev, base: dict):
     pkw = dict(prefix_lo=lo, width=READ_LEN, do_rc=True, probe_iters=index.probe_iters)
     ix, found = S.shard_probe(s0, packed, vbits, lens, **pkw)
     qpre, _, _, valid = lookup.window_lanes(reads, lens, 32, True)
-    in_range = int((valid & (qpre >= lo) & (qpre < lo + per)).sum())
-    del qpre, valid
-    # each in-range word reads a bin offset and a (suf_hi, suf_lo) pair,
-    # about three sectors, a found one its id too; each of the slice's
-    # arrays at most once
-    slice_bytes = (sum(min(nbytes(s0[k]), SECTOR * in_range)
-                       for k in ("bin_ix", "suf_hi", "suf_lo"))
-                   + min(nbytes(s0["ix"]), SECTOR * int(found.sum())))
+    mine = valid & (qpre >= lo) & (qpre < lo + per)
+    in_range = int(mine.sum())
+    local = (qpre[mine] - lo).long()
+    bins = s0["bin_ix"].long()
+    filled = int((bins[local + 1] > bins[local]).sum())
+    del qpre, valid, mine, local, bins
+    # K15's function needs, for each in-range word, a bin_ix sector and,
+    # where its bin is not empty, its records' (suf_hi, suf_lo) sectors (a
+    # found word its id too), each array at most once, plus the outputs:
+    # the bound is the smaller of two layouts' counts.  The three arrays
+    # need about three sectors a word; `rec`, which K15 reads, needs one
+    # 16 B record (a sector) a word, but also carries an all-zero fourth
+    # column, so at this shape its count is the larger, printed beside the
+    # bound as the layout's cost.
+    rec_bytes = (min(nbytes(s0["bin_ix"]), SECTOR * in_range)
+                 + min(nbytes(s0["rec"]), SECTOR * filled))
+    arrays_bytes = (sum(min(nbytes(s0[k]), SECTOR * in_range)
+                        for k in ("bin_ix", "suf_hi", "suf_lo"))
+                    + min(nbytes(s0["ix"]), SECTOR * int(found.sum())))
+    out_bytes = nbytes(packed, vbits, lens, ix, found)
+    k15_bytes = out_bytes + min(rec_bytes, arrays_bytes)
+    log(f"K15 bound: {k15_bytes:,} bytes ({in_range:,} words in range, {filled:,} "
+        f"of them in a bin that is not empty); over the three arrays "
+        f"{out_bytes + arrays_bytes:,} bytes, over bin_ix and rec, the layout "
+        f"K15 reads, {out_bytes + rec_bytes:,} bytes")
     rows.append(check_kernel(
         "bsearch_probe_shard", "bsearch_probe.cu", "utree_tpu/parallel/sharded.py:130",
         lambda: S.shard_probe(s0, packed, vbits, lens, **pkw),
         lambda: S.shard_probe_plain(s0, packed, vbits, lens, **pkw),
         f"{what}, slice 0 of 4 ({in_range:,} of {2 * b * w:,} words in range)",
-        nbytes(packed, vbits, lens, ix, found) + slice_bytes))
+        k15_bytes))
 
     # the long-read histogram over phase 8's long reads, a (4, 2) mesh
     m42 = make_mesh(4, 2, [dev] * 8)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time the probes K1 scan_probe[_wide], K4 ladder_probe[_wide], K7
-bsearch_probe, K15 bsearch_probe_shard, K10 hash_probe, K5 scan_probe64 and
-K6 ladder_probe64, K2's histograms and K11 route_displaced of one or more
-checkouts of this repository on one NVIDIA GPU, on the same inputs, at
-chip_smoke.py's shapes, with each call's device time split by launch.
+bsearch_probe, K15 bsearch_probe_shard, K10 hash_probe, K5 scan_probe64,
+K6 ladder_probe64, K9 xtree_probe, K2's histograms and K11 route_displaced
+of one or more checkouts of this repository on one NVIDIA GPU, on the same
+inputs, at chip_smoke.py's shapes, with each call's device time split by
+launch.
 
     python3 kernel_ab.py [TREE ...] [--out FILE] [--only RE]
 
@@ -15,7 +16,7 @@ tier (4096 labels) with its CTR records, its legacy hash (t1/t2), its
 displaced table and its canonical ladder, phase 7's 2M-k-mer tier of
 70,000 labels (IXTYPE=u32) with both tables, and phase 9's 20M 64-mer tier
 of 70,000 labels (chip_smoke.tier64) with its 64-mer ladder and displaced
-table;
+table, and phase 12's xtree table;
 
 - K1 and K4 at phase 3's and phase 6's shape (65,536 reads of 150 bp,
   true_len 152, 121 windows, RC) on the 20M tier's tables, and their
@@ -28,8 +29,13 @@ table;
   more; as a yardstick, not K7's function (the replay differs on merged
   bins), torch.searchsorted of the valid windows' 64-bit words of both
   strands over the records' sorted 64-bit keys;
-- K15 at phase 18's (1, 8) shape: slice 0 of the 20M tier's records cut
-  eight ways, the batch's reads packed by K14 at width 150, RC;
+- K15 at phase 18's (2, 4) and (1, 8) shapes: slice 0 of the 20M tier's
+  records cut four and eight ways (its 16 B records `rec`, as
+  ShardedIndex.to_devices places them, and the three arrays as contiguous
+  copies, which K15 read before it took `rec`), the batch's reads packed
+  by K14 at width 150, RC; with the count of words in the slice's range
+  and the share of each warp's lanes whose word is in range (a warp of 32
+  consecutive (read, window) lanes);
 - K10 at phase 13's shape (the same batch, true_len 152, RC) on the 20M
   tier's t1/t2, with the count of valid words t1 does not answer; as a
   yardstick, not K10's function, torch.index_select of the valid words'
@@ -40,6 +46,10 @@ table;
   c64_2 and c64_3 and the size of K5's seed table d64_s; as yardsticks,
   torch.index_select of the valid windows' c64_1 rows and of their d64_1
   rows;
+- K9 at phase 12's shape (8192 queries of 150 bp in rows of 192, k=29)
+  on the xtree table of phase 12's 64 references of 312,500 bp
+  (XtreeAligner(db).tables); as a yardstick, not K9's function,
+  torch.index_select of the valid windows' d1 rows;
 - K2 `histogram_packed` at each of phase 8's 16 long reads' chunk shapes
   (2-64 rows of 16,834-31,250 ids, as SearchPipeline.classify_long_read
   cuts them; calls `histogram_packed long read 0` to `15`, their shapes
@@ -65,7 +75,8 @@ whose names match a regular expression, and makes only their inputs,
 e.g. 'bsearch' (K7, K15 and the searchsorted yardstick), 'hash_probe'
 (K10 and its t1 yardstick), 'probe64' (K5, K6 and their yardsticks),
 'scan_probe64|hash_probe' (K5 and K10), '^(scan|ladder)_probe ' (K1 and
-K4 narrow), 'histogram' or 'route'.
+K4 narrow), 'histogram', 'route', 'xtree' (K9 and its d1 yardstick) or
+'xtree_probe|bsearch_probe_shard' (K9 and K15).
 """
 
 from __future__ import annotations
@@ -178,6 +189,47 @@ def _c64_1_rows(tab: dict, reads, lens):
     return (lk._fold64(c) & (tab["c64_1"].shape[0] - 1))[valid]
 
 
+def _slice_trips(packed, vbits, lens, lo: int, nbins: int) -> dict:
+    """K15's words in one slice's range at width READ_LEN, by the plain
+    functions: their count, the lanes (threads of the parent's kernel,
+    one a (read, window)) whose forward or RC word is in range, and the
+    mean share of a warp's 32 lanes whose forward (RC) word is."""
+    import torch
+
+    from utree_tpu_torch import lookup as lk
+
+    codes = lk.base_codes_packed(packed, vbits, lens)[:, :cs.READ_LEN]
+    qpre, qhi, qlo, valid = lk.extract_windows(codes)
+    out = {"lanes": int(valid.numel()), "valid_words": 2 * int(valid.sum())}
+    for tag, pre in (("fwd", qpre), ("rc", lk.rc_word_lanes(qpre, qhi, qlo)[0])):
+        hit = (valid & (pre >= lo) & (pre < lo + nbins)).reshape(-1)
+        pad = torch.zeros((-hit.numel()) % 32, dtype=torch.bool, device=hit.device)
+        warps = torch.cat([hit, pad]).view(-1, 32)
+        out[f"{tag}_in_range"] = int(hit.sum())
+        out[f"{tag}_warp_share"] = round(float(warps.float().mean(1).mean()), 4)
+        out[f"{tag}_warps_with_a_trip"] = round(float(warps.any(1).float().mean()), 4)
+    return out
+
+
+def _xtree_d1_rows(tables: dict, reads, lens, k: int):
+    """The d1 row of each valid window of an xtree batch, by the plain
+    functions (xtree_step_plain's canonical key, displaced_probe_raw's
+    seed and slot)."""
+    import torch
+
+    from utree_tpu_torch import lookup as lk
+    from utree_tpu_torch.xtree import device as xd
+
+    w_hi, w_lo, valid = xd.extract_windows_k(lk.base_codes(reads, lens), k)
+    r_hi, r_lo = xd.rc_lanes_k(w_hi, w_lo, k)
+    fwd_le = (w_hi < r_hi) | ((w_hi == r_hi) & (w_lo <= r_lo))
+    c_hi, c_lo = torch.where(fwd_le, w_hi, r_hi), torch.where(fwd_le, w_lo, r_lo)
+    d1, ds = tables["d1"], tables["ds"]
+    seed = lk.displaced_seed(ds, lk.displaced_bucket(c_lo, c_hi, valid, 4 * ds.shape[0]))
+    slot = lk.displaced_slot(c_lo, c_hi, seed, valid, 2 * d1.shape[0])
+    return (slot >> 1)[valid]
+
+
 def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) -> str:
     """Make the inputs of the groups in `want` with this checkout's code on
     `dev`; save to path.  Returns what it made, as a line."""
@@ -214,14 +266,21 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
             torch.cuda.synchronize()
         bins = cs.bsearch_bins(bs["bin_ix"], *batch, TRUE_LEN)
         keys, words = _bsearch_words(bs, *batch)
-        # K15 at phase 18's (1, 8) shape: slice 0, the reads packed by K14
-        sh = S.ShardedIndex.from_index(index, 8)
-        s0 = {k: torch.from_numpy(np.ascontiguousarray(a[0]).view(np.int32))
-              for k, a in (("bin_ix", sh.bin_ix), ("suf_hi", sh.suf_hi),
-                           ("suf_lo", sh.suf_lo), ("ix", sh.ix))}
+        # K15 at phase 18's (2, 4) and (1, 8) shapes: slice 0, the reads
+        # packed by K14
         rt = torch.from_numpy(np.ascontiguousarray(reads)).to(dev)
         rl = torch.full((rt.shape[0],), cs.READ_LEN, dtype=torch.int32, device=dev)
         spk, svb = lookup.ascii_pack(rt, rl)
+        shards = {}
+        for s in (4, 8):
+            sh = S.ShardedIndex.from_index(index, s)
+            s0 = {k: torch.from_numpy(np.ascontiguousarray(a[0]).view(np.int32))
+                  for k, a in (("bin_ix", sh.bin_ix), ("suf_hi", sh.suf_hi),
+                               ("suf_lo", sh.suf_lo), ("ix", sh.ix))}
+            s0["rec"] = torch.from_numpy(sh.slice_records(0))
+            shards[s] = dict(table=s0, prefix_lo=int(sh.prefix_lo[0]), width=cs.READ_LEN,
+                             trips=_slice_trips(spk, svb, rl, int(sh.prefix_lo[0]),
+                                                sh.bin_ix.shape[1] - 1))
         # K10 at phase 13's shape: the 20M tier's legacy hash; the words t1
         # does not answer read a t2 row (the plain version over t1 alone)
         th = time.perf_counter()
@@ -236,14 +295,14 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
         out.update(num_labels=L, probe_iters=index.probe_iters,
                    batch=[x.cpu() for x in batch], bsearch=cpu(bs), bins=bins,
                    bs_keys=keys.cpu(), bs_words=words.cpu(),
-                   shard=dict(table=s0, batch=[x.cpu() for x in (spk, svb, rl)],
-                              prefix_lo=int(sh.prefix_lo[0]), width=cs.READ_LEN),
+                   shard_batch=[x.cpu() for x in (spk, svb, rl)], shards=shards,
                    hash=cpu(hashed), t1_rows=t1_rows.cpu())
         notes.append(f"K7: {kmers:,} records on the card in {time.perf_counter() - tb:.2f} s "
                      f"({', '.join(f'{k} {tuple(v.shape)}' for k, v in bs.items())}); "
                      f"words by bin size {json.dumps(bins)}; searchsorted "
-                     f"{words.numel():,} words over {keys.numel():,} keys; K15 slice 0 of 8, "
-                     f"{s0['suf_hi'].shape[0]:,} records")
+                     f"{words.numel():,} words over {keys.numel():,} keys; K15 slice 0 "
+                     + "; ".join(f"of {s}, {v['table']['suf_hi'].shape[0]:,} records, "
+                                 f"{json.dumps(v['trips'])}" for s, v in shards.items()))
         notes.append(f"K10: t1/t2 built and placed in {hash_s:.1f} s (" + ", ".join(
             f"{k} {tuple(v.shape)} {v.numel() * 4:,} B" for k, v in hashed.items())
                      + f"); {t1_rows.numel():,} valid words, {t1_miss:,} missing t1 "
@@ -316,6 +375,30 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
                      + f"; windows {json.dumps(reach)}; K5's seed table d64_s "
                      f"{seed_bytes:,} B, {'within' if seed_bytes <= L2_BYTES else 'above'} "
                      "the card's 50 MB L2")
+    if "xtree" in want:
+        from utree_tpu_torch.xtree.align import XtreeAligner
+        from utree_tpu_torch.xtree.build import build_xtree_db
+
+        work = path.parent / "kernel_ab_xtree"
+        work.mkdir(exist_ok=True)
+        tx = time.perf_counter()
+        genomes = cs.xtree_refs(work / "refs.fa", work / "tax.map", cs.XT_REFS, cs.XT_REF_LEN)
+        queries = cs.xtree_queries(work / "queries.fa", genomes, cs.XT_QUERIES)
+        al = XtreeAligner(build_xtree_db(str(work / "refs.fa"), str(work / "tax.map"),
+                                         k=cs.XT_K, comp=0), device=dev)
+        b = al.chunk_queries  # phase 12's K9 batch: the first chunk, rows of 192
+        rows = np.zeros((b, 192), np.uint8)
+        rows[:, :cs.READ_LEN] = queries[:b]
+        xr = torch.from_numpy(rows).to(dev)
+        xl = torch.full((b,), cs.READ_LEN, dtype=torch.int32, device=dev)
+        d1_rows = _xtree_d1_rows(al.tables, xr, xl, al.k)
+        out.update(xtree={"reads": xr.cpu(), "lens": xl.cpu(), "k": al.k, "sl": al.sl,
+                          "tables": cpu(al.tables), "rows": d1_rows.cpu()})
+        notes.append(f"K9: {al._dev_index.num_entries:,} entries at k={al.k}, " + ", ".join(
+            f"{k} {tuple(v.shape)}" for k, v in al.tables.items())
+                     + f"; {b} queries x {192 - al.k + 1} windows, {d1_rows.numel():,} "
+                     f"valid ({time.perf_counter() - tx:.1f} s)")
+        del al
     torch.save(out, path)
     note = "inputs: " + "; ".join(notes) + f" ({time.perf_counter() - t:.1f} s)"
     print(note, flush=True)
@@ -340,6 +423,7 @@ def _calls(inp: dict | None, dev) -> list[tuple[str, str, Callable]]:
     from utree_tpu_torch import lookup
     from utree_tpu_torch.parallel import routed as R
     from utree_tpu_torch.parallel import sharded as S
+    from utree_tpu_torch.xtree import device as XD
 
     held = {}
 
@@ -365,10 +449,20 @@ def _calls(inp: dict | None, dev) -> list[tuple[str, str, Callable]]:
         keys, words = get("bs_keys"), get("bs_words")
         return lambda: torch.searchsorted(keys, words)
 
-    def k15():
-        sh, s0, sb = inp["shard"], get("shard", "table"), get("shard", "batch")
+    def k15(s):
+        sh, s0, sb = inp["shards"][s], get("shards", s, "table"), get("shard_batch")
         return lambda: S.shard_probe(s0, *sb, prefix_lo=sh["prefix_lo"], width=sh["width"],
                                      do_rc=True, probe_iters=inp["probe_iters"])
+
+    def k9():
+        x = inp["xtree"]
+        tab, reads, lens = get("xtree", "tables"), get("xtree", "reads"), get("xtree", "lens")
+        return lambda: XD.xtree_step(tab, reads, lens, k=x["k"], sl=x["sl"])
+
+    def xtree_rows():
+        # a yardstick, not K9's function: the valid windows' d1 rows
+        d1, r = get("xtree", "tables")["d1"], get("xtree", "rows")
+        return lambda: torch.index_select(d1, 0, r)
 
     def probe(tab, batch, labels, bad):
         table, args = get(*tab), get(batch)
@@ -418,7 +512,8 @@ def _calls(inp: dict | None, dev) -> list[tuple[str, str, Callable]]:
 
     out = [("tier", "bsearch_probe main", k7),
            ("tier", "bsearch_probe words by searchsorted", searchsorted),
-           ("tier", "bsearch_probe_shard (1, 8) slice 0", k15),
+           ("tier", "bsearch_probe_shard (2, 4) slice 0", lambda: k15(4)),
+           ("tier", "bsearch_probe_shard (1, 8) slice 0", lambda: k15(8)),
            ("tier", "hash_probe main", k10),
            ("tier", "hash_probe rows by index_select", t1_rows)]
     for group, sfx, batch, labels, bad, tabs in (
@@ -441,7 +536,9 @@ def _calls(inp: dict | None, dev) -> list[tuple[str, str, Callable]]:
     out += [("k64", "ladder_probe64 main", lambda: probe64("ladder64")),
             ("k64", "scan_probe64 main", lambda: probe64("displaced64")),
             ("k64", "ladder_probe64 rows by index_select", c64_rows),
-            ("k64", "scan_probe64 rows by index_select", d64_rows)]
+            ("k64", "scan_probe64 rows by index_select", d64_rows),
+            ("xtree", "xtree_probe main", k9),
+            ("xtree", "xtree_probe rows by index_select", xtree_rows)]
     return out
 
 

@@ -22,6 +22,10 @@ CALLS = {name: group for group, name, _ in kernel_ab._calls(None, None)}
     ("bsearch_probe main", "tier"),
     ("scan_probe main", "tables"),
     ("ladder_probe_wide main", "wide"),
+    ("bsearch_probe_shard (2, 4) slice 0", "tier"),
+    ("bsearch_probe_shard (1, 8) slice 0", "tier"),
+    ("xtree_probe main", "xtree"),
+    ("xtree_probe rows by index_select", "xtree"),
 ])
 def test_each_call_beside_its_input_group(name, group):
     assert CALLS[name] == group
@@ -40,6 +44,8 @@ def test_call_names_are_unique():
     ("^(scan|ladder)_probe ", {"tables", "tier"}),
     ("_wide", {"wide"}),
     ("bsearch", {"tier"}),
+    ("xtree", {"xtree"}),
+    ("xtree_probe|bsearch_probe_shard", {"xtree", "tier"}),
 ])
 def test_groups_of_a_selection(only, want):
     assert kernel_ab.groups(only) == want

@@ -877,10 +877,11 @@ def xt_refs(dev, tmp_path_factory):
     return wd, genomes, np.frombuffer(pal, np.uint8)
 
 
-def _xt_batch(genomes, pal, n, seed, dev, width=192, padded=5):
+def _xt_batch(genomes, pal, n, seed, dev, width=192, padded=5, past_len=False):
     """ASCII queries of 150 bp (a tenth over the palindromes) with N's,
     lower case, random rows and ragged lengths; the last `padded` rows have
-    length 0, as a chunk's padding rows do."""
+    length 0, as a chunk's padding rows do.  The bytes past each length are
+    0, or with `past_len` random A, C, G and T."""
     rng = np.random.default_rng(seed)
     acgt = np.frombuffer(b"ACGT", np.uint8)
     which = rng.integers(0, len(genomes), n)
@@ -897,7 +898,8 @@ def _xt_batch(genomes, pal, n, seed, dev, width=192, padded=5):
     lens = np.full(n, 150, np.int32)
     lens[::4] = rng.integers(10, 150, len(lens[::4]))
     lens[n - padded:] = 0
-    reads[np.arange(width)[None, :] >= lens[:, None]] = 0
+    past = np.arange(width)[None, :] >= lens[:, None]
+    reads[past] = rng.choice(acgt, int(past.sum())) if past_len else 0
     return torch.from_numpy(reads).to(dev), torch.from_numpy(lens).to(dev)
 
 
@@ -905,7 +907,9 @@ def _xt_batch(genomes, pal, n, seed, dev, width=192, padded=5):
 def test_k9_xtree_probe_matches_plain(xt_refs, dev, k):
     """K9 equals its plain version on all four matrices, on a built DB's
     table (hits on both strands, palindromes at even k) and on random
-    tables whose d3 tail is probed by every window."""
+    tables whose d3 tail is probed by every window; and on a batch whose
+    bytes past each length are bases, which the staged front must mask as
+    past the length (code 0, the window invalid, prefix bins included)."""
     from utree_tpu_torch.xtree.align import XtreeAligner
     from utree_tpu_torch.xtree.build import build_xtree_db
     from utree_tpu_torch.xtree.device import xtree_step, xtree_step_plain
@@ -919,16 +923,65 @@ def test_k9_xtree_probe_matches_plain(xt_refs, dev, k):
                                    .astype(np.int32)).to(dev)
             for name, shape in (("d1", (4096, 8)), ("ds", (1024,)), ("d3", (64, 16)))}
     kw = dict(k=k, sl=k - 13)
+    past = _xt_batch(genomes, pal, 3000, k, dev, past_len=True)
     for tables in (al.tables, rand):
-        n0 = kernels.launches["xtree_probe"]
-        got = xtree_step(tables, reads, lens, **kw)
-        assert kernels.launches["xtree_probe"] == n0 + 1
-        want = xtree_step_plain(tables, reads, lens, **kw)
-        assert all(g.shape == (3000, 192 - k + 1) and torch.equal(g, w)
-                   for g, w in zip(got, want))
+        for batch in ((reads, lens), past):
+            n0 = kernels.launches["xtree_probe"]
+            got = xtree_step(tables, *batch, **kw)
+            assert kernels.launches["xtree_probe"] == n0 + 1
+            want = xtree_step_plain(tables, *batch, **kw)
+            assert all(g.shape == (3000, 192 - k + 1) and torch.equal(g, w)
+                       for g, w in zip(got, want))
     sf, sr, pf, pr = xtree_step(al.tables, reads, lens, **kw)
     assert int((sf >= 0).sum()) > 1000
     assert bool(((sf == sr) & (sf >= 0) & (pf == pr)).any()) == (k % 2 == 0)
+    assert torch.equal(xtree_step(al.tables, *past, **kw)[0], sf)  # same queries
+
+
+@pytest.mark.parametrize("k", [14, 29])
+def test_k9_tile_edges_match_plain(xt_refs, dev, k):
+    """Rows of T = k to 200 bytes (W = 1 to 200 - k + 1 windows) over 301
+    queries, so the lanes end inside a block: at W = 1 a tile of 256 lanes
+    spans 256 rows, more than the staged chunks hold, so every lane reads
+    its bases byte by byte; at W = 3 so does k = 29's.  Lengths past T,
+    inside it and 0, bases past each length."""
+    from utree_tpu_torch.xtree.align import XtreeAligner
+    from utree_tpu_torch.xtree.build import build_xtree_db
+    from utree_tpu_torch.xtree.device import xtree_step, xtree_step_plain
+
+    wd, genomes, pal = xt_refs
+    al = XtreeAligner(build_xtree_db(str(wd / "refs.fa"), str(wd / "tax.map"), k=k),
+                      device=dev)
+    reads, lens = _xt_batch(genomes, pal, 301, 40 + k, dev, width=200, padded=3,
+                            past_len=True)
+    kw = dict(k=k, sl=k - 13)
+    for t in (k, k + 1, k + 2, k + 7, 64, 150, 193, 200):
+        rows = reads[:, :t].contiguous()
+        got = xtree_step(al.tables, rows, lens, **kw)
+        want = xtree_step_plain(al.tables, rows, lens, **kw)
+        assert all(g.shape == (301, t - k + 1) and torch.equal(g, w)
+                   for g, w in zip(got, want)), t
+        assert (301 * (t - k + 1)) % 256
+        if t >= 150:
+            assert int((want[0] >= 0).sum()) > 1000
+
+
+def test_k9_refuses_misaligned_rows(dev):
+    """K9 loads a d1 row as two 16 B vectors: a d1 that starts off a 16 B
+    boundary raises before any launch."""
+    from utree_tpu_torch.xtree.device import xtree_step
+
+    d1 = torch.zeros((4096, 8), dtype=torch.int32, device=dev)
+    buf = torch.empty(d1.numel() + 1, dtype=torch.int32, device=dev)
+    tables = {"d1": buf[1:].view(d1.shape), "ds": torch.zeros(1024, dtype=torch.int32,
+                                                               device=dev),
+              "d3": torch.zeros((8, 16), dtype=torch.int32, device=dev)}
+    reads = torch.full((4, 64), ord("A"), dtype=torch.uint8, device=dev)
+    lens = torch.full((4,), 64, dtype=torch.int32, device=dev)
+    n0 = kernels.launches["xtree_probe"]
+    with pytest.raises(ValueError, match="16 B aligned"):
+        xtree_step(tables, reads, lens, k=29, sl=16)
+    assert kernels.launches["xtree_probe"] == n0
 
 
 @pytest.mark.parametrize("redist", [False, True])
@@ -1173,28 +1226,46 @@ def test_k14_ascii_pack_and_search_step_match_plain(tier, k32, dev, width):
             assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("S", [2, 4, 8])
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
 def test_k15_bsearch_probe_shard_matches_plain(tier, dev, S):
     """Every slice of an S-way ShardedIndex, RC on and off, at a width that
-    is no multiple of 8 and at the padded one."""
+    is no multiple of 8 and at the padded one; S = 1's one slice holds every
+    word in range.  Then three reads, fewer lanes than one tile, and reads
+    of ACAC... whose words have four prefixes (0x111111, 0x444444 and their
+    RC words' 0xBBBBBB, 0xEEEEEE), so at S = 8 four slices hold none."""
     from utree_tpu_torch.parallel import sharded as TS
     from utree_tpu_torch.parallel.mesh import ShardMesh
 
     sh = TS.ShardedIndex.from_index(tier["index"], S)
     tabs = sh.to_devices(ShardMesh([dev] * S))
+    per = sh.bin_ix.shape[1] - 1
     reads, lens = _ascii_k32(tier["genome"], 3000, 7 + S, dev, 150)
-    packed, vbits = tl.ascii_pack(reads, lens)
-    for t in range(S):
-        for do_rc in (True, False):
-            for width in (150, 152):
-                kw = dict(prefix_lo=int(sh.prefix_lo[t]), width=width, do_rc=do_rc,
-                          probe_iters=sh.probe_iters)
-                n0 = kernels.launches["bsearch_probe_shard"]
-                got = TS.shard_probe(tabs[t], packed, vbits, lens, **kw)
-                assert kernels.launches["bsearch_probe_shard"] == n0 + 1
-                want = TS.shard_probe_plain(tabs[t], packed, vbits, lens, **kw)
-                assert all(torch.equal(a, b) for a, b in zip(got, want))
-                assert int(want[1].sum()) > 100
+    acac = torch.from_numpy(np.resize(np.frombuffer(b"AC", np.uint8), (40, 150)).copy())
+    acac_lens = torch.from_numpy(np.arange(40, dtype=np.int32) * 3 + 31)
+    batches = [(reads, lens), (reads[:3], lens[:3]), (acac.to(dev), acac_lens.to(dev))]
+    for i, (r, ln) in enumerate(batches):
+        packed, vbits = tl.ascii_pack(r, ln)
+        codes = tl.base_codes_packed(packed, vbits, ln)[:, :150]
+        qpre, qhi, qlo, valid = tl.extract_windows(codes)
+        pres = (qpre, tl.rc_word_lanes(qpre, qhi, qlo)[0])
+        in_range = []
+        for t in range(S):
+            lo = int(sh.prefix_lo[t])
+            in_range.append(sum(int((valid & (p >= lo) & (p < lo + per)).sum()) for p in pres))
+            for do_rc in (True, False):
+                for width in (150, 152):
+                    kw = dict(prefix_lo=lo, width=width, do_rc=do_rc,
+                              probe_iters=sh.probe_iters)
+                    n0 = kernels.launches["bsearch_probe_shard"]
+                    got = TS.shard_probe(tabs[t], packed, vbits, ln, **kw)
+                    assert kernels.launches["bsearch_probe_shard"] == n0 + 1
+                    want = TS.shard_probe_plain(tabs[t], packed, vbits, ln, **kw)
+                    assert all(torch.equal(a, b) for a, b in zip(got, want))
+                    if i == 0:
+                        assert int(want[1].sum()) > 100
+        assert sum(in_range) == 2 * int(valid.sum())
+        if i == 2 and S == 8:
+            assert in_range.count(0) == 4
 
 
 @pytest.mark.parametrize("labels", [1, 5, 4096, 57344, 57345, 70000])

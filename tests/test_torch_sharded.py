@@ -145,6 +145,38 @@ def test_sharded_step_equals_jax(dbs, shape, complevel, do_rc):
         assert np.array_equal(np.where(np.asarray(jfound), np.asarray(jix), 0), ix.numpy())
 
 
+@pytest.mark.parametrize("S", [2, 4, 8])
+def test_slice_records_hold_the_three_arrays(dbs, S):
+    """The `rec` that to_devices places for each slice (here on the CPU)
+    holds suf_hi, suf_lo (its int32 bits) and ix as its columns, and the
+    dict's three arrays are views of them; shard_probe_plain over those
+    views equals JAX's _local_lookup on every slice."""
+    db = dbs[2]
+    jsh = JS.ShardedIndex.from_index(db["index"], S)
+    tsh = TS.ShardedIndex.from_index(db["port"], S)
+    tabs = tsh.to_devices(TM.make_mesh(1, S, CPU8[:S]))
+    reads, lens = _reads(db["recs"], 32, 150, seed=20 + S)
+    lanes = JS.window_lanes(reads, lens, 32, True)
+    packed, vbits = tl.ascii_pack(*_t(reads, lens))
+    for u, tab in enumerate(tabs):
+        rec = tab["rec"]
+        assert rec.dtype == torch.int32 and rec.shape == (tsh.suf_hi.shape[1], 4)
+        for col, key in enumerate(("suf_hi", "suf_lo", "ix")):
+            view = tab[key]
+            assert view.data_ptr() == rec.data_ptr() + 4 * col and view.stride() == (4,)
+            assert np.array_equal(view.numpy(), getattr(tsh, key)[u].view(np.int32)), key
+        assert not rec[:, 3].any()
+        jix, jfound = JS._local_lookup(
+            *(jnp.asarray(a[u]) for a in (jsh.bin_ix, jsh.suf_hi, jsh.suf_lo, jsh.ix)),
+            jsh.prefix_lo[u], jsh.bin_ix.shape[1] - 1, *lanes, jsh.probe_iters, 65535)
+        ix, found = TS.shard_probe_plain(tab, packed, vbits, torch.from_numpy(lens),
+                                         prefix_lo=int(tsh.prefix_lo[u]), width=150,
+                                         do_rc=True, probe_iters=tsh.probe_iters)
+        assert np.array_equal(np.asarray(jfound), found.numpy().astype(bool))
+        assert np.array_equal(np.where(np.asarray(jfound), np.asarray(jix), 0), ix.numpy())
+        assert int(found.sum()) > 0
+
+
 def test_stored_bad_ix_and_zero_suffixes_equal_jax():
     """Records whose id is bad_ix count as found (the merged lane is bad_ix
     through the sum), and words of suffix 0 next to the zero-suffix padding

@@ -166,14 +166,18 @@ def _pods(db):
     return sfx, db.bin_offsets.astype(np.int64)
 
 
-@pytest.mark.parametrize("k", [14, 16, 20, 28, 29])
-def test_xtree_step_plain_equals_jax(xdata, k):
+@pytest.mark.parametrize("k,past_len", [pytest.param(k, b"", id=str(k))
+                                        for k in (14, 16, 20, 28, 29)]
+                         + [pytest.param(29, b"ACGT", id="29-bases-past-len")])
+def test_xtree_step_plain_equals_jax(xdata, k, past_len):
     """build_xtree_device_index places JAX's d1/ds/d3 element for element,
     and the plain version of K9 equals the jitted `xtree_device_step` on all
     four matrices, on JAX's tables and on the port's: k=14 and 16 take the
     s > 32 and s == 32 branches of `_rc_lanes_k`, the rest s < 32; sl = 1,
     3, 7, 15, 16 (`_prefix_of`'s b == 32 at 29); palindromes at even k; Ns,
-    short, empty, lower-case and >64-byte queries and padding rows."""
+    short, empty, lower-case and >64-byte queries and padding rows; and
+    (past_len) every byte past a query's length an A, C, G or T, which both
+    mask to code 0 and an invalid window, prefix bins included."""
     jdb = j_build.build_xtree_db(str(xdata / "refs.fa"), str(xdata / "tax3.map"),
                                  k=k, comp=0)
     sfx, bins = _pods(jdb)
@@ -186,6 +190,9 @@ def test_xtree_step_plain_equals_jax(xdata, k):
         assert torch.equal(tidx.tables[key], v), key
     assert tidx.num_entries == jidx.num_entries > 1000
     reads, lens = _batch(_queries(xdata), pad=3)
+    if past_len:
+        past = np.arange(reads.shape[1])[None, :] >= lens[:, None]
+        reads[past] = np.resize(np.frombuffer(past_len, np.uint8), int(past.sum()))
     want = [np.asarray(x) for x in j_device.make_device_step(jidx)(jidx.tables, reads, lens)]
     for tables in (tidx.tables, jtab):
         got = t_device.xtree_step(tables, torch.from_numpy(reads),

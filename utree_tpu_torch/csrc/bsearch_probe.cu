@@ -25,20 +25,31 @@
 // a record as one 16 B {suf_hi, suf_lo, ix, 0} entry of `rec` (a derived
 // copy the bsearch table's dict carries, hash_index.bsearch_records), one
 // sector where the three arrays cost three.  K15 makes its trip for the
-// words of its slice only (a quarter of them at S = 4), over the three
-// arrays, but decodes every window and writes five bytes for each.
+// words of its slice only (a quarter of them at S = 4), over the slice's
+// own `rec` (ShardedIndex.to_devices), but decodes every window and writes
+// five bytes for each.  A thread a window, as K15 first ran, set its time by
+// its front half (window_at: 310 of 412 us at (2, 4) slice 0 on an H100,
+// PERF.md §6), and each warp ran as long as its longest chain while three
+// quarters of its lanes, out of range, waited.
 //
-// Design of K7: one thread a (read, window) lane, both strands' words in
-// flight together.  The thread cuts its forward word with window_at (K1's
-// staged windows bought nothing here: the front half hides behind the
-// chains), and its RC word is rev2(~lo32):rev2(~hi32).  Both words' bin
-// offsets are loaded before either descent, and both descend together.
-// A word in a one-record bin loads that record with its partner's first
-// probe, so it costs two dependent round trips, which the thread's two
-// words share; in a larger bin each probe's record replaces the one held
-// when the probe moves p, and the start record is loaded only by a
-// descent that ends on it (loading it with the first probe took 5% more
-// time on an H100: a sector more for most such words).
+// Design of K15: a block of 256 threads takes a tile of 1024 consecutive
+// (read, window) lanes, 128 a warp, four a thread.  It stages the tile's
+// packed bytes and validity bits as K1 does (kmer::stage; a tile that spans
+// more reads than the staged words hold reads its bases with window_at),
+// and each lane cuts its forward and RC words.  A word out of the slice's
+// range, or of an invalid window, writes its zeros at once (ix 0, found 0,
+// as a miss does); the others go to the warp's queue in shared memory, in
+// lane order by a ballot and a popcount, room for every word of its lanes.
+// Then the warp replays its own queue with every lane busy, two words a
+// lane at a time with their chains interleaved as K7's strands are
+// (replay_words, shared with K7, over the 16 B records and int32
+// offsets), and writes each result at its word's (read, column).  No
+// barrier but the staging's stands between a warp's front half and its
+// chains, so one warp's chains run while another cuts its windows (a block
+// that queued all its words before any chain ran took 4% longer at (2, 4)
+// on an H100).  Its chains alone then take 249 of its 280 us there
+// (PERF.md §6): at K7's rate a word, they bound it now.  The order of the
+// writes changes, their values do not.
 //
 // The loop runs while the range is non-empty.  JAX runs a fixed
 // `probe_iters` = ceil(log2(max bin + 1)) trips instead, but a lane whose
@@ -59,80 +70,27 @@
 
 namespace {
 
-// K15's slice of the records, as three arrays.
-struct Records {
-  const int32_t* bin_ix;  // a slice's bin starts (nbins + 1,)
-  const int32_t* suf_hi;  // (n + 1,) suffix bits 39..32
-  const uint32_t* suf_lo; // (n + 1,) suffix bits 31..0
-  const int32_t* ix;      // (n + 1,) label ids
-  int64_t n;              // index of the last padding record
-};
-
-// The probe sequence over the records [start, end) of a non-empty bin: the
-// record it ends on.  The suffix compare is (hi, lo) with lo unsigned.
-__device__ __forceinline__ int64_t descend(const Records& t, int64_t start, int64_t end,
-                                           int32_t qhi, uint32_t qlo) {
-  int64_t p = start;
-  int64_t size = end - start - 1;
-  while (size > 0) {
-    int64_t w = size >> 1;
-    int64_t probe = p + w + 1 < t.n ? p + w + 1 : t.n;
-    int32_t h = t.suf_hi[probe];
-    bool le = h < qhi || (h == qhi && t.suf_lo[probe] <= qlo);
-    if (le) {
-      p += w + 1;
-      size -= w + 1;
-    } else {
-      size = w;
-    }
-  }
-  return p < t.n ? p : t.n;
-}
-
-__device__ __forceinline__ bool matches(const Records& t, int64_t p, int32_t qhi,
-                                        uint32_t qlo) {
-  return t.suf_hi[p] == qhi && t.suf_lo[p] == qlo;
-}
-
-// One word's replay over a slice of `nbins` bins from prefix `lo`: writes
-// where(found, ix, 0) and found.
-__device__ __forceinline__ void replay_local(const Records& t, int64_t lo, int64_t nbins,
-                                             bool valid, uint32_t qpre, int32_t qhi,
-                                             uint32_t qlo, int32_t* ix_out,
-                                             uint8_t* found_out) {
-  int64_t local = static_cast<int64_t>(qpre) - lo;
-  bool found = false;
-  int32_t ix = 0;
-  if (valid && local >= 0 && local < nbins) {
-    int64_t start = t.bin_ix[local], end = t.bin_ix[local + 1];
-    if (start < end) {
-      int64_t p = descend(t, start, end, qhi, qlo);
-      found = matches(t, p, qhi, qlo);
-      ix = found ? t.ix[p] : 0;
-    }
-  }
-  *ix_out = ix;
-  *found_out = found;
-}
-
-// ---- K7 ---------------------------------------------------------------------
-
-constexpr int TPB = 256;
+// ---- the descent over 16 B records (K7, K15) ----------------------------------
 
 // record <= (qhi, qlo) on a 16 B record {suf_hi, suf_lo, ix, 0}
 __device__ __forceinline__ bool rec_le(const int4& r, int32_t qhi, uint32_t qlo) {
   return r.x < qhi || (r.x == qhi && static_cast<uint32_t>(r.y) <= qlo);
 }
 
-// The replay of NW words (the forward word, and with RC its RC word) over
-// the whole table, their chains interleaved: the label id of the record
-// each word's probe sequence ends on, or bad_ix.
-template <int NW>
+// The replay of NW words over 16 B records, their chains interleaved: word
+// s searches bin hi[s] >> 8 of bin_ix (K7 passes the whole table's bin_ix,
+// K15 its slice's shifted down by the slice's first prefix).  K7 (SLICE
+// false) gets in ids the label id of the record each word's probe sequence
+// ends on, or bad_ix; K15 (SLICE true) gets in found whether that record
+// equals the word, and in ids where(found, id, 0).  The switch keeps K7's
+// own match expression, and so its SASS, as it was before K15 shared the
+// loop.
+template <int NW, bool SLICE>
 __device__ __forceinline__ void replay_words(const int32_t* __restrict__ bin_ix,
                                              const int4* __restrict__ rec, int32_t n,
                                              const uint32_t (&hi)[NW],
                                              const uint32_t (&lo)[NW], int32_t bad_ix,
-                                             int32_t (&ids)[NW]) {
+                                             int32_t (&ids)[NW], bool (&found)[NW]) {
   int32_t p[NW], size[NW];
   int4 r[NW];    // the record at min(p, n), once `have`
   bool have[NW];
@@ -183,12 +141,23 @@ __device__ __forceinline__ void replay_words(const int32_t* __restrict__ bin_ix,
   for (int s = 0; s < NW; ++s)
     if (size[s] == 0 && !have[s]) r[s] = __ldg(rec + (p[s] < n ? p[s] : n));
 #pragma unroll
-  for (int s = 0; s < NW; ++s)
-    ids[s] = size[s] == 0 && r[s].x == static_cast<int32_t>(hi[s] & 0xFFu) &&
+  for (int s = 0; s < NW; ++s) {
+    if constexpr (SLICE) {
+      found[s] = size[s] == 0 && r[s].x == static_cast<int32_t>(hi[s] & 0xFFu) &&
+                 static_cast<uint32_t>(r[s].y) == lo[s];
+      ids[s] = found[s] ? r[s].z : 0;
+    } else {
+      ids[s] = size[s] == 0 && r[s].x == static_cast<int32_t>(hi[s] & 0xFFu) &&
                      static_cast<uint32_t>(r[s].y) == lo[s]
                  ? r[s].z
                  : bad_ix;
+    }
+  }
 }
+
+// ---- K7 ---------------------------------------------------------------------
+
+constexpr int TPB = 256;
 
 template <bool RC>
 __global__ void __launch_bounds__(TPB) bsearch_probe_kernel(
@@ -208,7 +177,8 @@ __global__ void __launch_bounds__(TPB) bsearch_probe_kernel(
     if (valid) {
       // rc_word_lanes: rc(hi32:lo32) = rev2(~lo32):rev2(~hi32)
       const uint32_t hi[2] = {hi32, kmer::rev2(~lo32)}, lo[2] = {lo32, kmer::rev2(~hi32)};
-      replay_words<2>(bin_ix, rec, n, hi, lo, bad_ix, ids);
+      bool found[2];
+      replay_words<2, false>(bin_ix, rec, n, hi, lo, bad_ix, ids, found);
     }
     out[b * 2 * W + w] = ids[0];
     out[b * 2 * W + W + w] = ids[1];
@@ -216,7 +186,8 @@ __global__ void __launch_bounds__(TPB) bsearch_probe_kernel(
     int32_t ids[1] = {bad_ix};
     if (valid) {
       const uint32_t hi[1] = {hi32}, lo[1] = {lo32};
-      replay_words<1>(bin_ix, rec, n, hi, lo, bad_ix, ids);
+      bool found[1];
+      replay_words<1, false>(bin_ix, rec, n, hi, lo, bad_ix, ids, found);
     }
     out[b * W + w] = ids[0];
   }
@@ -244,48 +215,165 @@ extern "C" int utree_bsearch_probe(
 
 namespace {
 
-__global__ void bsearch_probe_shard_kernel(
+// ---- K15 --------------------------------------------------------------------
+
+constexpr int SH_TPB = 256;                 // threads a block
+constexpr int SH_WARPS = SH_TPB / 32;
+constexpr int SH_LANES = 4;                 // (read, window) lanes a thread
+constexpr int SH_TILE = SH_TPB * SH_LANES;  // lanes a block
+constexpr int SH_WQ = 2 * 32 * SH_LANES;    // a warp's queue: every word of its lanes
+// staged words of a tile (kmer::stage): its reads' packed bytes and
+// validity bits while W is not far below the packed width (at width 150,
+// 1024 lanes span 10 reads, 380 packed bytes); a tile that needs more reads
+// its bases with window_at
+constexpr int SH_PK_WORDS = 520;
+constexpr int SH_VB_WORDS = 264;
+
+// A warp's queue of words in range: each word's (hi, lo) and its output's
+// offset from the tile's first read's.
+struct Queue {
+  uint32_t hi[SH_WQ], lo[SH_WQ], at[SH_WQ];
+};
+
+// Appends the lanes whose `in` is set to the warp's queue of n words, in
+// lane order (a ballot and a popcount, no atomics); returns the new n.
+// Every lane of the warp calls it.
+__device__ __forceinline__ int enqueue(bool in, uint32_t hi, uint32_t lo, uint32_t at,
+                                       int n, Queue& q) {
+  const unsigned mask = __ballot_sync(0xFFFFFFFFu, in);
+  if (in) {
+    const int slot = n + __popc(mask & ((1u << (threadIdx.x & 31u)) - 1u));
+    q.hi[slot] = hi;
+    q.lo[slot] = lo;
+    q.at[slot] = at;
+  }
+  return n + __popc(mask);
+}
+
+// The replay of NW queued words against the slice; bins[pre] is the bin of
+// prefix pre (the slice's bin_ix shifted down by its first prefix).
+// Writes where(found, ix, 0) and found at each word's output.
+template <int NW>
+__device__ __forceinline__ void replay_queued(const int (&idx)[NW], const Queue& q,
+                                              const int32_t* bins,
+                                              const int4* __restrict__ rec, int32_t n,
+                                              int32_t* ix_out, uint8_t* found_out) {
+  uint32_t hi[NW], lo[NW];
+#pragma unroll
+  for (int s = 0; s < NW; ++s) {
+    hi[s] = q.hi[idx[s]];
+    lo[s] = q.lo[idx[s]];
+  }
+  int32_t ids[NW];
+  bool found[NW];
+  replay_words<NW, true>(bins, rec, n, hi, lo, 0, ids, found);
+#pragma unroll
+  for (int s = 0; s < NW; ++s) {
+    const uint32_t at = q.at[idx[s]];
+    ix_out[at] = ids[s];
+    found_out[at] = found[s];
+  }
+}
+
+__global__ void __launch_bounds__(SH_TPB) bsearch_probe_shard_kernel(
     const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits,
-    const int32_t* __restrict__ lens, int64_t B, int64_t row4, int64_t row8,
-    int32_t W, Records t, int64_t lo, int64_t nbins, int32_t do_rc,
-    int32_t* __restrict__ ix_out, uint8_t* __restrict__ found_out) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= B * W) return;
-  int64_t b = i / W;
-  int32_t w = static_cast<int32_t>(i - b * W);
-  uint32_t hi32, lo32;
-  bool valid = kmer::window_at(packed + b * row4, vbits + b * row8, lens[b], w,
-                               hi32, lo32);
-  int64_t at = b * (do_rc ? 2 * W : W) + w;
-  replay_local(t, lo, nbins, valid, hi32 >> 8, static_cast<int32_t>(hi32 & 0xFFu), lo32,
-               ix_out + at, found_out + at);
-  if (do_rc) {
-    uint32_t rhi = kmer::rev2(~lo32), rlo = kmer::rev2(~hi32);
-    replay_local(t, lo, nbins, valid, rhi >> 8, static_cast<int32_t>(rhi & 0xFFu), rlo,
-                 ix_out + at + W, found_out + at + W);
+    const int32_t* __restrict__ lens, int64_t B, int64_t row4, int64_t row8, int32_t W,
+    const int32_t* __restrict__ bin_ix, const int4* __restrict__ rec, int32_t n,
+    uint32_t lo, uint32_t nbins, int32_t do_rc, int32_t* __restrict__ ix_out,
+    uint8_t* __restrict__ found_out) {
+  __shared__ uint32_t spk[SH_PK_WORDS], svb[SH_VB_WORDS];
+  __shared__ Queue queues[SH_WARPS];
+  const int64_t P = B * W, p0 = static_cast<int64_t>(blockIdx.x) * SH_TILE;
+  const int64_t p1 = (p0 + SH_TILE < P ? p0 + SH_TILE : P) - 1;
+  const kmer::Span sp = kmer::span_of(p0, p1, W, row4, row8);
+  const bool staged = kmer::staged_words(sp.pk0, sp.pk1) <= SH_PK_WORDS &&
+                      kmer::staged_words(sp.vb0, sp.vb1) <= SH_VB_WORDS;
+  int64_t pbase = 0, vbase = 0;
+  if (staged) {
+    pbase = kmer::stage<SH_TPB>(packed, sp.pk0, sp.pk1, spk);
+    vbase = kmer::stage<SH_TPB>(vbits, sp.vb0, sp.vb1, svb);
+  }
+  __syncthreads();
+  // the outputs of the tile, from its first read's: the words out of range
+  // (or invalid) write their zeros here, the others go to the warp's queue
+  const uint32_t cols = do_rc ? 2u * W : static_cast<uint32_t>(W);
+  int32_t* ix_tile = ix_out + sp.b0 * cols;
+  uint8_t* found_tile = found_out + sp.b0 * cols;
+  Queue& queue = queues[threadIdx.x >> 5];
+  // warp v takes the tile's lanes [32 * SH_LANES * v, 32 * SH_LANES * (v + 1))
+  const int32_t first = 32 * SH_LANES * static_cast<int32_t>(threadIdx.x >> 5) +
+                        static_cast<int32_t>(threadIdx.x & 31u);
+  const int32_t w0 = static_cast<int32_t>(p0 - sp.b0 * W);
+  int nq = 0;
+#pragma unroll 1
+  for (int j = 0; j < SH_LANES; ++j) {
+    const int32_t t = first + 32 * j;  // the lane's place in the tile
+    const bool live = p0 + t <= p1;
+    const int32_t bl = (w0 + t) / W;  // w0 + t < TILE + W
+    const int32_t w = w0 + t - bl * W;
+    const int64_t b = sp.b0 + bl;
+    uint32_t hi32 = 0, lo32 = 0;
+    bool valid = false;
+    if (live) {
+      const int64_t pk = b * row4 + (w >> 2), vb = b * row8 + (w >> 3);
+      valid = staged ? kmer::staged_window(spk, svb, static_cast<int>(pk - pbase),
+                                           static_cast<int>(vb - vbase), w, lens[b], hi32,
+                                           lo32)
+                     : kmer::window_at(packed + b * row4, vbits + b * row8, lens[b], w, hi32,
+                                       lo32);
+    }
+    const uint32_t at = static_cast<uint32_t>(bl) * cols + static_cast<uint32_t>(w);
+    // a word is in range when its prefix less the slice's first lies below
+    // nbins (unsigned: a prefix below lo wraps above it)
+    const bool fwd = valid && (hi32 >> 8) - lo < nbins;
+    if (live && !fwd) {
+      ix_tile[at] = 0;
+      found_tile[at] = 0;
+    }
+    nq = enqueue(fwd, hi32, lo32, at, nq, queue);
+    if (do_rc) {
+      // rc_word_lanes: rc(hi32:lo32) = rev2(~lo32):rev2(~hi32)
+      const uint32_t rhi = kmer::rev2(~lo32), rlo = kmer::rev2(~hi32);
+      const bool rc = valid && (rhi >> 8) - lo < nbins;
+      if (live && !rc) {
+        ix_tile[at + W] = 0;
+        found_tile[at + W] = 0;
+      }
+      nq = enqueue(rc, rhi, rlo, at + W, nq, queue);
+    }
+  }
+  __syncwarp();
+  // the warp replays its queue, every lane busy: two words a lane while
+  // two are left
+  const int32_t* bins = bin_ix - lo;  // bins[pre] is the slice's bin_ix[pre - lo]
+  for (int i = static_cast<int>(threadIdx.x & 31u); i < nq; i += 64) {
+    if (i + 32 < nq) {
+      replay_queued<2>({i, i + 32}, queue, bins, rec, n, ix_tile, found_tile);
+    } else {
+      replay_queued<1>({i}, queue, bins, rec, n, ix_tile, found_tile);
+    }
   }
 }
 
 }  // namespace
 
-// One slice: bin_ix (nbins + 1,) local offsets, suf_hi / suf_lo / ix
-// (n + 1,) with zero-suffix, id-bad_ix padding; lo = the slice's first
-// prefix.  Writes (B, 2W or W) int32 where(found, ix, 0) and u8 found.
+// One slice: bin_ix (nbins + 1,) local offsets, rec (n + 1, 4) int32
+// records {suf_hi, suf_lo, ix, 0} with zero-suffix, id-bad_ix padding, 16 B
+// aligned, n < 2^31 - 1; lo = the slice's first prefix.  Writes (B, 2W or
+// W) int32 where(found, ix, 0) and u8 found.
 extern "C" int utree_bsearch_probe_shard(
     const void* packed, const void* vbits, const void* lens, int64_t B, int64_t row4,
-    int64_t row8, int32_t W, const void* bin_ix, const void* suf_hi, const void* suf_lo,
-    const void* ix, int64_t n, int64_t lo, int64_t nbins, int32_t do_rc, void* ix_out,
-    void* found_out, void* stream) {
-  const int threads = 256;
+    int64_t row8, int32_t W, const void* bin_ix, const void* rec, int64_t n, int64_t lo,
+    int64_t nbins, int32_t do_rc, void* ix_out, void* found_out, void* stream) {
   int64_t total = B * W;
   if (total > 0) {
-    Records t{static_cast<const int32_t*>(bin_ix), static_cast<const int32_t*>(suf_hi),
-              static_cast<const uint32_t*>(suf_lo), static_cast<const int32_t*>(ix), n};
-    bsearch_probe_shard_kernel<<<utree_blocks(total, threads), threads, 0,
+    bsearch_probe_shard_kernel<<<utree_blocks(total, SH_TILE), SH_TPB, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(packed), static_cast<const uint8_t*>(vbits),
-        static_cast<const int32_t*>(lens), B, row4, row8, W, t, lo, nbins, do_rc,
-        static_cast<int32_t*>(ix_out), static_cast<uint8_t*>(found_out));
+        static_cast<const int32_t*>(lens), B, row4, row8, W,
+        static_cast<const int32_t*>(bin_ix), static_cast<const int4*>(rec),
+        static_cast<int32_t>(n), static_cast<uint32_t>(lo), static_cast<uint32_t>(nbins),
+        do_rc, static_cast<int32_t*>(ix_out), static_cast<uint8_t*>(found_out));
   }
   UTREE_LAUNCH_RESULT();
 }

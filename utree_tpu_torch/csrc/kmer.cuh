@@ -1,10 +1,12 @@
 // The front half shared by the probe kernels (K1 scan_probe, K4
-// ladder_probe, K7 bsearch_probe, K9 xtree_probe, K10 hash_probe, and the
-// routed shards' K11-K13, K17, K18; K1 and K4 take the staged windows
-// (staged_front), the two-slot rows loaded as vectors (Row2) and the tails,
-// K11 the staged windows; K7, K9 and K10 take window_at, K7 rev2 too, K10
-// mix32, K12 displaced_t1, K13 t3_tail and write_ids, K17 probe_row, K18
-// c2_tail, t3_tail and write_ids): one (read, window) -> its canonical
+// ladder_probe, K7 bsearch_probe, K9 xtree_probe, K10 hash_probe, K15
+// bsearch_probe_shard, and the routed shards' K11-K13, K17, K18; K1 and K4
+// take the staged windows (staged_front), the two-slot rows loaded as
+// vectors (Row2) and the tails, K11 and K15 the staged windows (K15 with
+// rev2); K7 and K10 take window_at, K7 rev2 too, K9 the key's hashes, the
+// wide rows as vectors and t3_tail, K10 mix32, K12 displaced_t1, K13
+// t3_tail and write_ids, K17 probe_row, K18 c2_tail, t3_tail and
+// write_ids): one (read, window) -> its canonical
 // 32-mer key, the 32-bit mixes the table placement uses, the slot compare
 // over one gathered row, the displaced-table probe, and the dual-value
 // decode into per-window label ids.
@@ -12,7 +14,8 @@
 // Twins (utree_tpu/lookup.py): base_codes_packed :39 + extract_windows :83
 // (window_at), _rev2_32 :113, rc_word_lanes :123 and canonical_keys :243
 // (canonical), _mix_jnp :188 (mix32), probe_rows :292 / probe_rows_wide :306
-// (probe_row), displaced_probe_raw :887 (displaced_probe),
+// (probe_row), displaced_probe_raw :887 (displaced_slot, load_row2,
+// match_row2, t3_tail),
 // decode_canonical_vals :335 / decode_canonical_wide :322 and
 // the [ix_a | ix_b] concat of _canonical_family_ix :921 (write_ids).
 // Arithmetic is true uint32, wrapping exactly as the jnp.uint32 code.
@@ -235,19 +238,6 @@ __device__ __forceinline__ void t3_tail(Raw& r, const Key& k, const int32_t* d3,
     uint32_t b3 = mix32(k.pre, k.hi8, k.lo ^ 0x27D4EB2Fu) & static_cast<uint32_t>(n3 - 1);
     r = probe_row<CPS>(d3 + static_cast<int64_t>(b3) * CPS * s3, s3, k);
   }
-}
-
-// One probe of the seeded-displacement table (displaced_probe_raw): the
-// key's seed bucket, its d1 row, then on a miss the d3 tail.
-template <int CPS>
-__device__ __forceinline__ Raw displaced_probe(const Key& k, const int32_t* d1,
-                                               int64_t nslots, const int32_t* ds,
-                                               int64_t nseed, const int32_t* d3,
-                                               int64_t n3, int32_t s3) {
-  uint32_t bkt = fold_hash(k) & static_cast<uint32_t>(nseed - 1);
-  Raw r = displaced_t1<CPS>(k, bkt, d1, nslots, ds);
-  t3_tail<CPS>(r, k, d3, n3, s3);
-  return r;
 }
 
 // A two-slot first-level row (d1, or a c1 of tier A) in registers, loaded

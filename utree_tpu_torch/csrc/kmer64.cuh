@@ -4,11 +4,14 @@
 // 64-mer placement uses, the 6-column slot compare over one gathered row,
 // and the decode into per-window label ids.  K5 and K6 cut their windows
 // from a staged tile (staged_lane) and read their rows as 16 B loads
-// (probe_row16); K9 takes base_code.
+// (probe_row16); K9 cuts its k-mers of 14-31 bases from a staged tile too
+// (staged_kmer).
 //
 // Twins (utree_tpu/lookup.py): base_codes :31 with its _DEV_CODE table :23,
-// extract_windows64 :395 (window_at, staged_lane), rc_lanes64 :412 and
-// _canonicalize64 :421 (canonical), _probe64 :442 (probe_row, probe_row16),
+// extract_windows64 :395 (window_at, staged_lane), utree_tpu/xtree/
+// device.py's _extract_windows_k :120 (kmer_at, staged_kmer), rc_lanes64
+// :412 and _canonicalize64 :421 (canonical), _probe64 :442 (probe_row,
+// probe_row16),
 // the decode of lookup_kmers_canonical64 :513-518 / lookup_kmers_displaced64
 // :560-565 and search_step's [ix_a | ix_b] concat :613 (write_ids); mix4 is
 // utree_tpu/hash_index64.py:30.  Arithmetic is true uint32, wrapping exactly
@@ -155,6 +158,80 @@ __device__ __forceinline__ Lane staged_lane(const uint8_t* reads, const int32_t*
       l.valid = (v0 & v1) == 0xFFFFFFFFu && l.w + 63 < len;
     } else {
       l.valid = window_at(reads + l.b * L, len, l.w, l.k);
+    }
+  }
+  return l;
+}
+
+// ---- staged k-mers of 14-31 bases (K9) -------------------------------------
+// The same staging for the windows of k <= 31 bases of a (B, T) ASCII
+// matrix (W = T - k + 1): a lane's k bases lie in at most three staged code
+// words, cut with two funnel shifts into one 64-bit word.
+
+// One lane of a staged k-mer tile: its row and window, whether it lies in
+// the grid (live) and is valid, and its word x: the k bases MSB-first in
+// the low 2k bits, a base that is not ACGT, or lies at or past the row's
+// length, coded 0 (extract_windows_k's masked codes, which the prefix bins
+// of an invalid window are taken from).
+struct Kmer {
+  int64_t b;
+  int32_t w;
+  bool live, valid;
+  uint64_t x;
+};
+
+// The k bases at w..w+k-1 of one ASCII row, a byte load each.
+__device__ __forceinline__ bool kmer_at(const uint8_t* row, int32_t len, int32_t w, int k,
+                                        uint64_t& x) {
+  x = 0;
+  bool valid = true;
+  for (int j = 0; j < k; ++j) {
+    const int p = w + j;
+    const uint32_t code = base_code(row[p]);
+    const bool ok = code < 4u && p < len;
+    valid &= ok;
+    x = (x << 2) | (ok ? code : 0u);
+  }
+  return valid;
+}
+
+// The tile of NT lanes from p0 of a (B, W) grid of P lanes over a (B, T)
+// ASCII matrix, one lane a thread, as staged_lane cuts 64-mers: the bytes
+// are staged where they fit in `chunks` chunks (they do unless W is a few
+// windows), else the lane reads them with kmer_at.  A staged decode codes
+// a base past the length as the base it is, so the cut zeroes the bases
+// from len - w on.  Synchronises the block once.
+template <int NT>
+__device__ __forceinline__ Kmer staged_kmer(const uint8_t* reads, const int32_t* lens,
+                                            int64_t P, int64_t T, int32_t W, int k, int64_t p0,
+                                            uint32_t* codes, uint32_t* valid, int chunks) {
+  const int64_t p1 = (p0 + NT < P ? p0 + NT : P) - 1;
+  const int64_t b0 = p0 / W, b1 = p1 / W;
+  const int64_t g0 = b0 * T + (p0 - b0 * W), g1 = b1 * T + (p1 - b1 * W) + k - 1;
+  const bool staged = ((g1 - g0 + 15) >> 5) + 2 <= chunks;
+  int64_t base = 0;
+  if (staged) base = stage_ascii<NT>(reads, g0, g1, codes, valid);
+  __syncthreads();
+  Kmer l{0, 0, p0 + threadIdx.x < P, false, 0ull};
+  if (l.live) {
+    const int32_t q = static_cast<int32_t>(p0 + threadIdx.x - b0 * W);  // < NT + W
+    const int32_t bl = q / W;
+    l.b = b0 + bl;
+    l.w = q - bl * W;
+    const int32_t len = lens[l.b];
+    if (staged) {
+      const int o = static_cast<int>(l.b * T + l.w - base);
+      const int j = o >> 4, r = 2 * (o & 15);
+      const uint32_t x0 = __funnelshift_l(codes[j + 1], codes[j], r);      // bases 0..15
+      const uint32_t x1 = __funnelshift_l(codes[j + 2], codes[j + 1], r);  // 16..31
+      const uint64_t x = ((static_cast<uint64_t>(x0) << 32) | x1) >> (64 - 2 * k);
+      const int jv = o >> 5;
+      const uint32_t ok = __funnelshift_l(valid[jv + 1], valid[jv], o & 31) >> (32 - k);
+      const int32_t m = len - l.w;  // the window's bases before the length
+      l.x = m >= k ? x : m <= 0 ? 0ull : x & (~0ull << (2 * (k - m)));
+      l.valid = ok == (1u << k) - 1u && m >= k;
+    } else {
+      l.valid = kmer_at(reads + l.b * T, len, l.w, k, l.x);
     }
   }
   return l;

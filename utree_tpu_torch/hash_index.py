@@ -939,26 +939,38 @@ def canonical64_to_device(canon: CanonicalHash64Arrays, device) -> dict[str, tor
                        ("c64_3", canon.t3)), device)
 
 
-def bsearch_records(index: DeviceIndexArrays) -> np.ndarray:
-    """The CTR records as K7 reads them: (N+1, 4) int32 rows {suf_hi,
-    suf_lo, ix, 0}, the sentinel last, 16 B each, so that a record costs one
-    32 B sector where three arrays cost three."""
-    rec = np.zeros((index.suf_hi.shape[0], 4), np.int32)
-    rec[:, 0], rec[:, 1], rec[:, 2] = index.suf_hi, index.suf_lo.view(np.int32), index.ix
+def records(suf_hi, suf_lo, ix) -> np.ndarray:
+    """Records as K7 and K15 read them: (n+1, 4) int32 rows {suf_hi,
+    suf_lo (its int32 bits), ix, 0}, the padding or sentinel last, 16 B
+    each, so that a record costs one 32 B sector where three arrays cost
+    three."""
+    rec = np.zeros((len(suf_hi), 4), np.int32)
+    rec[:, 0], rec[:, 1], rec[:, 2] = suf_hi, np.asarray(suf_lo).view(np.int32), ix
     return rec
+
+
+def records_to_device(bin_ix, rec, device) -> dict[str, torch.Tensor]:
+    """{"bin_ix", "rec", "suf_hi", "suf_lo", "ix"} int32 tensors on
+    `device`: suf_hi, suf_lo and ix are views of rec's columns, so the
+    kernels (rec) and the plain versions (the views) read the same bytes."""
+    t = _to_device((("bin_ix", bin_ix), ("rec", rec)), device)
+    rec = t["rec"]
+    return {"bin_ix": t["bin_ix"], "suf_hi": rec[:, 0], "suf_lo": rec[:, 1],
+            "ix": rec[:, 2], "rec": rec}
+
+
+def bsearch_records(index: DeviceIndexArrays) -> np.ndarray:
+    """The CTR records as `records`, the sentinel last."""
+    return records(index.suf_hi, index.suf_lo, index.ix)
 
 
 def bsearch_to_device(index: DeviceIndexArrays, device) -> dict[str, torch.Tensor]:
     """The PACKSIZE=32 CTR records for the bsearch replay: bin_ix (2^24+1,)
-    and rec (N+1, 4) (bsearch_records), whose columns suf_hi, suf_lo and ix
-    (N+1,) are views, all int32; suf_lo (uint32) travels as its int32 bits
-    and is compared unsigned.  K7 reads rec, the plain version the views:
-    16 (N+1) bytes of records, 320 MB at 20M."""
+    and rec (N+1, 4) (records_to_device); suf_lo (uint32) travels as its
+    int32 bits and is compared unsigned.  K7 reads rec, the plain version
+    the views: 16 (N+1) bytes of records, 320 MB at 20M."""
     if index.bin_ix.dtype != np.int32:
         raise ValueError(
             f"the bsearch replay takes int32 bin offsets; this index holds "
             f"{index.num_records:,} records (int64 offsets from 2^31)")
-    t = _to_device((("bin_ix", index.bin_ix), ("rec", bsearch_records(index))), device)
-    rec = t["rec"]
-    return {"bin_ix": t["bin_ix"], "suf_hi": rec[:, 0], "suf_lo": rec[:, 1],
-            "ix": rec[:, 2], "rec": rec}
+    return records_to_device(index.bin_ix, bsearch_records(index), device)

@@ -50,10 +50,10 @@ SIGNATURES = {
     "utree_bsearch_probe": [P, P, P, I64, I64, I64, I32,
                             P, P, I64,  # bin_ix, rec (n + 1, 4), n
                             I32, I32, P, P],
-    # K15: the K7 front, then one slice (bin_ix, suf_hi, suf_lo, ix, n), its
+    # K15: the K7 front, then one slice (bin_ix, rec (n + 1, 4), n), its
     # first prefix and bin count; do_rc, ix out, found out, stream
     "utree_bsearch_probe_shard": [P, P, P, I64, I64, I64, I32,
-                                  P, P, P, P, I64, I64, I64,
+                                  P, P, I64, I64, I64,
                                   I32, P, P, P],
     # reads, lens, B, L, row8, rc; packed, vbits, stream
     "utree_ascii_pack": [P, P, I64, I64, I64, I32, P, P, P],

@@ -461,6 +461,25 @@ def _row_aligned(t: torch.Tensor, name: str, align: int) -> None:
         raise ValueError(f"{name} must be {align} B aligned for its vector row loads")
 
 
+def _records(tables: dict, who: str, dev):
+    """(bin_ix, rec, n) of the records that K7 and K15 read: rec is
+    (n + 1, 4) int32 {suf_hi, suf_lo, ix, 0} (`hash_index.records`), one
+    row for each of suf_hi's n + 1 (the arrays the plain versions read), 16 B
+    aligned, n < 2^31 - 1."""
+    bin_ix, rec = tables["bin_ix"], tables.get("rec")
+    if rec is None:
+        raise ValueError(f"{who} reads the records as 'rec' (n + 1, 4) "
+                         "(hash_index.records_to_device places it)")
+    kernels.require(bin_ix, "bin_ix", torch.int32, 1, dev)
+    kernels.require(rec, "rec", torch.int32, 2, dev)
+    n = tables["suf_hi"].shape[0] - 1
+    if tuple(rec.shape) != (n + 1, 4) or n < 0 or n >= 0x7FFFFFFF:
+        raise ValueError("rec must be (n + 1, 4) int32 records {suf_hi, suf_lo, "
+                         "ix, 0}, the padding or sentinel last, n < 2^31 - 1")
+    _row_aligned(rec, "rec", 16)
+    return bin_ix, rec, n
+
+
 def window_ids(tables: dict, packed, vbits, lengths, *, do_rc: bool,
                bad_ix: int, num_labels: int, true_len: int | None = None,
                probe_iters: int | None = None) -> torch.Tensor:
@@ -497,19 +516,9 @@ def window_ids(tables: dict, packed, vbits, lengths, *, do_rc: bool,
             torch.cuda.current_stream(dev).cuda_stream)
     suffix = "_wide" if wide else ""
     if "bin_ix" in tables:
-        bin_ix, rec = tables["bin_ix"], tables.get("rec")
-        if rec is None:
-            raise ValueError("K7 reads the records as 'rec' (n + 1, 4) "
-                             "(hash_index.bsearch_to_device makes it)")
-        kernels.require(bin_ix, "bin_ix", torch.int32, 1, dev)
-        kernels.require(rec, "rec", torch.int32, 2, dev)
-        n = tables["suf_hi"].shape[0] - 1
+        bin_ix, rec, n = _records(tables, "K7", dev)
         if bin_ix.shape[0] != (1 << 24) + 1:
             raise ValueError("bin_ix must have 2^24+1 entries")
-        if tuple(rec.shape) != (n + 1, 4) or n < 0 or n >= 0x7FFFFFFF:
-            raise ValueError("rec must be (n + 1, 4) int32 records {suf_hi, suf_lo, "
-                             "ix, 0}, one a record and the sentinel, n < 2^31 - 1")
-        _row_aligned(rec, "rec", 16)
         kernels.launch("bsearch_probe", *front, bin_ix.data_ptr(), rec.data_ptr(), n,
                        *back)
     elif "t1" in tables:

@@ -36,10 +36,11 @@ import torch
 from utree_tpu_torch import kernels
 from utree_tpu_torch._u32 import u32
 from utree_tpu_torch.config import UTreeConfig
+from utree_tpu_torch.hash_index import records, records_to_device
 from utree_tpu_torch.index import DeviceIndexArrays
-from utree_tpu_torch.lookup import (_with_rc_words, ascii_pack, base_codes_packed,
-                                    bsearch_descend, extract_windows, int32_miss,
-                                    search_step, window_lanes)
+from utree_tpu_torch.lookup import (_records, _with_rc_words, ascii_pack,
+                                    base_codes_packed, bsearch_descend, extract_windows,
+                                    int32_miss, search_step, window_lanes)
 from utree_tpu_torch.parallel.mesh import ShardMesh
 
 
@@ -130,9 +131,13 @@ class ShardedIndex:
                    prefix_lo=lows.astype(np.int32), num_shards=num_shards,
                    probe_iters=index.probe_iters, config=cfg)
 
+    def slice_records(self, t: int) -> np.ndarray:
+        """Slice t's records as K15 reads them (`hash_index.records`)."""
+        return records(self.suf_hi[t], self.suf_lo[t], self.ix[t])
+
     def to_devices(self, mesh: ShardMesh) -> list[dict[str, torch.Tensor]]:
-        """One {"bin_ix", "suf_hi", "suf_lo", "ix"} int32 dict a device: slice
-        t on every device of mesh column t (suf_lo as its int32 bits).
+        """One `hash_index.records_to_device` dict a device: slice t's
+        bin_ix and `slice_records(t)` on every device of mesh column t.
         Devices that are one device share one copy of a slice."""
         if mesh.shape[1] != self.num_shards:
             raise ValueError(f"{self.num_shards} table shards on a mesh of {mesh.shape}")
@@ -141,10 +146,7 @@ class ShardedIndex:
         for i, dev in enumerate(mesh.devices):
             t = i % self.num_shards
             if (t, dev) not in copies:
-                copies[(t, dev)] = {
-                    k: torch.from_numpy(np.ascontiguousarray(a[t]).view(np.int32)).to(dev)
-                    for k, a in (("bin_ix", self.bin_ix), ("suf_hi", self.suf_hi),
-                                 ("suf_lo", self.suf_lo), ("ix", self.ix))}
+                copies[(t, dev)] = records_to_device(self.bin_ix[t], self.slice_records(t), dev)
             out.append(copies[(t, dev)])
         return out
 
@@ -190,7 +192,8 @@ def shard_probe(table: dict, packed, vbits, lengths, *, prefix_lo: int, width: i
                 do_rc: bool, probe_iters: int):
     """K15 `bsearch_probe_shard` on CUDA tensors (which loops while a
     range is non-empty and reads no `probe_iters`); `shard_probe_plain` on
-    CPU tensors."""
+    CPU tensors.  K15 reads the slice's bin_ix and its records as `rec`
+    (n + 1, 4), 16 B aligned (`ShardedIndex.to_devices` places both)."""
     if packed.device.type == "cpu":
         return shard_probe_plain(table, packed, vbits, lengths, prefix_lo=prefix_lo,
                                  width=width, do_rc=do_rc, probe_iters=probe_iters)
@@ -198,16 +201,13 @@ def shard_probe(table: dict, packed, vbits, lengths, *, prefix_lo: int, width: i
     kernels.require(packed, "packed", torch.uint8, 2, dev)
     kernels.require(vbits, "vbits", torch.uint8, 2, dev)
     kernels.require(lengths, "lengths", torch.int32, 1, dev)
-    arrs = _slice_args(table)
-    for name, a in zip(("bin_ix", "suf_hi", "suf_lo", "ix"), arrs):
-        kernels.require(a, name, torch.int32, 1, dev)
+    bin_ix, rec, n = _records(table, "K15", dev)
     b, row4 = packed.shape
     row8 = vbits.shape[1]
     if lengths.shape[0] != b or vbits.shape[0] != b or row8 * 2 != row4:
         raise ValueError("packed/vbits/lengths shapes disagree")
-    n = arrs[1].shape[0] - 1
-    if n < 0 or arrs[2].shape[0] != n + 1 or arrs[3].shape[0] != n + 1:
-        raise ValueError("suf_hi, suf_lo and ix must hold the slice's padded records")
+    if bin_ix.shape[0] < 2:
+        raise ValueError("bin_ix must hold a slice's bin offsets and its end")
     w = width - 31
     if w <= 0 or width > row4 * 4:
         raise ValueError(f"width {width} is no window width of {row4 * 4} positions")
@@ -215,10 +215,9 @@ def shard_probe(table: dict, packed, vbits, lengths, *, prefix_lo: int, width: i
     ix = torch.empty((b, cols), dtype=torch.int32, device=dev)
     found = torch.empty((b, cols), dtype=torch.uint8, device=dev)
     kernels.launch("bsearch_probe_shard", packed.data_ptr(), vbits.data_ptr(),
-                   lengths.data_ptr(), b, row4, row8, w,
-                   *(a.data_ptr() for a in arrs), n, prefix_lo, arrs[0].shape[0] - 1,
-                   int(do_rc), ix.data_ptr(), found.data_ptr(),
-                   torch.cuda.current_stream(dev).cuda_stream)
+                   lengths.data_ptr(), b, row4, row8, w, bin_ix.data_ptr(),
+                   rec.data_ptr(), n, prefix_lo, bin_ix.shape[0] - 1, int(do_rc),
+                   ix.data_ptr(), found.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return ix, found
 
 

@@ -35,7 +35,8 @@ import torch
 from utree_tpu_torch import kernels
 from utree_tpu_torch._u32 import M, i32
 from utree_tpu_torch.hash_index import _rc64, displaced_to_device, place_displaced
-from utree_tpu_torch.lookup import _level, base_codes, displaced_probe_raw, rev2_32
+from utree_tpu_torch.lookup import (_level, _row_aligned, base_codes, displaced_probe_raw,
+                                    rev2_32)
 from utree_tpu_torch.xtree.build import XtreeDB
 
 
@@ -231,6 +232,7 @@ def xtree_step(tables: dict, reads: torch.Tensor, lengths: torch.Tensor, *,
     nseed = 4 * ds.shape[0]
     if d1.shape[1] != 8:
         raise ValueError("xtree_probe takes d1 rows of 2 wide (4-column) slots")
+    _row_aligned(d1, "d1", 16)
     if nseed & (nseed - 1) or n3 & (n3 - 1):
         raise ValueError("seed table and d3 must have power-of-two sizes")
     out = torch.empty((4, b, w), dtype=torch.int32, device=dev)

@@ -1419,7 +1419,7 @@ def routed_parts(sh, table: dict, b: int, w: int) -> dict:
     fin = dict(b=b, w=w, do_rc=True, bad_ix=0x7FFFFFFF if wide else 0xFFFF, wide=wide)
     if isinstance(sh, R.ShardedDisplacedIndex):
         t1, ds, t3 = table["t1"], table["ds"], table["t3"]
-        own = dict(base=0, per_seed=sh.nseed // S, wide=wide)
+        own = dict(per_seed=sh.nseed // S, wide=wide)
 
         def tail(rec, got, miss1):
             # a valid lane whose routed value misses reads one d3 row (t3 at
@@ -1430,8 +1430,9 @@ def routed_parts(sh, table: dict, b: int, w: int) -> dict:
         return dict(
             nbkt=sh.nseed,
             owner=("owner_probe" + sfx, "owner_probe.cu", "utree_tpu/parallel/routed.py:405",
-                   lambda lanes: R.owner_probe(t1, ds, lanes, **own),
-                   lambda lanes: R.owner_probe_plain(t1, ds, lanes, **own)),
+                   lambda lanes, base=0: R.owner_probe(t1, ds, lanes, **own, base=base),
+                   lambda lanes, base=0: R.owner_probe_plain(t1, ds, lanes, **own,
+                                                             base=base)),
             finish=("routed_finish" + sfx, "routed_finish.cu",
                     "utree_tpu/parallel/routed.py:462",
                     lambda rec, reply: R.routed_finish(rec, reply, t3, **fin),
@@ -1442,7 +1443,7 @@ def routed_parts(sh, table: dict, b: int, w: int) -> dict:
                                          + min(nbytes(ds), SECTOR * written)),
             tail=tail)
     t1, t2, t3 = table["t1"], table["t2"], table["t3"]
-    own = dict(base=0, per_shard=sh.b1 // S, wide=wide)
+    own = dict(per_shard=sh.b1 // S, wide=wide)
 
     def tail(rec, got, miss1):
         # a valid lane whose routed value misses reads a c2 row, and one c2
@@ -1468,8 +1469,9 @@ def routed_parts(sh, table: dict, b: int, w: int) -> dict:
         nbkt=sh.b1,
         owner=("canonical_owner_probe" + sfx, "owner_probe.cu",
                "utree_tpu/parallel/routed.py:153",
-               lambda lanes: R.canonical_owner_probe(t1, lanes, **own),
-               lambda lanes: R.canonical_owner_probe_plain(t1, lanes, **own)),
+               lambda lanes, base=0: R.canonical_owner_probe(t1, lanes, **own, base=base),
+               lambda lanes, base=0: R.canonical_owner_probe_plain(t1, lanes, **own,
+                                                                   base=base)),
         finish=("routed_canonical_finish" + sfx, "routed_finish.cu",
                 "utree_tpu/parallel/routed.py:95",
                 lambda rec, reply: R.routed_canonical_finish(rec, reply, t2, t3, **fin),
@@ -1521,6 +1523,17 @@ def routed_checks(sharded, tables, mesh, packed, vbits, lens, tag: str) -> list[
     name, src, line, kernel, plain = parts[0]["owner"]
     rows.append(check_kernel(name, src, line, lambda: kernel(lanes), lambda: plain(lanes),
                              what, nbytes(lanes, vals[0]) + parts[0]["owner_bytes"](written)))
+    log(f"{tag}: owner 0's receive buffer {lanes.shape[0]:,} lanes, {written:,} written, "
+        f"{lanes.shape[0] - written:,} unwritten (K11's zeroed tail)")
+    # the fallback's lanes: K11 as one shard with room for every lane
+    # (global buckets), each shard's owner probe at its base
+    glanes = R.route_displaced(p0, v0, l0, nseed=nbkt, num_shards=1,
+                               capacity=b * w)[0].reshape(-1, 3)
+    for s in range(S):
+        _, _, _, kernel_s, plain_s = parts[s]["owner"]
+        max_abs_err((kernel_s(glanes, s * (nbkt // S)),), (plain_s(glanes, s * (nbkt // S)),))
+    log(f"{tag}: {name} equal to plain on the fallback's {glanes.shape[0]:,} lanes "
+        f"(shard 0's rows, global buckets) at each of the {S} shards' bases")
     name, src, line, kernel, plain = parts[0]["finish"]
     ids = kernel(rec, reply[0])
     slot, valid = rec[:, 0].long(), (rec[:, 3] & 1) == 1

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time the probes K1 scan_probe[_wide], K4 ladder_probe[_wide], K7
 bsearch_probe, K15 bsearch_probe_shard, K10 hash_probe, K5 scan_probe64,
-K6 ladder_probe64, K9 xtree_probe, K2's histograms and K11 route_displaced
-of one or more checkouts of this repository on one NVIDIA GPU, on the same
-inputs, at chip_smoke.py's shapes, with each call's device time split by
-launch.
+K6 ladder_probe64, K9 xtree_probe, K2's histograms, K11 route_displaced and
+the routed owner probes K12 owner_probe[_wide] and K17
+canonical_owner_probe[_wide] of one or more checkouts of this repository
+on one NVIDIA GPU, on the same inputs, at chip_smoke.py's shapes, with
+each call's device time split by launch.
 
     python3 kernel_ab.py [TREE ...] [--out FILE] [--only RE]
 
@@ -16,7 +17,8 @@ tier (4096 labels) with its CTR records, its legacy hash (t1/t2), its
 displaced table and its canonical ladder, phase 7's 2M-k-mer tier of
 70,000 labels (IXTYPE=u32) with both tables, and phase 9's 20M 64-mer tier
 of 70,000 labels (chip_smoke.tier64) with its 64-mer ladder and displaced
-table, and phase 12's xtree table;
+table, phase 12's xtree table, and both tiers' tables cut four ways for
+the routed owner probes;
 
 - K1 and K4 at phase 3's and phase 6's shape (65,536 reads of 150 bp,
   true_len 152, 121 windows, RC) on the 20M tier's tables, and their
@@ -57,7 +59,17 @@ table, and phase 12's xtree table;
   shape (65,536 reads of 150 bp, 242 ids a read: the register branch);
 - K11 `route_displaced` at phase 15's shard shape (16,384 reads of 192
   positions, 161 windows, 4 owners, capacity 857,344) at the displaced
-  table's seed count and at the ladder's b1 (phase 19).
+  table's seed count and at the ladder's b1 (phase 19);
+- K12 and K17 on owner 0's receive buffer at that shape (four senders of
+  16,384 reads each routing by K11, 4 x 857,344 lanes, base 0): narrow on
+  shard 0 of the 20M tier's displaced table built four ways
+  (ShardedDisplacedIndex) and of its ladder cut four ways
+  (ShardedCanonicalIndex.from_canonical), wide on the 2M tier's of 70,000
+  labels; with the count of the lanes the senders wrote (the rest are
+  K11's zeroed tail, bucket 0 and key 0); as a yardstick, not the
+  function, torch.index_select of the written lanes' first-level rows
+  (K17: the t1 slice's row at the lane's bucket; K12: the d1 row at the
+  seeded slot, by the plain version's seed and slot).
 
 Then each tree runs in a process of its own (its `utree_tpu_torch` first on
 sys.path, its kernels built into its own .cuda_build/): every call's mean
@@ -75,8 +87,9 @@ whose names match a regular expression, and makes only their inputs,
 e.g. 'bsearch' (K7, K15 and the searchsorted yardstick), 'hash_probe'
 (K10 and its t1 yardstick), 'probe64' (K5, K6 and their yardsticks),
 'scan_probe64|hash_probe' (K5 and K10), '^(scan|ladder)_probe ' (K1 and
-K4 narrow), 'histogram', 'route', 'xtree' (K9 and its d1 yardstick) or
-'xtree_probe|bsearch_probe_shard' (K9 and K15).
+K4 narrow), 'histogram', 'route', 'xtree' (K9 and its d1 yardstick),
+'xtree_probe|bsearch_probe_shard' (K9 and K15) or 'owner_probe' (K12, K17
+and their yardsticks).
 """
 
 from __future__ import annotations
@@ -230,6 +243,47 @@ def _xtree_d1_rows(tables: dict, reads, lens, k: int):
     return (slot >> 1)[valid]
 
 
+def _owner_buffer(packed, vbits, lens, nbkt: int, shards: int) -> tuple:
+    """Owner 0's receive buffer at the routed step's shapes: each of
+    `shards` senders routes its B/S rows by K11 (the step's capacity C)
+    and owner 0 receives its block of each.  Returns the (S*C, 3) lanes,
+    the mask of the slots a sender wrote (the rest are K11's zeroed tail)
+    and C."""
+    import torch
+
+    from utree_tpu_torch.parallel import routed as R
+
+    b, w = packed.shape[0] // shards, packed.shape[1] * 4 - 31
+    c = max(128, -(-int(b * w / shards * R.CAPACITY_FACTOR) // 128) * 128)
+    blocks, written = [], []
+    for s in range(shards):
+        rows = slice(s * b, (s + 1) * b)
+        send, _, counts = R.route_displaced(packed[rows], vbits[rows], lens[rows],
+                                            nseed=nbkt, num_shards=shards, capacity=c)
+        blocks.append(send[0])
+        written.append(torch.arange(c, device=send.device) < min(int(counts[0]), c))
+    return torch.cat(blocks), torch.cat(written), c
+
+
+def _owner_rows(kind: str, table: dict, lanes, written):
+    """The first-level row of each written lane, by the plain versions'
+    functions: K17's t1 row at the lane's bucket, K12's d1 row at the
+    seeded slot (base 0)."""
+    import torch
+
+    from utree_tpu_torch import lookup as lk
+    from utree_tpu_torch.parallel import routed as R
+
+    t1 = table["t1"]
+    _, local, klo, khi = R._lane_fields(lanes, 0, t1.shape[0] if "ds" not in table
+                                        else 4 * table["ds"].shape[0])
+    if kind == "owner_probe":
+        seed = lk.displaced_seed(table["ds"], local)
+        local = lk.displaced_slot(klo, khi, seed, torch.ones_like(written),
+                                  2 * t1.shape[0]) >> 1
+    return local[written]
+
+
 def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) -> str:
     """Make the inputs of the groups in `want` with this checkout's code on
     `dev`; save to path.  Returns what it made, as a line."""
@@ -255,11 +309,12 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
 
     t = time.perf_counter()
     out, notes = {"groups": sorted(want)}, []
-    if "tier" in want:
+    if want & {"tier", "routed"}:
         index, genome, rng = cs.make_tier(kmers, cs.LABELS)
         L = index.num_labels
         reads = cs.make_reads(genome, rng, cs.BATCH)
         packed, vbits, lens = batch = cs.batch_tensors(dev, reads)
+    if "tier" in want:
         tb = time.perf_counter()
         bs = bsearch_to_device(index, dev)
         if dev.type == "cuda":
@@ -335,12 +390,13 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
                      f"K11 {b} reads x {w} windows, nseed {nseed}, b1 {canon.t1.shape[0]}, "
                      f"capacity {cap}; d1 {tuple(disp['d1'].shape)}, c1 "
                      f"{tuple(ladder['c1'].shape)}")
-    if "wide" in want:
+    if "wide" in want or "routed" in want:
         windex, wgenome, wrng = cs.make_tier(cs.WIDE_DISPLACED_KMERS, cs.WIDE_LABELS,
                                              ixtype_bytes=4)
+        wbatch = cs.batch_tensors(dev, cs.make_reads(wgenome, wrng, cs.BATCH))
+    if "wide" in want:
         wtables = {"displaced": displaced_to_device(build_displaced_index(windex), dev),
                    "ladder": canonical_to_device(build_canonical_hash_index(windex), dev)}
-        wbatch = cs.batch_tensors(dev, cs.make_reads(wgenome, wrng, cs.BATCH))
         firsts = {**(firsts if "tables" in want else {}),
                   **{name: _first_rows(tab, *wbatch) for name, tab in (
                       ("scan_probe_wide", wtables["displaced"]),
@@ -353,6 +409,39 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
         sectors = {name: _sectors(*f) for name, f in firsts.items()}
         out.update(sectors=sectors, first_rows={name: f[0].cpu() for name, f in firsts.items()})
         notes.append(f"first-level sectors {json.dumps(sectors)}")
+    if "routed" in want:
+        from utree_tpu_torch.parallel.routed import (ShardedCanonicalIndex,
+                                                     ShardedDisplacedIndex)
+
+        tr, S, routed = time.perf_counter(), cs.ROUTED_SHARDS, {}
+        for width, ix, bt in (("narrow", index, batch), ("wide", windex, wbatch)):
+            dsh = ShardedDisplacedIndex.build(ix, S)
+            csh = ShardedCanonicalIndex.from_canonical(
+                canon if width == "narrow" and "tables" in want
+                else build_canonical_hash_index(ix), S)
+            for kind, sh, nbkt, table in (
+                    ("owner_probe", dsh, dsh.nseed,
+                     {"t1": dsh.t1[0], "ds": dsh.seeds[0]}),
+                    ("canonical_owner_probe", csh, csh.b1, {"t1": csh.t1[0]})):
+                table = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for k, a in table.items()}
+                lanes, written, c = _owner_buffer(*bt, nbkt, S)
+                rows = _owner_rows(kind, table, lanes, written)
+                routed[width, kind] = dict(
+                    table=cpu(table), lanes=lanes.cpu(), rows=rows.cpu(), per=nbkt // S,
+                    capacity=c, written=int(written.sum()),
+                    unwritten=int((~written).sum()), row_bytes=table["t1"].shape[1] * 4,
+                    sectors=_sectors(rows, table["t1"].shape[1] * 4)["sectors"])
+                del table
+            del dsh, csh
+        out.update(routed={f"{w} {k}": v for (w, k), v in routed.items()})
+        notes.append("K12/K17: owner 0's receive buffer, " + "; ".join(
+            f"{k} {w}: {v['lanes'].shape[0]:,} lanes (C {v['capacity']:,}), "
+            f"{v['written']:,} written, {v['unwritten']:,} unwritten; t1 slice "
+            f"{tuple(v['table']['t1'].shape)}"
+            + (f", ds {tuple(v['table']['ds'].shape)}" if "ds" in v["table"] else "")
+            + f"; the written lanes' rows touch {v['sectors']:,} sectors"
+            for (w, k), v in routed.items()) + f" ({time.perf_counter() - tr:.1f} s)")
     if "k64" in want:
         index64, genome64, rng64 = cs.tier64(kmers, cs.WIDE_LABELS)
         reads64 = cs.make_reads(genome64, rng64, cs.BATCH)
@@ -510,6 +599,20 @@ def _calls(inp: dict | None, dev) -> list[tuple[str, str, Callable]]:
         t1, r = get("hash")["t1"], get("t1_rows")
         return lambda: torch.index_select(t1, 0, r)
 
+    def owner(key):
+        r, wide = inp["routed"][key], key.startswith("wide")
+        table, lanes = get("routed", key, "table"), get("routed", key, "lanes")
+        if "ds" in table:
+            return lambda: R.owner_probe(table["t1"], table["ds"], lanes, base=0,
+                                         per_seed=r["per"], wide=wide)
+        return lambda: R.canonical_owner_probe(table["t1"], lanes, base=0,
+                                               per_shard=r["per"], wide=wide)
+
+    def owner_rows(key):
+        # a yardstick, not the function: the written lanes' first-level rows
+        t1, r = get("routed", key, "table")["t1"], get("routed", key, "rows")
+        return lambda: torch.index_select(t1, 0, r)
+
     out = [("tier", "bsearch_probe main", k7),
            ("tier", "bsearch_probe words by searchsorted", searchsorted),
            ("tier", "bsearch_probe_shard (2, 4) slice 0", lambda: k15(4)),
@@ -539,6 +642,12 @@ def _calls(inp: dict | None, dev) -> list[tuple[str, str, Callable]]:
             ("k64", "scan_probe64 rows by index_select", d64_rows),
             ("xtree", "xtree_probe main", k9),
             ("xtree", "xtree_probe rows by index_select", xtree_rows)]
+    for kind in ("owner_probe", "canonical_owner_probe"):
+        for width in ("narrow", "wide"):
+            key = f"{width} {kind}"
+            out += [("routed", f"{kind} {width}", lambda key=key: owner(key)),
+                    ("routed", f"{kind} {width} rows by index_select",
+                     lambda key=key: owner_rows(key))]
     return out
 
 

@@ -26,6 +26,12 @@ CALLS = {name: group for group, name, _ in kernel_ab._calls(None, None)}
     ("bsearch_probe_shard (1, 8) slice 0", "tier"),
     ("xtree_probe main", "xtree"),
     ("xtree_probe rows by index_select", "xtree"),
+    ("owner_probe narrow", "routed"),
+    ("owner_probe wide", "routed"),
+    ("canonical_owner_probe narrow", "routed"),
+    ("canonical_owner_probe wide", "routed"),
+    ("owner_probe narrow rows by index_select", "routed"),
+    ("canonical_owner_probe wide rows by index_select", "routed"),
 ])
 def test_each_call_beside_its_input_group(name, group):
     assert CALLS[name] == group
@@ -46,6 +52,9 @@ def test_call_names_are_unique():
     ("bsearch", {"tier"}),
     ("xtree", {"xtree"}),
     ("xtree_probe|bsearch_probe_shard", {"xtree", "tier"}),
+    ("owner_probe", {"routed"}),
+    ("^owner_probe", {"routed"}),
+    ("owner_probe|route_displaced", {"routed", "tables", "tier"}),
 ])
 def test_groups_of_a_selection(only, want):
     assert kernel_ab.groups(only) == want
@@ -115,4 +124,63 @@ def test_yardstick_rows_are_the_probed_rows(small_inputs):
                                   bad_ix=0x7FFFFFFF)
     w = ids64.shape[1] // 2
     hit = ((ids64[:, :w] != 0x7FFFFFFF) | (ids64[:, w:] != 0x7FFFFFFF))[valid64]
+    assert bool((in_row == hit).all()) and int(hit.sum()) > 100
+
+
+@pytest.fixture(scope="module")
+def routed_inputs(tmp_path_factory):
+    """The 'routed' group at 60,000 k-mers (both tiers) and 256 reads, on
+    the CPU."""
+    saved = cs.BATCH, cs.WIDE_DISPLACED_KMERS
+    cs.BATCH, cs.WIDE_DISPLACED_KMERS = 256, 60_000
+    try:
+        path = tmp_path_factory.mktemp("ab") / "inputs.pt"
+        note = kernel_ab._inputs(path, torch.device("cpu"), {"routed"}, kmers=60_000)
+    finally:
+        cs.BATCH, cs.WIDE_DISPLACED_KMERS = saved
+    return torch.load(path), note
+
+
+def test_owner_buffer_is_the_steps_receive_buffer(routed_inputs):
+    """Owner 0's buffer holds four senders' blocks of the step's capacity,
+    each its written lanes and then K11's zeroed tail; the inputs line
+    counts both."""
+    inp, note = routed_inputs
+    assert "K12/K17: owner 0's receive buffer" in note and "unwritten" in note
+    for key, r in inp["routed"].items():
+        lanes, c = r["lanes"], r["capacity"]
+        assert lanes.shape == (cs.ROUTED_SHARDS * c, 3)
+        blocks = lanes.view(cs.ROUTED_SHARDS, c, 3)
+        used = (blocks != 0).any(-1)
+        counts = used.sum(1)
+        # each block's written lanes come first, its tail is all zero
+        assert bool((used == (torch.arange(c) < counts[:, None])).all()), key
+        assert r["written"] == int(counts.sum()) and r["written"] + r["unwritten"] == len(lanes)
+        assert 0 < r["written"] < len(lanes)
+
+
+@pytest.mark.parametrize("key", ["narrow owner_probe", "wide owner_probe",
+                                 "narrow canonical_owner_probe",
+                                 "wide canonical_owner_probe"])
+def test_owner_yardstick_rows_are_the_probed_rows(routed_inputs, key):
+    """The owner probe finds a written lane's key exactly where its
+    yardstick row holds that key with a non-zero value."""
+    inp, _ = routed_inputs
+    dev = torch.device("cpu")
+    kind = key.split()[1]
+    width = key.split()[0]
+    calls = {name: make() for group, name, make in kernel_ab._calls(inp, dev)
+             if name.startswith(f"{kind} {width}")}
+    vals = calls[f"{kind} {width}"]()
+    rows = calls[f"{kind} {width} rows by index_select"]()
+    r = inp["routed"][key]
+    lanes = r["lanes"]
+    written = (lanes.view(cs.ROUTED_SHARDS, r["capacity"], 3) != 0).any(-1).reshape(-1)
+    cps = 4 if width == "wide" else 3
+    slots = rows.view(rows.shape[0], -1, cps)
+    keys = lanes[written, 1:]
+    in_row = ((slots[..., 0] == keys[:, None, 0]) & (slots[..., 1] == keys[:, None, 1])
+              & (slots[..., 2:] != 0).any(-1)).any(1)
+    hit = (vals.reshape(len(lanes), -1) != 0).any(1)[written]
+    assert rows.shape[0] == int(written.sum())
     assert bool((in_row == hit).all()) and int(hit.sum()) > 100

@@ -1409,6 +1409,92 @@ def test_k17_k18_match_plain(routed_canon, dev, kind, geometry):
         assert torch.equal(got.cpu(), want) and int((want < bad).sum()) > 100
 
 
+def _owner_entry(routed, routed_canon, dev, kind, wide):
+    """(entry point name, genome, bucket count, per, run(lanes, base, s, t1),
+    plain(lanes, base, s), shard s's t1 on the card) of K12 or K17 on the
+    4-shard tables (tier A's ladder for K17)."""
+    from utree_tpu_torch.parallel import routed as R
+
+    name = kind + ("_wide" if wide else "")
+    if kind == "owner_probe":
+        sh, tabs, ctabs, _ = routed["wide" if wide else "narrow"]
+        per = sh.nseed // 4
+
+        def run(lanes, base, s, t1):
+            return R.owner_probe(t1, tabs[s]["ds"], lanes, base=base, per_seed=per, wide=wide)
+
+        def plain(lanes, base, s):
+            return R.owner_probe_plain(ctabs[s]["t1"], ctabs[s]["ds"], lanes.cpu(), base=base,
+                                       per_seed=per, wide=wide)
+
+        return (name, routed["genome"], sh.nseed, per, run, plain,
+                [tabs[s]["t1"] for s in range(4)])
+    sh, _ = routed_canon[("wide" if wide else "narrow", "default")]
+    per = sh.b1 // 4
+    t1 = [torch.from_numpy(sh.t1[s]) for s in range(4)]
+
+    def run(lanes, base, s, t):
+        return R.canonical_owner_probe(t, lanes, base=base, per_shard=per, wide=wide)
+
+    def plain(lanes, base, s):
+        return R.canonical_owner_probe_plain(t1[s], lanes.cpu(), base=base, per_shard=per,
+                                             wide=wide)
+
+    return (name, routed_canon["wgenome" if wide else "genome"], sh.b1, per, run, plain,
+            [t.to(dev) for t in t1])
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("kind", ["owner_probe", "canonical_owner_probe"])
+def test_k12_k17_lane_counts_match_plain(routed, routed_canon, dev, kind, wide):
+    """K12 and K17 on an owner's receive buffer whose unwritten tail is long
+    (room for every lane at each of 4 owners, so about three quarters of
+    it is K11's zeroed tail), cut at lane counts off the 32-lane warp and
+    the 256-lane block and at 0; on lanes that start off a 16 B boundary
+    (read word by word); and on the fallback's lanes of a shard past 0:
+    equal to the plain version, one launch a call."""
+    from utree_tpu_torch.parallel import routed as R
+
+    name, genome, nbkt, per, run, plain, t1 = _owner_entry(routed, routed_canon, dev, kind, wide)
+    packed, vbits, lens = _packed_reads(genome, 600, 59, dev, padded=5)
+    cap = packed.shape[0] * (packed.shape[1] * 4 - 31)
+    send, _, counts = R.route_displaced(packed, vbits, lens, nseed=nbkt, num_shards=4,
+                                        capacity=cap)
+    assert int(counts[0]) < cap // 2  # the unwritten tail is the longer part
+    lanes = send[0]
+    glanes = R.route_displaced(packed, vbits, lens, nseed=nbkt, num_shards=1,
+                               capacity=cap)[0].reshape(-1, 3)
+    cases = [(lanes[:n], 0, 0) for n in (0, 1, 31, 33, 255, 257, 1000, cap)]
+    cases += [(lanes[1:1001], 0, 0), (glanes[3:2003], per, 1), (glanes, 2 * per, 2)]
+    for ln, base, s in cases:
+        assert ln.is_contiguous()
+        n0 = kernels.launches[name]
+        got = run(ln, base, s, t1[s])
+        assert kernels.launches[name] == n0 + 1
+        want = plain(ln, base, s)
+        assert got.shape == want.shape and torch.equal(got.cpu(), want), (ln.shape[0], base)
+    assert int((plain(lanes, 0, 0) != 0).sum()) > 100
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_k12_k17_refuse_misaligned_rows(routed, routed_canon, dev, wide):
+    """K12's d1 rows and K17's two-slot c1 rows load as 8 B (narrow) or
+    16 B (wide) vectors: a t1 slice shifted off that boundary raises
+    before any launch."""
+    lanes = torch.zeros((64, 3), dtype=torch.int32, device=dev)
+    for kind in ("owner_probe", "canonical_owner_probe"):
+        name, _, _, _, run, _, t1 = _owner_entry(routed, routed_canon, dev, kind, wide)
+        t = t1[0]
+        for shift in (1, 2) if wide else (1,):  # 4 B off; 8 B off a 16 B boundary
+            buf = torch.empty(t.numel() + shift, dtype=torch.int32, device=dev)
+            shifted = buf[shift:].view(t.shape)
+            shifted.copy_(t)
+            n0 = kernels.launches[name]
+            with pytest.raises(ValueError, match=f"{16 if wide else 8} B aligned"):
+                run(lanes, 0, 0, shifted)
+            assert kernels.launches[name] == n0
+
+
 @pytest.mark.parametrize("case", ["1x4", "2x4", "2x4-cap8", "2x4-chain", "1x4-wide"])
 def test_routed_canonical_steps_on_one_card_equal_cpu(routed_canon, dev, case):
     """The routed canonical step and its fallback with every shard on the

@@ -4,12 +4,12 @@
 // take the staged windows (staged_front), the two-slot rows loaded as
 // vectors (Row2) and the tails, K11 and K15 the staged windows (K15 with
 // rev2); K7 and K10 take window_at, K7 rev2 too, K9 the key's hashes, the
-// wide rows as vectors and t3_tail, K10 mix32, K12 displaced_t1, K13
-// t3_tail and write_ids, K17 probe_row, K18 c2_tail, t3_tail and
-// write_ids): one (read, window) -> its canonical
-// 32-mer key, the 32-bit mixes the table placement uses, the slot compare
-// over one gathered row, the displaced-table probe, and the dual-value
-// decode into per-window label ids.
+// wide rows as vectors and t3_tail, K10 mix32, K12 displaced_slot and the
+// rows as vectors, K13 t3_tail and write_ids, K17 the rows as vectors or
+// probe_row, K18 c2_tail, t3_tail and write_ids): one (read, window) ->
+// its canonical 32-mer key, the 32-bit mixes the table placement uses, the
+// slot compare over one gathered row, the displaced-table probe, and the
+// dual-value decode into per-window label ids.
 //
 // Twins (utree_tpu/lookup.py): base_codes_packed :39 + extract_windows :83
 // (window_at), _rev2_32 :113, rc_word_lanes :123 and canonical_keys :243
@@ -200,16 +200,6 @@ __device__ __forceinline__ uint32_t displaced_slot(const Key& k, uint32_t bkt, u
   uint32_t h = ((u2 ^ (seed * 0x85EBCA6Bu)) * 0xC2B2AE35u) ^
                ((ub ^ (seed * 0xC2B2AE35u)) * 0x85EBCA6Bu);
   return h % static_cast<uint32_t>(nslots);
-}
-
-// The d1 half of a displaced probe with the seed bucket given
-// (_displaced_local_probe): the bucket's u8 seed, then one 2-slot d1 row at
-// the seeded slot.
-template <int CPS>
-__device__ __forceinline__ Raw displaced_t1(const Key& k, uint32_t bkt, const int32_t* d1,
-                                            int64_t nslots, const int32_t* ds) {
-  uint32_t slot = displaced_slot(k, bkt, static_cast<uint32_t>(ds[bkt >> 2]), nslots);
-  return probe_row<CPS>(d1 + static_cast<int64_t>(slot >> 1) * 2 * CPS, 2, k);
 }
 
 // The tails update `r` in place: taking and returning a Raw by value gave

@@ -454,9 +454,9 @@ def _level(t: torch.Tensor, name: str, cps: int, dev):
 
 
 def _row_aligned(t: torch.Tensor, name: str, align: int) -> None:
-    """K1 and K4 load a two-slot row as three 8 B (narrow) or two 16 B
-    (wide) vector loads, K5 and K6 their 64-mer rows as 16 B loads: the
-    table must start on that boundary."""
+    """K1, K4, K12 and K17 load a two-slot row as three 8 B (narrow) or two
+    16 B (wide) vector loads, K5 and K6 their 64-mer rows as 16 B loads:
+    the table must start on that boundary."""
     if t.data_ptr() % align:
         raise ValueError(f"{name} must be {align} B aligned for its vector row loads")
 

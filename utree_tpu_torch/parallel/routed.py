@@ -55,7 +55,7 @@ import torch
 from utree_tpu_torch import kernels
 from utree_tpu_torch._u32 import i32, u32
 from utree_tpu_torch.hash_index import CanonicalHashArrays
-from utree_tpu_torch.lookup import (_first_hit_wide, base_codes_packed,
+from utree_tpu_torch.lookup import (_first_hit_wide, _row_aligned, base_codes_packed,
                                     canonical_bucket3, canonical_buckets, canonical_keys,
                                     decode_canonical_vals, decode_canonical_wide,
                                     displaced_bucket, displaced_seed, displaced_slot,
@@ -413,7 +413,8 @@ def route_displaced(packed, vbits, lens, *, nseed: int, num_shards: int, capacit
 
 def owner_probe(t1, seeds, lanes, *, base: int, per_seed: int, wide: bool):
     """K12 `owner_probe[_wide]` on CUDA tensors; `owner_probe_plain` on CPU
-    tensors."""
+    tensors.  K12 loads a d1 row as 8 B (narrow) or 16 B (wide) vectors:
+    t1 must start on that boundary."""
     if lanes.device.type == "cpu":
         return owner_probe_plain(t1, seeds, lanes, base=base, per_seed=per_seed,
                                  wide=wide)
@@ -427,6 +428,7 @@ def owner_probe(t1, seeds, lanes, *, base: int, per_seed: int, wide: bool):
                          f"{2 * cps} columns, got {tuple(lanes.shape)}, {tuple(t1.shape)}")
     if not 1 <= per_seed <= 4 * seeds.shape[0]:
         raise ValueError(f"per_seed {per_seed} outside the {seeds.shape[0]} seed words")
+    _row_aligned(t1, "t1", 16 if wide else 8)
     n = lanes.shape[0]
     out = torch.empty((n, 2) if wide else (n,), dtype=torch.int32, device=dev)
     kernels.launch("owner_probe" + ("_wide" if wide else ""), lanes.data_ptr(), n,
@@ -437,7 +439,9 @@ def owner_probe(t1, seeds, lanes, *, base: int, per_seed: int, wide: bool):
 
 def canonical_owner_probe(t1, lanes, *, base: int, per_shard: int, wide: bool):
     """K17 `canonical_owner_probe[_wide]` on CUDA tensors;
-    `canonical_owner_probe_plain` on CPU tensors."""
+    `canonical_owner_probe_plain` on CPU tensors.  K17 loads a two-slot
+    row as 8 B (narrow) or 16 B (wide) vectors: such a t1 must start on
+    that boundary."""
     if lanes.device.type == "cpu":
         return canonical_owner_probe_plain(t1, lanes, base=base, per_shard=per_shard,
                                            wide=wide)
@@ -450,6 +454,8 @@ def canonical_owner_probe(t1, lanes, *, base: int, per_shard: int, wide: bool):
                          f"{cps}-column slots, got {tuple(lanes.shape)}, {tuple(t1.shape)}")
     if not 1 <= per_shard <= t1.shape[0]:
         raise ValueError(f"per_shard {per_shard} outside the slice's {t1.shape[0]} rows")
+    if t1.shape[1] == 2 * cps:
+        _row_aligned(t1, "t1", 16 if wide else 8)
     n = lanes.shape[0]
     out = torch.empty((n, 2) if wide else (n,), dtype=torch.int32, device=dev)
     kernels.launch("canonical_owner_probe" + ("_wide" if wide else ""), lanes.data_ptr(),

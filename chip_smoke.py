@@ -173,7 +173,8 @@ PTXAS: list[tuple[str, str]] = []
 PTXAS_ROWS = {"ladder_probe64": "ladder_probe64_kernel", "scan_probe64": "scan_probe64_kernel",
               "bsearch_probe": "bsearch_probe_kernel",
               "bsearch_probe_shard": "bsearch_probe_shard_kernel",
-              "hash_probe": "hash_probe_kernel", "xtree_probe": "xtree_probe_kernel"}
+              "hash_probe": "hash_probe_kernel", "xtree_probe": "xtree_probe_kernel",
+              "aufbau_vote": "aufbau_vote_kernel", "hist_compact": "compact"}
 
 
 def fail(msg: str):
@@ -253,6 +254,39 @@ def probe_bytes(packed, vbits, lens, ids, k: int, sectors: int, table) -> int:
     window at 24 or 32 B, two at 48 B), the table read at most once."""
     return nbytes(packed, vbits, lens, ids) + min(SECTOR * sectors * windows(lens, k),
                                                   nbytes(table))
+
+
+def span_sectors(first, last) -> int:
+    """32 B sectors that the byte ranges [first, last] span, each counted
+    once (first, last: int64 tensors of byte offsets, last >= first)."""
+    import torch
+
+    if not first.numel():
+        return 0
+    lo, hi = first // SECTOR, last // SECTOR
+    span = torch.arange(int((hi - lo).max()) + 1, device=first.device)
+    sec = lo[:, None] + span[None, :]
+    return int(torch.unique(sec[sec <= hi[:, None]]).numel())
+
+
+def vote_bytes(hist, vt: dict, rows) -> int:
+    """K3's bytes on this batch: labels, nuniq and found read once and the
+    rows written once; the counts rows of the reads of two or more labels
+    only (a read of at most one is packed from labels[:, 0]), as the 32 B
+    sectors they span; of `rank`, the sectors those reads' labels hit; the
+    walk's other tables at most once, and only where a read walks."""
+    labels, counts, nuniq, found = hist
+    C = labels.shape[1]
+    q = (nuniq >= 2).nonzero().flatten()
+    row = C * counts.element_size()
+    moved = nbytes(labels, nuniq, found, rows) + SECTOR * span_sectors(q * row, (q + 1) * row - 1)
+    lab = labels[q].flatten().long()
+    lab = lab[lab >= 0].clamp(max=vt["rank"].numel() - 1) * vt["rank"].element_size()
+    moved += SECTOR * span_sectors(lab, lab)
+    walks = (nuniq[q] <= C) & (found[q] >= 2)
+    if bool(walks.any()):
+        moved += nbytes(*(vt[k] for k in ("st", "slen", "semi", "und", "spos")))
+    return moved
 
 
 def check_kernel(name, source, replaces, kernel, plain, what: str, moved: int,
@@ -396,7 +430,7 @@ def host_check(host_index, reads, out_txt, work: pathlib.Path, tag: str,
 def phase_kernels(dev, table, reads, index, max_iters):
     """Phase 3: K1, K2, K3 against their plain versions at B=65536."""
     from utree_tpu_torch import lookup
-    from utree_tpu_torch.classify_device import aufbau_walk, pack_vote, vote_rows
+    from utree_tpu_torch.classify_device import VoteTables, aufbau_walk, pack_vote, vote_rows
 
     packed, vbits, lens = batch_tensors(dev, reads)
     b = packed.shape[0]
@@ -404,9 +438,10 @@ def phase_kernels(dev, table, reads, index, max_iters):
     kw = dict(do_rc=True, bad_ix=0xFFFF, true_len=(READ_LEN + 7) & ~7, num_labels=L)
     vt = {k[3:]: v for k, v in table.items() if k.startswith("vt_")}
     vkw = dict(taxacut=index.config.taxacut, max_iters=max_iters)
+    prepared = VoteTables(vt)  # as SearchPipeline places them
     ids = lookup.window_ids(table, packed, vbits, lens, **kw)
     hist = lookup.histogram(ids, L, HIST_CAP)
-    rows = vote_rows(vt, *hist, **vkw)
+    rows = vote_rows(prepared, *hist, **vkw)
     what = f"B={b}"
     out = [
         check_kernel("scan_probe", "scan_probe.cu", "utree_tpu/lookup.py:887",
@@ -418,9 +453,9 @@ def phase_kernels(dev, table, reads, index, max_iters):
                      lambda: lookup.compact_histogram(ids, L, HIST_CAP), what,
                      nbytes(ids, *hist)),
         check_kernel("aufbau_vote", "aufbau.cu", "utree_tpu/classify_device.py:113",
-                     lambda: vote_rows(vt, *hist, **vkw),
+                     lambda: vote_rows(prepared, *hist, **vkw),
                      lambda: pack_vote(*aufbau_walk(vt, *hist, **vkw), hist[2], hist[3]),
-                     what, nbytes(*hist, *vt.values(), rows)),
+                     what, vote_bytes(hist, vt, rows)),
     ]
     flags = int(((rows[:, 0].long() >> 24) & 1).sum())
     nuniq = hist[2].long()
@@ -995,12 +1030,13 @@ def phase_compact(dev, base: dict, work: pathlib.Path):
                        nbytes(rows, vec))
     log(f"compact readback: {vec.numel():,} int32 ({nbytes(vec):,} B) against "
         f"{nbytes(rows):,} B of full rows; n_over {int(vec[2 * rows.shape[0]])}")
-    # K8 on a 64th of the batch: about the full batch's time if its three
-    # stream operations' launches, not its bytes, set it
+    # K8 on a 64th of the batch: about the full batch's time where its
+    # launch, not its bytes, sets it
     small = rows[:1024].contiguous()
     small_ms = cuda_ms(lambda: lookup.hist_compact(small, 64), 20)
-    log(f"kernel hist_compact at B=1024, over_cap 64: {small_ms:.4f} ms "
-        f"(B={rows.shape[0]}: {row['ms']:.4f} ms)")
+    small_dev = device_ms(lambda: lookup.hist_compact(small, 64), 20)
+    log(f"kernel hist_compact at B=1024, over_cap 64: {small_ms:.4f} ms ({small_dev:.4f} "
+        f"on the device; B={rows.shape[0]}: {row['ms']:.4f} ms, {row['device_ms']:.4f})")
 
     reads = base["reads"][:COMPACT_READS]
     n = len(reads)

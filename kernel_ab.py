@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time the probes K1 scan_probe[_wide], K4 ladder_probe[_wide], K7
 bsearch_probe, K15 bsearch_probe_shard, K10 hash_probe, K5 scan_probe64,
-K6 ladder_probe64, K9 xtree_probe, K2's histograms, K11 route_displaced and
+K6 ladder_probe64, K9 xtree_probe, K2's histograms, K11 route_displaced,
 the routed owner probes K12 owner_probe[_wide] and K17
-canonical_owner_probe[_wide] of one or more checkouts of this repository
-on one NVIDIA GPU, on the same inputs, at chip_smoke.py's shapes, with
-each call's device time split by launch.
+canonical_owner_probe[_wide], K3 aufbau_vote and K8 hist_compact of one or
+more checkouts of this repository on one NVIDIA GPU, on the same inputs,
+at chip_smoke.py's shapes, with each call's device time split by launch.
 
     python3 kernel_ab.py [TREE ...] [--out FILE] [--only RE]
 
@@ -69,13 +69,21 @@ the routed owner probes;
   K11's zeroed tail, bucket 0 and key 0); as a yardstick, not the
   function, torch.index_select of the written lanes' first-level rows
   (K17: the t1 slice's row at the lane's bucket; K12: the d1 row at the
-  seeded slot, by the plain version's seed and slot).
+  seeded slot, by the plain version's seed and slot);
+- K3 `aufbau_vote` at phase 3's shape (65,536 reads, cap 8, the 20M
+  tier's displaced window ids through K2 `histogram`, the tier's vote
+  tables, SearchPipeline's max_iters), with the batch's count of reads of
+  two or more labels and of those that walk; K8 `hist_compact` at phase
+  11's shape (K2 `histogram_packed` rows of the same ids, over_cap 8,192)
+  and on the first 1024 of those rows (over_cap 64).
 
 Then each tree runs in a process of its own (its `utree_tpu_torch` first on
 sys.path, its kernels built into its own .cuda_build/): every call's mean
 time over 200 launches from CUDA events after a warm-up, the host's time
 to enqueue one (the wrapper's Python and the launches; where it exceeds
-the device time the events measure the host), the device time of 50 calls
+the device time the events measure the host), as the mean of the 200 and
+as the least of 25 rounds of 40 calls (the host shares its cores, so the
+least is the steadier), the device time of 50 calls
 queued behind a device sleep (no host time), and, from torch.profiler,
 the mean device time of each kernel and memset that the call launches
 (so a tree whose entry point launches a split of its kernel, kept under
@@ -88,17 +96,43 @@ e.g. 'bsearch' (K7, K15 and the searchsorted yardstick), 'hash_probe'
 (K10 and its t1 yardstick), 'probe64' (K5, K6 and their yardsticks),
 'scan_probe64|hash_probe' (K5 and K10), '^(scan|ladder)_probe ' (K1 and
 K4 narrow), 'histogram', 'route', 'xtree' (K9 and its d1 yardstick),
-'xtree_probe|bsearch_probe_shard' (K9 and K15) or 'owner_probe' (K12, K17
-and their yardsticks).
+'xtree_probe|bsearch_probe_shard' (K9 and K15), 'owner_probe' (K12, K17
+and their yardsticks) or 'aufbau_vote|hist_compact' (K3 and K8).
+
+    python3 kernel_ab.py [TREE ...] --e2e [--rounds N] [--out FILE]
+
+times instead the `search` passes whose device step is K3 or K8, all
+trees in this one process, pass by pass in turn, on the same index and
+reads.  The first tree's code builds chip_smoke's 20M-k-mer tier, its
+displaced table and its 262,144 reads once; each tree's `utree_tpu_torch`
+is imported on its own (its kernels built into its own .cuda_build/) and
+builds its pipelines for three passes: `displaced` (phase 4, the main
+path: K1, K2 histogram, K3; layout `vote`) and `bsearch` (phase 10: K7,
+K2, K3; layout `vote`) over the 262,144 reads, and `support 8` (phase
+11(b): K1, K2 histogram_packed, K8; layout `compact`, the vote on the
+host) over the first 131,072.  A round runs every tree's three passes in
+the order given, each tree's modules put in place of the others' in
+sys.modules just before its pass, and every output must be byte-identical
+to the first tree's.  Prints per pass and tree the median and best reads/s
+of the rounds and the median of each pipeline phase (host seconds,
+`pipe.tracer.phases`), one JSON line a tree, and, for two distinct trees,
+each pass's pooled medians and quartiles and in how many pairs (A's and
+B's runs of a round, in order) the second was the faster
+(`e2e_compare`); writes the runs to FILE (.bench_cache/e2e_ab.json by
+default).  The host shares its cores, so a round's rates vary by tens of
+percent: compare medians over many rounds.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
+import importlib
 import json
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -108,10 +142,13 @@ import chip_smoke as cs
 
 ROOT = pathlib.Path(__file__).resolve().parent
 ITERS = 200
+HOST_ROUNDS, HOST_CALLS = 25, 40  # the least enqueue time a call of 25 rounds of 40
 TRUE_LEN = 152  # chip_smoke's true_len for 150 bp reads: W = 121 windows
 QUEUED = 50  # calls queued behind a device sleep of QUEUE_CYCLES (> 50 ms)
 QUEUE_CYCLES = 100_000_000
 HIST_CAP = 8
+PKG = "utree_tpu_torch"
+E2E_PASSES = ("displaced", "bsearch", "support 8")  # --e2e's passes
 L2_BYTES = 50 << 20  # an H100's L2 cache (NVIDIA's data sheet)
 
 
@@ -309,7 +346,7 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
 
     t = time.perf_counter()
     out, notes = {"groups": sorted(want)}, []
-    if want & {"tier", "routed"}:
+    if want & {"tier", "routed", "vote"}:
         index, genome, rng = cs.make_tier(kmers, cs.LABELS)
         L = index.num_labels
         reads = cs.make_reads(genome, rng, cs.BATCH)
@@ -362,6 +399,27 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
             f"{k} {tuple(v.shape)} {v.numel() * 4:,} B" for k, v in hashed.items())
                      + f"); {t1_rows.numel():,} valid words, {t1_miss:,} missing t1 "
                      f"({t1_miss / t1_rows.numel():.4f})")
+    if "vote" in want:
+        from utree_tpu_torch.classify_device import aufbau_tables_to_device, build_aufbau_tables
+
+        disp = displaced_to_device(
+            cs.load_or_build_displaced(index, kmers, cs.LABELS, ROOT / ".bench_cache"), dev)
+        ids = lookup.window_ids(disp, packed, vbits, lens, do_rc=True, bad_ix=0xFFFF,
+                                num_labels=L, true_len=(cs.READ_LEN + 7) & ~7)
+        hist = lookup.histogram(ids, L, HIST_CAP)
+        vt = build_aufbau_tables(index.strings)
+        nuniq, found = hist[2].long(), hist[3].long()
+        two = int((nuniq >= 2).sum())
+        walk = int(((nuniq >= 2) & (nuniq <= HIST_CAP) & (found >= 2)).sum())
+        out.update(vote={"hist": [x.cpu() for x in hist],
+                         "tables": cpu(aufbau_tables_to_device(vt, dev)),
+                         "taxacut": index.config.taxacut,
+                         "max_iters": (vt.max_len + 4) * (HIST_CAP + 2) + 16,
+                         "rows": lookup.histogram_packed(ids, L, HIST_CAP).cpu()})
+        del disp
+        notes.append(f"K3/K8: {packed.shape[0]:,} reads, cap {HIST_CAP}: {two:,} of two or "
+                     f"more labels, {walk:,} walk; vote tables of {L} labels, max_len "
+                     f"{vt.max_len}, max_iters {out['vote']['max_iters']}")
     if "tables" in want:
         canon = build_canonical_hash_index(index)
         ladder = canonical_to_device(canon, dev)
@@ -613,6 +671,20 @@ def _calls(inp: dict | None, dev) -> list[tuple[str, str, Callable]]:
         t1, r = get("routed", key, "table")["t1"], get("routed", key, "rows")
         return lambda: torch.index_select(t1, 0, r)
 
+    def k3():
+        from utree_tpu_torch import classify_device as cd
+
+        v, hist, tab = inp["vote"], get("vote", "hist"), get("vote", "tables")
+        # a tree that takes its vote tables prepared gets them prepared once,
+        # as SearchPipeline places them
+        prepared = getattr(cd, "VoteTables", None)
+        tab = prepared(tab) if prepared else tab
+        return lambda: cd.vote_rows(tab, *hist, taxacut=v["taxacut"], max_iters=v["max_iters"])
+
+    def k8(b, over_cap):
+        rows = get("vote", "rows")[:b].contiguous()
+        return lambda: lookup.hist_compact(rows, over_cap)
+
     out = [("tier", "bsearch_probe main", k7),
            ("tier", "bsearch_probe words by searchsorted", searchsorted),
            ("tier", "bsearch_probe_shard (2, 4) slice 0", lambda: k15(4)),
@@ -648,6 +720,9 @@ def _calls(inp: dict | None, dev) -> list[tuple[str, str, Callable]]:
             out += [("routed", f"{kind} {width}", lambda key=key: owner(key)),
                     ("routed", f"{kind} {width} rows by index_select",
                      lambda key=key: owner_rows(key))]
+    out += [("vote", "aufbau_vote main", k3),
+            ("vote", "hist_compact main", lambda: k8(cs.BATCH, cs.BATCH // 8)),
+            ("vote", "hist_compact B=1024", lambda: k8(1024, 64))]
     return out
 
 
@@ -686,6 +761,14 @@ def _worker(tree: pathlib.Path, inputs: pathlib.Path, dev, only: str) -> dict:
         host = time.perf_counter() - t  # the enqueue: launches queue, no sync
         end.record()
         torch.cuda.synchronize()
+        least = float("inf")  # the host shares its cores: the least round is the steadier
+        for _ in range(HOST_ROUNDS):
+            t = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            least = min(least, (time.perf_counter() - t) / HOST_CALLS)
+            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         # the device time: the calls queued behind a device sleep run back
         # to back (chip_smoke.device_ms)
         q0, q1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -704,22 +787,210 @@ def _worker(tree: pathlib.Path, inputs: pathlib.Path, dev, only: str) -> dict:
             us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
             if e.device_type == DeviceType.CUDA and us > 0:
                 split[e.key[:90]] = {"count": e.count, "mean_us": us / e.count}
-        res[name] = {"ms": start.elapsed_time(end) / ITERS, "host_us": host / ITERS * 1e6,
+        res[name] = {"ms": start.elapsed_time(end) / ITERS,
+                     "host_us": host / ITERS * 1e6, "host_us_min": least * 1e6,
                      "device_ms": q0.elapsed_time(q1) / QUEUED, "sha1": digest,
                      "split": split}
     usage = {k: v for k, v in ptxas_usage(report)
-             if re.search(r"probe|route|k\d+_", k)}
+             if re.search(r"probe|route|aufbau|compact|pairs|scatter|k\d+_", k)}
     return {"tree": str(tree), "build_s": secs, "ptxas": usage, "calls": res}
+
+
+def _modules() -> dict:
+    """The imported modules of utree_tpu_torch, by name."""
+    return {k: v for k, v in sys.modules.items() if k == PKG or k.startswith(PKG + ".")}
+
+
+@contextlib.contextmanager
+def using(mods: dict):
+    """The tree's modules in sys.modules, so that its lazy imports find them
+    (a submodule not yet imported comes from its package's own directory);
+    what the tree imports meanwhile joins `mods`."""
+    for k in _modules():
+        del sys.modules[k]
+    sys.modules.update(mods)
+    try:
+        yield
+    finally:
+        mods.update(_modules())
+
+
+def load_tree(tree: pathlib.Path) -> dict:
+    """Import tree's package on its own and build its kernels."""
+    for k in _modules():
+        del sys.modules[k]
+    sys.path.insert(0, str(tree))
+    try:
+        pkg = importlib.import_module(PKG)
+        for sub in ("kernels", "lookup", "classify_device", "hash_index", "pipeline"):
+            importlib.import_module(f"{PKG}.{sub}")
+    finally:
+        sys.path.remove(str(tree))
+    if pathlib.Path(pkg.__file__).resolve().parent.parent != tree:
+        raise SystemExit(f"imported {pkg.__file__}, not {tree}'s package")
+    mods = _modules()
+    import torch
+
+    if torch.cuda.is_available():
+        mods[f"{PKG}.kernels"].build()
+    return mods
+
+
+def e2e_tier(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
+    """chip_smoke.run's tier, table and reads, for --e2e."""
+    from utree_tpu_torch.classify_device import aufbau_tables_to_device, build_aufbau_tables
+    from utree_tpu_torch.hash_index import displaced_to_device
+
+    index, genome, rng = cs.make_tier(kmers, cs.LABELS)
+    disp = cs.load_or_build_displaced(index, kmers, cs.LABELS, ROOT / ".bench_cache")
+    vtab = build_aufbau_tables(index.strings)
+    table = displaced_to_device(disp, dev)
+    table.update({"vt_" + k: v for k, v in aufbau_tables_to_device(vtab, dev).items()})
+    reads = cs.make_reads(genome, rng, nreads)
+    work.mkdir(parents=True, exist_ok=True)
+    reads_fa, sub_fa = work / "e2e_ab_reads.fa", work / "e2e_ab_compact.fa"
+    cs.write_fasta(reads_fa, reads)
+    cs.write_fasta(sub_fa, reads[:min(cs.COMPACT_READS, nreads)])
+    return {"index": index, "table": table, "reads_fa": reads_fa, "sub_fa": sub_fa,
+            "nreads": nreads, "nsub": min(cs.COMPACT_READS, nreads)}
+
+
+def e2e_pipelines(dev, t: dict) -> dict:
+    """The three passes' pipelines, built by the tree whose modules are in
+    place: pass -> (pipeline, reads FASTA, reads)."""
+    from utree_tpu_torch.pipeline import SearchPipeline
+
+    kw = dict(device=dev, do_rc=True, batch_size=cs.BATCH, hist_cap=cs.HIST_CAP)
+    bare = {k: v for k, v in t["table"].items() if not k.startswith("vt_")}
+    out = {
+        "displaced": (SearchPipeline(t["index"], lookup_mode="displaced", _table=t["table"],
+                                     **kw), t["reads_fa"], t["nreads"]),
+        "bsearch": (SearchPipeline(t["index"], lookup_mode="bsearch", **kw), t["reads_fa"],
+                    t["nreads"]),
+        "support 8": (SearchPipeline(t["index"], lookup_mode="displaced", _table=bare,
+                                     support_ranges=8, **kw), t["sub_fa"], t["nsub"]),
+    }
+    for name, want in (("displaced", "vote"), ("bsearch", "vote"), ("support 8", "compact")):
+        if out[name][0].layout != want:
+            raise SystemExit(f"{name}: layout {out[name][0].layout}, not {want}")
+    return out
+
+
+def e2e_run(dev, trees: list[pathlib.Path], rounds: int, kmers: int, nreads: int,
+        work: pathlib.Path) -> list[dict]:
+    """--e2e: every tree's passes, `rounds` times in turn; one result a tree."""
+    import torch
+
+    mods = {tree: load_tree(tree) for tree in dict.fromkeys(trees)}
+    with using(mods[trees[0]]):
+        t = e2e_tier(dev, kmers, nreads, work)
+    pipes = {}
+    for tree in mods:
+        with using(mods[tree]):
+            pipes[tree] = e2e_pipelines(dev, t)
+    res = [{"tree": str(tree), "passes": {p: {"reads_per_s": [], "phases": []}
+                                          for p in E2E_PASSES}} for tree in trees]
+    want = {}
+    for r in range(rounds):
+        for i, tree in enumerate(trees):
+            with using(mods[tree]):
+                from utree_tpu_torch.utils.trace import PhaseTimer
+
+                for p in E2E_PASSES:
+                    pipe, fa, n = pipes[tree][p]
+                    pipe.tracer = PhaseTimer(quiet=True)
+                    out = work / f"e2e_ab_{i}_{p.replace(' ', '')}.txt"
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = pipe.search_file(str(fa), str(out))
+                    dt = time.perf_counter() - t0
+                    if got != n:
+                        raise SystemExit(f"{tree} {p}: {got} of {n} reads")
+                    data = out.read_bytes()
+                    if want.setdefault(p, data) != data:
+                        raise SystemExit(f"{tree} {p}: output differs from {trees[0]}'s")
+                    res[i]["passes"][p]["reads_per_s"].append(n / dt)
+                    res[i]["passes"][p]["phases"].append(dict(pipe.tracer.phases))
+    for r in res:
+        for p in r["passes"].values():
+            rps = p["reads_per_s"]
+            p["median"], p["best"] = statistics.median(rps), max(rps)
+            keys = dict.fromkeys(k for ph in p["phases"] for k in ph)
+            p["phase_median"] = {k: statistics.median(ph.get(k, 0.0) for ph in p["phases"])
+                                 for k in keys}
+            del p["phases"]
+    return res
+
+
+def e2e_compare(res: list[dict]) -> list[str]:
+    """With two distinct trees (the first A, the other B, e.g. A B B A):
+    each pass's pooled median and quartiles of either tree, and in how many
+    pairs B was the faster, pairing A's and B's runs of a round in order."""
+    trees = list(dict.fromkeys(r["tree"] for r in res))
+    if len(trees) != 2:
+        return []
+    at = [[i for i, r in enumerate(res) if r["tree"] == t] for t in trees]
+    lines = []
+    for p in E2E_PASSES:
+        rps = [r["passes"][p]["reads_per_s"] for r in res]
+        pooled = [[x for i in ix for x in rps[i]] for ix in at]
+        pairs = [(rps[a][k], rps[b][k]) for a, b in zip(*at) for k in range(len(rps[a]))]
+        wins = sum(b > a for a, b in pairs)
+        med = [statistics.median(v) for v in pooled]
+        qs = [statistics.quantiles(v, n=4) for v in pooled]
+        lines.append(f"{p}: " + "; ".join(
+            f"{t} median {m:,.0f} (quartiles {q[0]:,.0f}-{q[2]:,.0f})"
+            for t, m, q in zip(trees, med, qs))
+            + f"; the second faster in {wins} of {len(pairs)} pairs, median "
+            f"{100 * (med[1] / med[0] - 1):+.1f}%")
+    return lines
+
+
+def e2e_main(trees: list[str], rounds: int, out: str) -> int:
+    """--e2e on the card: run, print and write the passes' rates."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    print(card, flush=True)
+    res = e2e_run(torch.device("cuda"), [pathlib.Path(t).resolve() for t in trees], rounds,
+                  20_000_000, 262_144, ROOT / ".bench_cache")
+    for r in res:
+        r["card"] = card
+        print(json.dumps(r), flush=True)
+    for p in E2E_PASSES:
+        print(f"{p}: median " + ", ".join(f"{r['passes'][p]['median']:,.0f}" for r in res)
+              + " reads/s; best " + ", ".join(f"{r['passes'][p]['best']:,.0f}" for r in res)
+              + "; phases (median s) " + " | ".join(
+                  ", ".join(f"{k} {v:.4f}" for k, v in r["passes"][p]["phase_median"].items())
+                  for r in res), flush=True)
+    for line in e2e_compare(res):
+        print(line, flush=True)
+    pathlib.Path(out).parent.mkdir(exist_ok=True)
+    pathlib.Path(out).write_text(json.dumps({"card": card, "runs": res}, indent=1))
+    print(f"outputs byte-identical across {len(res)} trees x {rounds} rounds; on {card}",
+          flush=True)
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("trees", nargs="*", default=[str(ROOT)])
-    ap.add_argument("--out", default=str(ROOT / ".bench_cache" / "kernel_ab.json"))
+    ap.add_argument("--out", help="default .bench_cache/kernel_ab.json (--e2e: e2e_ab.json)")
     ap.add_argument("--only", default="", help="time only the calls this matches")
+    ap.add_argument("--e2e", action="store_true", help="time the K3 and K8 search passes")
+    ap.add_argument("--rounds", type=int, default=8, help="--e2e: rounds of passes")
     ap.add_argument("--worker", nargs=2, help=argparse.SUPPRESS)
     a = ap.parse_args()
+    if a.e2e:
+        return e2e_main(a.trees, a.rounds, a.out or str(ROOT / ".bench_cache" / "e2e_ab.json"))
+    a.out = a.out or str(ROOT / ".bench_cache" / "kernel_ab.json")
     if a.worker:
         print(json.dumps(_worker(pathlib.Path(a.worker[0]).resolve(),
                                  pathlib.Path(a.worker[1]), "cuda", a.only)), flush=True)
@@ -760,6 +1031,8 @@ def main() -> int:
     for name in runs[0]["calls"]:
         print(f"{name}: " + ", ".join(f"{r['calls'][name]['ms']:.4f}" for r in runs)
               + " ms; enqueue " + ", ".join(f"{r['calls'][name]['host_us']:.1f}" for r in runs)
+              + " us, least round " + ", ".join(
+                  f"{r['calls'][name].get('host_us_min', float('nan')):.1f}" for r in runs)
               + " us; device " + ", ".join(f"{r['calls'][name]['device_ms'] * 1e3:.2f}"
                                            for r in runs)
               + " us; profiler " + ", ".join(

@@ -12,8 +12,8 @@ from test_classify_device import _expected, _random_strings, _toprint
 from utree_tpu.classify_device import (DV_FULL, aufbau_walk_device,
                                        build_aufbau_tables)
 from utree_tpu_torch import _u32
-from utree_tpu_torch.classify_device import (aufbau_tables_to_device,
-                                             aufbau_walk, pack_vote)
+from utree_tpu_torch.classify_device import (VoteTables, aufbau_tables_to_device,
+                                             aufbau_walk, pack_vote, vote_rows)
 
 
 def _batch(rng, L, cap, n=300):
@@ -111,6 +111,33 @@ def test_iteration_cap_flags_like_jax():
         for w, g in zip(want, got):
             assert np.array_equal(w, g.numpy())
         assert got[5].any()
+
+
+def test_prepared_vote_tables_match_the_dict():
+    """`VoteTables` checks the tables once: vote_rows gives the same rows
+    from it as from the dict (and as JAX's walk), and tables of
+    inconsistent shapes, types or ranks raise ValueError."""
+    rng = np.random.default_rng(6)
+    strings = _random_strings(rng, 50)
+    tab = build_aufbau_tables(strings)
+    dtab = aufbau_tables_to_device(tab, "cpu")
+    arrays = _batch(rng, len(strings), 8, n=120)[:4]
+    t = [torch.from_numpy(a) for a in arrays]
+    max_iters = (tab.max_len + 4) * 10 + 16
+    got = vote_rows(VoteTables(dtab), *t, taxacut=4, max_iters=max_iters)
+    assert torch.equal(got, vote_rows(dtab, *t, taxacut=4, max_iters=max_iters))
+    want = pack_vote(*(torch.tensor(w) for w in _jax_walk(tab, arrays, 8, 4, max_iters)),
+                     t[2], t[3])
+    assert torch.equal(got, want)
+    table = {"vt_" + k: v for k, v in dtab.items()}
+    assert VoteTables.from_table(table).tab == dtab
+    L = dtab["rank"].shape[0]
+    for key, bad in (("slen", dtab["slen"][:-1]), ("st", dtab["st"][:, :-1].contiguous()),
+                     ("und", dtab["und"][:-1]), ("spos", dtab["spos"][:-1]),
+                     ("semi", dtab["semi"][:L - 1]), ("rank", dtab["rank"].long()),
+                     ("st", dtab["st"][0]), ("semi", dtab["semi"].t())):
+        with pytest.raises(ValueError):
+            VoteTables({**dtab, key: bad})
 
 
 def test_pack_vote_matches_jax_epilogue():

@@ -1,7 +1,10 @@
 """kernel_ab.py's call list, on the CPU: each timed call is one entry of
 `kernel_ab._calls` beside the input group it reads, `groups` makes exactly
 the groups the calls that `--only` selects read, and the yardsticks' rows
-are the rows the plain probes read."""
+are the rows the plain probes read; `--e2e` runs each tree's passes on its
+own modules."""
+
+import pathlib
 
 import pytest
 import torch
@@ -32,6 +35,9 @@ CALLS = {name: group for group, name, _ in kernel_ab._calls(None, None)}
     ("canonical_owner_probe wide", "routed"),
     ("owner_probe narrow rows by index_select", "routed"),
     ("canonical_owner_probe wide rows by index_select", "routed"),
+    ("aufbau_vote main", "vote"),
+    ("hist_compact main", "vote"),
+    ("hist_compact B=1024", "vote"),
 ])
 def test_each_call_beside_its_input_group(name, group):
     assert CALLS[name] == group
@@ -55,6 +61,8 @@ def test_call_names_are_unique():
     ("owner_probe", {"routed"}),
     ("^owner_probe", {"routed"}),
     ("owner_probe|route_displaced", {"routed", "tables", "tier"}),
+    ("aufbau_vote|hist_compact", {"vote"}),
+    ("hist_compact", {"vote"}),
 ])
 def test_groups_of_a_selection(only, want):
     assert kernel_ab.groups(only) == want
@@ -184,3 +192,131 @@ def test_owner_yardstick_rows_are_the_probed_rows(routed_inputs, key):
     hit = (vals.reshape(len(lanes), -1) != 0).any(1)[written]
     assert rows.shape[0] == int(written.sum())
     assert bool((in_row == hit).all()) and int(hit.sum()) > 100
+
+
+@pytest.fixture(scope="module")
+def vote_inputs(tmp_path_factory):
+    """The 'vote' group at 60,000 k-mers and 256 reads, on the CPU (its
+    displaced table cached in a scratch directory)."""
+    saved = cs.BATCH, kernel_ab.ROOT
+    cs.BATCH, kernel_ab.ROOT = 256, tmp_path_factory.mktemp("root")
+    try:
+        path = tmp_path_factory.mktemp("ab") / "inputs.pt"
+        note = kernel_ab._inputs(path, torch.device("cpu"), {"vote"}, kmers=60_000)
+        calls = {name: make() for group, name, make in
+                 kernel_ab._calls(torch.load(path), torch.device("cpu")) if group == "vote"}
+    finally:
+        cs.BATCH, kernel_ab.ROOT = saved
+    return torch.load(path), note, calls
+
+
+def test_vote_calls_are_the_main_paths_k3_and_k8(vote_inputs):
+    """K3's call votes phase 3's histograms with the pipeline's max_iters,
+    K8's compact phase 11's packed rows of the same ids at over_cap B/8
+    and their first 1024 rows at 64; the inputs line counts the reads of
+    two or more labels and those that walk."""
+    from utree_tpu_torch.classify_device import aufbau_walk, pack_vote
+    from utree_tpu_torch.lookup import compact_rows
+
+    inp, note, calls = vote_inputs
+    v = inp["vote"]
+    labels, counts, nuniq, found = v["hist"]
+    assert labels.shape == (256, kernel_ab.HIST_CAP)
+    assert "K3/K8: 256 reads, cap 8" in note and "walk" in note
+    want = pack_vote(*aufbau_walk(v["tables"], *v["hist"], taxacut=v["taxacut"],
+                                  max_iters=v["max_iters"]), nuniq, found)
+    assert torch.equal(calls["aufbau_vote main"](), want)
+    assert int((nuniq >= 2).sum()) > 0
+    rows = v["rows"]
+    assert rows.shape == (256, kernel_ab.HIST_CAP + 1)
+    # the packed rows are the same histograms' (label+1 | count<<16 slots)
+    assert torch.equal((rows[:, -1] & 31), torch.clamp(nuniq, max=kernel_ab.HIST_CAP + 1))
+    assert torch.equal(calls["hist_compact main"](), compact_rows(rows, 256 // 8))
+    assert torch.equal(calls["hist_compact B=1024"](), compact_rows(rows[:1024], 64))
+
+
+def _vote_hist(c: int, q: list[int], found_q: list[int]):
+    """Eight reads at cap c; the reads in q hit two labels, the rest one."""
+    labels = torch.full((8, c), -1, dtype=torch.int32)
+    labels[:, 0] = 5
+    nuniq, found = torch.ones(8, dtype=torch.int32), torch.ones(8, dtype=torch.int32)
+    for r, f in zip(q, found_q):
+        nuniq[r], found[r] = 2, f
+    return labels, torch.zeros((8, c), dtype=torch.int32), nuniq, found
+
+
+@pytest.mark.parametrize("c, q, found_q, counts_sectors, walks", [
+    (8, [1, 3, 6], [1, 4, 3], 3, True),  # 32 B rows, one sector each
+    (8, [1, 3], [1, 1], 2, False),  # no read walks: no walk tables
+    (3, [1, 3, 6], [2, 2, 2], 3, True),  # 12 B rows inside a sector each
+    (3, [2, 5], [1, 2], 3, True),  # 12 B rows across sector edges, one shared
+    (8, [], [], 0, False),  # every read packed from labels[:, 0]
+])
+def test_vote_bytes_counts_what_k3_reads(c, q, found_q, counts_sectors, walks):
+    """K3's bound counts labels, nuniq, found and the rows in full, but of
+    the counts rows and the rank table only what the reads of two or more
+    labels touch, and the walk's tables only where a read walks."""
+    labels, counts, nuniq, found = _vote_hist(c, q, found_q)
+    for i, r in enumerate(q):  # ranks at bytes 0, 36 and 252 (clamped)
+        labels[r, 1] = (0, 9, 100)[i % 3]
+    vt = {"rank": torch.zeros(64, dtype=torch.int32), "st": torch.zeros((6, 64), dtype=torch.int32),
+          "slen": torch.zeros(64, dtype=torch.int32), "semi": torch.zeros((64, 3), dtype=torch.int32),
+          "und": torch.zeros((64, 3), dtype=torch.int32), "spos": torch.zeros((64, 4), dtype=torch.int32)}
+    rows = torch.zeros((8, 3), dtype=torch.int32)
+    # labels 5 (byte 20, sector 0) and the second labels above
+    rank_sectors = len({0} | {(0, 1, 7)[i % 3] for i in range(len(q))}) if q else 0
+    want = cs.nbytes(labels, nuniq, found, rows) + cs.SECTOR * (counts_sectors + rank_sectors)
+    if walks:
+        want += cs.nbytes(*(vt[k] for k in ("st", "slen", "semi", "und", "spos")))
+    assert cs.vote_bytes((labels, counts, nuniq, found), vt, rows) == want
+
+
+def test_e2e_passes_run_in_turn_on_each_trees_modules(tmp_path):
+    """--e2e on two runs of this checkout, one round of the displaced,
+    bsearch and support-8 passes each, at 60,000 k-mers and 512 reads in
+    batches of 256: every pass reads all its reads on its tree's own
+    modules, and the modules the test started with are back in place after."""
+    import sys
+
+    import utree_tpu_torch.pipeline  # noqa: F401  (the modules the run must put back)
+
+    root = pathlib.Path(kernel_ab.__file__).resolve().parent
+    before = kernel_ab._modules()
+    saved = cs.BATCH, kernel_ab.ROOT
+    cs.BATCH, kernel_ab.ROOT = 256, tmp_path
+    try:
+        res = kernel_ab.e2e_run(torch.device("cpu"), [root, root], 1, 60_000, 512,
+                                tmp_path / "work")
+        loaded = kernel_ab._modules()
+    finally:
+        cs.BATCH, kernel_ab.ROOT = saved
+        for k in kernel_ab._modules():
+            del sys.modules[k]
+        sys.modules.update(before)
+    assert [r["tree"] for r in res] == [str(root)] * 2
+    for r in res:
+        assert set(r["passes"]) == set(kernel_ab.E2E_PASSES)
+        for p in r["passes"].values():
+            assert len(p["reads_per_s"]) == 1 and p["median"] == p["best"] > 0
+            assert "scan" in p["phase_median"]
+    assert loaded["utree_tpu_torch"] is not before["utree_tpu_torch"]
+    assert pathlib.Path(loaded["utree_tpu_torch"].__file__).parent.parent == root
+    outs = sorted((tmp_path / "work").glob("e2e_ab_*.txt"))
+    assert len(outs) == 6 and outs[0].stat().st_size > 0
+
+
+def test_e2e_compare_pairs_each_rounds_runs_in_order():
+    """Runs A B B A: A's first run pairs with B's first, A's second with
+    B's second, round by round; medians and quartiles pool each tree."""
+    def run(tree, rates):
+        return {"tree": tree, "passes": {p: {"reads_per_s": rates} for p in kernel_ab.E2E_PASSES}}
+
+    res = [run("a", [10.0, 20.0]), run("b", [11.0, 19.0]), run("b", [12.0, 25.0]),
+           run("a", [13.0, 21.0])]
+    lines = kernel_ab.e2e_compare(res)
+    assert len(lines) == len(kernel_ab.E2E_PASSES)
+    # pairs (10, 11), (20, 19), (13, 12), (21, 25): b faster in 2 of 4;
+    # medians 16.5 and 15.5
+    assert "a median 16 (quartiles 11-21); b median 16 (quartiles 11-24)" in lines[0]
+    assert "faster in 2 of 4 pairs, median -6.1%" in lines[0]
+    assert kernel_ab.e2e_compare(res[:2] + [run("c", [1.0, 1.0])]) == []

@@ -17,7 +17,7 @@ from chip_smoke import (index64, make_reads, make_tier, tier64, tier_kmers,
                         tier_labels, write_fasta, xtree_refs)
 from utree_tpu_torch import kernels
 from utree_tpu_torch import lookup as tl
-from utree_tpu_torch.classify_device import (aufbau_tables_to_device,
+from utree_tpu_torch.classify_device import (VoteTables, aufbau_tables_to_device,
                                              aufbau_walk, build_aufbau_tables,
                                              pack_vote, vote_rows)
 from utree_tpu_torch.config import UTreeConfig
@@ -139,6 +139,87 @@ def test_k3_aufbau_vote_matches_plain(dev, seed, cap):
         kw = dict(taxacut=4, max_iters=max_iters)
         want = pack_vote(*aufbau_walk(dtab, *arrays, **kw), arrays[2], arrays[3])
         assert torch.equal(vote_rows(dtab, *arrays, **kw), want)
+
+
+def _vote_batch(rng, n_strings, n, cap, walk_all=False):
+    """n reads of compact histograms over n_strings labels: 0..cap+1
+    unique labels, or 2..cap (every read walks)."""
+    labels = np.full((n, cap), -1, np.int32)
+    counts = np.zeros((n, cap), np.int32)
+    lo = 2 if walk_all else 0
+    nuniq = rng.integers(lo, cap + 1 if walk_all else cap + 2, n).astype(np.int32)
+    for b in range(n):
+        k = min(int(nuniq[b]), cap, n_strings)
+        labels[b, :k] = np.sort(rng.choice(n_strings, k, replace=False))
+        counts[b, :k] = rng.integers(1, 12, k)
+    found = counts.sum(1).astype(np.int32)
+    return labels, counts, nuniq, found
+
+
+def _vote_equal(dev, tab, arrays, *, taxacut=4, max_iters=None, prepared=True):
+    """K3 on `arrays` (numpy) against pack_vote(aufbau_walk(...)) on the
+    card, through prepared tables or the dict; returns the count of reads
+    that walk."""
+    cap = arrays[0].shape[1]
+    dtab = aufbau_tables_to_device(tab, dev)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+    kw = dict(taxacut=taxacut, max_iters=(tab.max_len + 4) * (cap + 2) + 16
+              if max_iters is None else max_iters)
+    want = pack_vote(*aufbau_walk(dtab, *t, **kw), t[2], t[3])
+    n0 = kernels.launches["aufbau_vote"]
+    got = vote_rows(VoteTables(dtab) if prepared else dtab, *t, **kw)
+    assert kernels.launches["aufbau_vote"] == n0 + 1
+    assert got.shape == (arrays[0].shape[0], 3) and torch.equal(got, want)
+    return int(((t[2] >= 2) & (t[2] <= cap) & (t[3] >= 2)).sum())
+
+
+@pytest.mark.parametrize("cap", [1, 8, 30])
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 127, 129, 1000])
+def test_k3_batch_edges_match_plain(dev, n, cap):
+    """K3 at B not a multiple of the warp or the tile (128 reads), at B = 0
+    and 1, at caps 1, 8 (its specialised path) and 30: a batch of mixed
+    reads and one where every read walks."""
+    rng = np.random.default_rng(n * 31 + cap)
+    tab = build_aufbau_tables(_random_strings(rng, 60))
+    _vote_equal(dev, tab, _vote_batch(rng, 60, n, cap))
+    if cap > 1:
+        assert _vote_equal(dev, tab, _vote_batch(rng, 60, n, cap, walk_all=True)) == n
+
+
+def test_k3_odd_lanes_match_plain(dev):
+    """The lanes of tests/test_torch_aufbau.py on the card: padding labels,
+    nuniq 0 and 1, nuniq = cap + 1, a read cut by max_iters, and fields too
+    wide for their lanes; through the dict as well."""
+    rng = np.random.default_rng(9)
+    strings = _random_strings(rng, 20)
+    tab = build_aufbau_tables(strings)
+    cap = 4
+    labels = np.full((4, cap), -1, np.int32)
+    counts = np.zeros((4, cap), np.int32)
+    labels[1, 0], counts[1, 0] = 5, 7
+    labels[2], counts[2] = [0, 1, 2, 3], [1, 1, 1, 1]
+    labels[3, :2], counts[3, :2] = [19, 2], [3, 4]
+    arrays = (labels, counts, np.array([0, 1, cap + 1, 2], np.int32),
+              np.array([0, 7, 5, 7], np.int32))
+    for prepared in (True, False):
+        _vote_equal(dev, tab, arrays, max_iters=256, prepared=prepared)
+    rng = np.random.default_rng(2)
+    tab = build_aufbau_tables(_random_strings(rng, 60))
+    batch = _vote_batch(rng, 60, 200, 8, walk_all=True)
+    for max_iters in (1, 3):
+        _vote_equal(dev, tab, batch, max_iters=max_iters)
+    wide = list(_vote_batch(rng, 60, 500, 8))
+    wide[1] = wide[1] * 40_000  # sl, ol and found past their lanes
+    wide[3] = wide[1].sum(1).astype(np.int32)
+    _vote_equal(dev, tab, wide)
+
+
+def test_k3_refuses_tables_of_another_device(dev):
+    tab = aufbau_tables_to_device(build_aufbau_tables([b"a;b", b"a;c"]), "cpu")
+    hist = [torch.zeros((4, 8) if i < 2 else 4, dtype=torch.int32, device=dev)
+            for i in range(4)]
+    with pytest.raises(ValueError):
+        vote_rows(VoteTables(tab), *hist, taxacut=4, max_iters=8)
 
 
 def _ladder(index, geometry):
@@ -696,6 +777,63 @@ def test_k8_hist_compact_matches_plain(tier, dev, cap):
             assert got.shape == (2 * rows.shape[0] + (over_cap + 1) * (cap + 1),)
             assert torch.equal(got, tl.compact_rows(rows, over_cap))
             assert int(got[2 * rows.shape[0]]) == n_over
+
+
+def _compact_rows_random(rng, b, cap):
+    tail = rng.integers(0, cap + 2, b) | (rng.integers(0, 1 << 20, b) << 5)
+    slots = rng.integers(-(1 << 31), 1 << 31, (b, cap))
+    return torch.from_numpy(np.concatenate([slots, tail[:, None]], 1).astype(np.int32))
+
+
+@pytest.mark.parametrize("b", [0, 1, 255, 257, 1000, 1023, 1024, 1025, 2049])
+def test_k8_batch_edges_match_plain(dev, b):
+    """K8 at B = 0 and 1, inside one tile (1024 reads), at a tile's edge and
+    across two and three tiles (the look-back), with n_over past over_cap,
+    at over_cap and far under it."""
+    rng = np.random.default_rng(b)
+    for cap in (1, 8, 30):
+        rows = _compact_rows_random(rng, b, cap).to(dev)
+        n_over = int(((rows[:, cap] & 31) >= 2).sum())
+        for over_cap in (1, max(1, n_over - 1), max(1, n_over), 8192):
+            got = tl.hist_compact(rows, over_cap)
+            assert torch.equal(got, tl.compact_rows(rows, over_cap))
+            assert int(got[2 * b]) == n_over
+
+
+def test_k8_calls_in_a_row_match_plain(dev):
+    """Calls one after another on one stream, on other rows and shapes,
+    share K8's kept scratch: what one call leaves there must not reach the
+    next.  A larger batch grows the scratch; a call on another stream has
+    its own."""
+    rng = np.random.default_rng(5)
+    shapes = [(70_001, 8, 8192), (300, 8, 4), (70_001, 8, 1), (5000, 30, 700),
+              (1, 8, 64), (0, 8, 64), (300_000, 8, 40_000), (64, 2, 3)]
+    outs = []
+    for b, cap, over_cap in shapes:
+        rows = _compact_rows_random(rng, b, cap).to(dev)
+        outs.append((tl.hist_compact(rows, over_cap), tl.compact_rows(rows, over_cap)))
+    for got, want in outs:
+        assert torch.equal(got, want)
+    side = torch.cuda.Stream()
+    rows = _compact_rows_random(rng, 10_000, 8).to(dev)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = tl.hist_compact(rows, 500)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tl.compact_rows(rows, 500))
+
+
+def test_k8_refuses_graph_capture(dev):
+    """K8's kept scratch is valid by a per-call epoch, which a graph replay
+    would reuse: a call under capture is refused, and the next call outside
+    it still matches the plain version."""
+    rows = _compact_rows_random(np.random.default_rng(6), 3000, 8).to(dev)
+    tl.hist_compact(rows, 64)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            tl.hist_compact(rows, 64)
+    assert torch.equal(tl.hist_compact(rows, 64), tl.compact_rows(rows, 64))
 
 
 @pytest.mark.parametrize("labels", ["narrow", "wide"])

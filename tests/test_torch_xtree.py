@@ -357,6 +357,17 @@ def test_cli_bytes_equal_jax(xdata, tmp_path):
             port_main(["xtree-align", "--db", tx, "--seqs", seqs])
 
 
+@pytest.mark.parametrize("argv,device", [(["--device"], "cuda"), (["--device", "cpu"], "cpu"),
+                                         (["--device", "cuda"], "cuda"), ([], "cuda")])
+def test_cli_xtree_align_device_parses(argv, device):
+    """`xtree-align --device` takes utree_tpu's bare switch as the card, a
+    value, or nothing (the card); parsing runs nothing."""
+    from utree_tpu_torch.cli import parser
+
+    a = parser().parse_args(["xtree-align", "--db", "d.xtr", "--seqs", "q.fa", *argv])
+    assert a.device == device and not a.host
+
+
 def test_no_silent_fallback(xdbs, monkeypatch, tmp_path):
     """device="cuda" without a card raises; with a card whose K9 build fails
     it raises that failure; nothing falls back to the CPU or the host."""

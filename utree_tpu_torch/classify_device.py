@@ -8,7 +8,8 @@ range-min sparse table over adjacent-rank LCPs, ';' / '_' bitmasks, sorted
 ';' positions and lengths.  This module moves them to a device and runs the
 walk:
 
-  vote_rows  -> K3 `csrc/aufbau.cu` (plain: aufbau_walk + pack_vote)
+  vote_rows  -> K3 `csrc/aufbau.cu` (plain: aufbau_walk + pack_vote), on
+                the tables `VoteTables` checks once where they are placed
 
 `aufbau_walk` mirrors `aufbau_walk_device` step for step: the batch-wide
 loop, the masks, the u32 wraparound counters (int64 lanes masked to 32
@@ -18,6 +19,7 @@ point at padding.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -271,33 +273,61 @@ def pack_vote(rep, dvcode, dv, sl, ol, flag, nuniq, found) -> torch.Tensor:
     return i32(torch.stack([w0, w1, w2], dim=1))
 
 
-def vote_rows(tab: dict, labels, counts, nuniq, found, *, taxacut: int,
+class VoteTables:
+    """The vote tables of one device, checked once where they are placed:
+    what K3 reads past the histograms.  `tab` maps VOTE_TABLE_KEYS to int32
+    tensors of one device, as `aufbau_tables_to_device` places them; a
+    table of another type, rank or device, or of a shape that disagrees
+    with `rank`'s label count, raises ValueError.  On a card the tables'
+    pointers and shapes are bound here, for every call."""
+
+    def __init__(self, tab: dict):
+        self.tab = {k: tab[k] for k in VOTE_TABLE_KEYS}
+        t = self.tab
+        self.device = t["rank"].device
+        for k, nd in zip(VOTE_TABLE_KEYS, (1, 2, 1, 2, 2, 2)):
+            kernels.require(t[k], k, torch.int32, nd, self.device)
+        L = t["rank"].shape[0]
+        if (t["st"].shape[1] != L or t["slen"].shape != (L,) or t["semi"].shape[0] != L
+                or t["und"].shape != t["semi"].shape or t["spos"].shape[0] != L):
+            raise ValueError("vote tables have inconsistent shapes")
+        self.arg = None
+        if self.device.type == "cuda":
+            from utree_tpu_torch.kernels.build import VoteTablesArg
+
+            self._struct = VoteTablesArg(
+                t["rank"].data_ptr(), t["st"].data_ptr(), t["st"].shape[0], L,
+                t["slen"].data_ptr(), t["semi"].data_ptr(), t["und"].data_ptr(),
+                t["semi"].shape[1], t["spos"].data_ptr(), t["spos"].shape[1])
+            self.arg = ctypes.addressof(self._struct)
+
+    @classmethod
+    def from_table(cls, table: dict) -> "VoteTables":
+        """The `vt_*` entries of a device table (search_step_vote_compact's)."""
+        return cls({k: table["vt_" + k] for k in VOTE_TABLE_KEYS})
+
+
+def vote_rows(tab, labels, counts, nuniq, found, *, taxacut: int,
               max_iters: int) -> torch.Tensor:
-    """K3 `aufbau_vote` on CUDA tensors; the plain walk + pack on CPU ones."""
+    """K3 `aufbau_vote` on CUDA tensors; the plain walk + pack on CPU ones.
+    `tab` is a `VoteTables` or a dict of the tables (checked each call)."""
     if labels.device.type == "cpu":
-        walked = aufbau_walk(tab, labels, counts, nuniq, found,
+        walked = aufbau_walk(tab.tab if isinstance(tab, VoteTables) else tab,
+                             labels, counts, nuniq, found,
                              taxacut=taxacut, max_iters=max_iters)
         return pack_vote(*walked, nuniq, found)
-    dev = labels.device
+    vt = tab if isinstance(tab, VoteTables) else VoteTables(tab)
+    dev = vt.device
     B, C = labels.shape
     if not 1 <= C <= 30:
         raise ValueError(f"histogram width {C} out of range 1..30")
     for name, t, nd in (("labels", labels, 2), ("counts", counts, 2),
-                        ("nuniq", nuniq, 1), ("found", found, 1),
-                        *((k, tab[k], tab[k].dim()) for k in VOTE_TABLE_KEYS)):
+                        ("nuniq", nuniq, 1), ("found", found, 1)):
         kernels.require(t, name, torch.int32, nd, dev)
-    L = tab["rank"].shape[0]
-    nlev, lst = tab["st"].shape
-    if (counts.shape != labels.shape or nuniq.shape != (B,) or found.shape != (B,)
-            or lst != L or tab["slen"].shape != (L,) or tab["semi"].shape[0] != L
-            or tab["und"].shape != tab["semi"].shape or tab["spos"].shape[0] != L):
-        raise ValueError("vote inputs or tables have inconsistent shapes")
+    if counts.shape != labels.shape or nuniq.shape != (B,) or found.shape != (B,):
+        raise ValueError("vote inputs have inconsistent shapes")
     out = torch.empty((B, 3), dtype=torch.int32, device=dev)
-    kernels.launch(
-        "aufbau_vote", labels.data_ptr(), counts.data_ptr(), nuniq.data_ptr(),
-        found.data_ptr(), B, C, tab["rank"].data_ptr(), tab["st"].data_ptr(),
-        nlev, L, tab["slen"].data_ptr(), tab["semi"].data_ptr(),
-        tab["und"].data_ptr(), tab["semi"].shape[1], tab["spos"].data_ptr(),
-        tab["spos"].shape[1], taxacut, max_iters, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.launch("aufbau_vote", labels.data_ptr(), counts.data_ptr(), nuniq.data_ptr(),
+                   found.data_ptr(), B, C, vt.arg, taxacut, max_iters, out.data_ptr(),
+                   kernels.stream(dev))
     return out

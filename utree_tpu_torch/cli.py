@@ -12,7 +12,7 @@ the xtree tool):
   python -m utree_tpu_torch.cli xtree-align --db db --seqs q
       [--confidence f --perq-out --ref-out --tax-out --cov-out --orthog-out
        --redistribute --fast-redistribute --shallow-lca]
-      [--device cuda|cpu] [--host]
+      [--device [cuda|cpu]] [--host]
 
 `--host` runs the exact host search (`search_host.search_file`) or the
 xtree host engine (no device front end); a DB of a PACKSIZE other than 32
@@ -134,7 +134,8 @@ def _cmd_xtree_align(a):
     print("All outputs written.")
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
+    """The command line's parser; `main` runs what it parses."""
     p = argparse.ArgumentParser(prog="utree_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -198,13 +199,19 @@ def main(argv=None):
     xa.add_argument("--redistribute", action="store_true")
     xa.add_argument("--fast-redistribute", dest="fast_redistribute", action="store_true")
     xa.add_argument("--shallow-lca", dest="shallow_lca", action="store_true")
-    xa.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="the k-mer front end: cuda runs kernel K9, cpu its "
-                         "plain version (host voting either way)")
+    xa.add_argument("--device", nargs="?", const="cuda", default="cuda",
+                    choices=("cuda", "cpu"),
+                    help="the k-mer front end: cuda (also a bare --device, as "
+                         "utree_tpu spells it) runs kernel K9, cpu its plain "
+                         "version (host voting either way)")
     xa.add_argument("--host", action="store_true",
                     help="the host engine (C++ scan) instead of the device front end")
     xa.set_defaults(fn=_cmd_xtree_align)
-    a = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    a = parser().parse_args(argv)
     a.fn(a)
 
 

@@ -74,6 +74,15 @@ def require(t, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def stream(device) -> int:
+    """The handle of `device`'s current CUDA stream, for a launch: what
+    `torch.cuda.current_stream(device).cuda_stream` gives, without making a
+    Stream object (a few us of host time a call)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def launch(name: str, *args) -> None:
     """Call the C entry point `utree_<name>` and count the launch."""
     err = getattr(library(), "utree_" + name)(*args)
@@ -82,4 +91,4 @@ def launch(name: str, *args) -> None:
 
 
 __all__ = ["KERNELS", "build", "launch", "launches", "library", "ptxas_usage",
-           "require", "reset_launches"]
+           "require", "reset_launches", "stream"]

@@ -28,6 +28,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P = ctypes.c_void_p
 I32 = ctypes.c_int32
 I64 = ctypes.c_int64
+U32 = ctypes.c_uint32
+
+
+class VoteTablesArg(ctypes.Structure):
+    """K3's vote tables, pointers and shapes (`UtreeVoteTables` in
+    csrc/aufbau.cu), passed by address."""
+
+    _fields_ = [("rank", P), ("st", P), ("nlev", I32), ("L", I32), ("slen", P),
+                ("semi", P), ("und", P), ("wm", I32), ("spos", P), ("R", I32)]
+
 
 # C entry point -> argtypes.  Every pointer and the stream are c_void_p (a
 # plain int would be cut to 32 bits); each returns cudaGetLastError().
@@ -71,11 +81,12 @@ SIGNATURES = {
     "utree_histogram": [P, I64, I32, I32, I32, P, P, P, P, P],
     "utree_histogram_packed": _HIST_ROWS,
     "utree_histogram_unpacked": _HIST_ROWS,
-    # rows, B, cap, over_cap, tile counts (scratch), out, stream
-    "utree_hist_compact": [P, I64, I32, I32, P, P, P],
-    "utree_aufbau_vote": [P, P, P, P, I64, I32,
-                          P, P, I32, I32, P, P, P, I32, P, I32,
-                          I32, I32, P, P],
+    # rows, B, cap, over_cap, the look-back's ticket and flags (scratch
+    # kept across calls), epoch, out, stream
+    "utree_hist_compact": [P, I64, I32, I32, P, U32, P, P],
+    # labels, counts, nuniq, found, B, C, the vote tables (a VoteTablesArg's
+    # address), taxacut, max_iters, out, stream
+    "utree_aufbau_vote": [P, P, P, P, I64, I32, P, I32, I32, P, P],
     # ASCII queries, lens, B, T, W, k, sl; d1, nslots, ds, nseed, d3, n3, s3;
     # out (4, B, W), stream
     "utree_xtree_probe": [P, P, I64, I64, I32, I32, I32,

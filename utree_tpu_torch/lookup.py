@@ -38,12 +38,14 @@ tensor it launches the kernel or raises; nothing falls back.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
 from utree_tpu_torch import kernels
 from utree_tpu_torch._u32 import M, i32, jax_index, mul32, u32
-from utree_tpu_torch.classify_device import vote_rows
+from utree_tpu_torch.classify_device import VoteTables, vote_rows
 
 DINVALID = 4
 WIDE_LABELS = 0xFFFF  # num_labels from which entries are wide (IXTYPE=u32)
@@ -512,8 +514,7 @@ def window_ids(tables: dict, packed, vbits, lengths, *, do_rc: bool,
     out = torch.empty((b, 2 * w if do_rc else w), dtype=torch.int32, device=dev)
     front = (packed.data_ptr(), vbits.data_ptr(), lengths.data_ptr(), b, row4,
              row8, w)
-    back = (int(do_rc), bad_ix, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    back = (int(do_rc), bad_ix, out.data_ptr(), kernels.stream(dev))
     suffix = "_wide" if wide else ""
     if "bin_ix" in tables:
         bin_ix, rec, n = _records(tables, "K7", dev)
@@ -621,7 +622,7 @@ def histogram(ids: torch.Tensor, num_labels: int, cap: int):
     found = torch.empty(b, dtype=torch.int32, device=dev)
     kernels.launch("histogram", ids.data_ptr(), b, n, num_labels, cap,
                    labels.data_ptr(), counts.data_ptr(), nuniq.data_ptr(),
-                   found.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                   found.data_ptr(), kernels.stream(dev))
     return labels, counts, nuniq, found
 
 
@@ -630,7 +631,7 @@ def _hist_rows(name: str, ids: torch.Tensor, num_labels: int, cap: int,
     b, n = _check_hist(ids, cap)
     rows = torch.empty((b, width), dtype=torch.int32, device=ids.device)
     kernels.launch(name, ids.data_ptr(), b, n, num_labels, cap, rows.data_ptr(),
-                   torch.cuda.current_stream(ids.device).cuda_stream)
+                   kernels.stream(ids.device))
     return rows
 
 
@@ -671,6 +672,20 @@ def compact_rows(rows: torch.Tensor, over_cap: int) -> torch.Tensor:
     return torch.cat([main.reshape(-1), over.reshape(-1)])
 
 
+# K8's look-back scratch, kept across calls: per (device, stream) the int64
+# tensor [ticket, a flag and a count a tile of 1024 reads] and the last
+# call's epoch.  A word counts only under its call's epoch, so the scratch
+# is zeroed once, when it is made, and never again until the epoch wraps.
+# This holds while every call on a stream takes an epoch of its own and runs
+# in the order it was enqueued: the lock hands out the epochs, and a call
+# captured into a CUDA graph is refused (each replay would reuse its epoch).
+# The entries stay while the process lives, one for each stream that ever
+# compacts; PyTorch's streams come from a fixed pool, so they are few.
+_COMPACT_SCRATCH: dict[tuple[int, int], list] = {}
+_COMPACT_LOCK = threading.Lock()
+_COMPACT_TILE = 1024
+
+
 def hist_compact(rows: torch.Tensor, over_cap: int) -> torch.Tensor:
     """K8 `hist_compact` on CUDA tensors; `compact_rows` on CPU tensors."""
     if rows.device.type == "cpu":
@@ -678,13 +693,22 @@ def hist_compact(rows: torch.Tensor, over_cap: int) -> torch.Tensor:
     dev = rows.device
     kernels.require(rows, "rows", torch.int32, 2, dev)
     b, c1 = rows.shape
-    if not 2 <= c1 <= 31 or over_cap < 1:
-        raise ValueError(f"hist_compact: cap {c1 - 1} or over_cap {over_cap} out of range")
+    if not 2 <= c1 <= 31 or over_cap < 1 or b >= 1 << 30:
+        raise ValueError(f"hist_compact: {b} rows, cap {c1 - 1} or over_cap {over_cap} "
+                         "out of range")
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("hist_compact: its kept scratch cannot be captured in a CUDA graph")
     out = torch.empty(2 * b + (over_cap + 1) * c1, dtype=torch.int32, device=dev)
-    tile_counts = torch.empty(max(1, -(-b // 1024)), dtype=torch.int32, device=dev)
-    kernels.launch("hist_compact", rows.data_ptr(), b, c1 - 1, over_cap,
-                   tile_counts.data_ptr(), out.data_ptr(),
-                   torch.cuda.current_stream(dev).cuda_stream)
+    stream = kernels.stream(dev)
+    tiles = -(-b // _COMPACT_TILE)
+    with _COMPACT_LOCK:
+        held = _COMPACT_SCRATCH.get((dev.index, stream))
+        if held is None or held[0].numel() < 2 * tiles + 1 or held[1] == 0xFFFFFFFF:
+            held = _COMPACT_SCRATCH[dev.index, stream] = [
+                torch.zeros(2 * max(tiles, 64) + 1, dtype=torch.int64, device=dev), 0]
+        held[1] += 1
+        kernels.launch("hist_compact", rows.data_ptr(), b, c1 - 1, over_cap,
+                       held[0].data_ptr(), held[1], out.data_ptr(), stream)
     return out
 
 
@@ -697,10 +721,13 @@ def search_step_vote_compact(table: dict, packed, vbits, lengths, *,
                              do_rc: bool, bad_ix: int, num_labels: int,
                              cap: int, taxacut: int, max_iters: int,
                              true_len: int | None = None,
-                             probe_iters: int | None = None) -> torch.Tensor:
+                             probe_iters: int | None = None,
+                             vote: VoteTables | None = None) -> torch.Tensor:
     """Packed reads -> (B, 3) int32 vote rows (w0, w1, w2; layout in
-    `classify_device.pack_vote`): probe, K2 histogram, K3 vote."""
-    vote_tab = {k[3:]: v for k, v in table.items() if k.startswith("vt_")}
+    `classify_device.pack_vote`): probe, K2 histogram, K3 vote.  `vote`:
+    the table's `vt_*` entries as `VoteTables`, prepared once by the caller
+    (SearchPipeline does); without it they are checked on each call."""
+    vote_tab = vote if vote is not None else VoteTables.from_table(table)
     ids = window_ids(table, packed, vbits, lengths, do_rc=do_rc, bad_ix=bad_ix,
                      num_labels=num_labels, true_len=true_len,
                      probe_iters=probe_iters)
@@ -945,8 +972,7 @@ def window_ids64(table: dict, reads, lengths, *, do_rc: bool,
         raise ValueError("reads shorter than 64 after padding")
     out = torch.empty((b, 2 * w if do_rc else w), dtype=torch.int32, device=dev)
     front = (reads.data_ptr(), lengths.data_ptr(), b, width, w)
-    back = (int(do_rc), min(bad_ix, 0x7FFFFFFF), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    back = (int(do_rc), min(bad_ix, 0x7FFFFFFF), out.data_ptr(), kernels.stream(dev))
     if "d64_1" in table:
         t1, _, _ = _level(table["d64_1"], "d64_1", 6, dev)
         t3, n3, s3 = _level(table["d64_3"], "d64_3", 6, dev)
@@ -1037,7 +1063,7 @@ def ascii_pack(reads_u8: torch.Tensor, lengths: torch.Tensor, rc: bool = False):
     vbits = torch.empty((b, row8), dtype=torch.uint8, device=dev)
     kernels.launch("ascii_pack", reads_u8.data_ptr(), lengths.data_ptr(), b, l, row8,
                    int(rc), packed.data_ptr(), vbits.data_ptr(),
-                   torch.cuda.current_stream(dev).cuda_stream)
+                   kernels.stream(dev))
     return packed, vbits
 
 

@@ -371,10 +371,6 @@ def routed_canonical_finish_plain(rec, reply, t2, t3, *, b: int, w: int, do_rc: 
 
 # ---- kernel wrappers ----------------------------------------------------------
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def route_displaced(packed, vbits, lens, *, nseed: int, num_shards: int, capacity: int):
     """K11 `route_displaced` on CUDA tensors; `route_displaced_plain` on
     CPU tensors.  The canonical steps pass nseed = b1: the same fold,
@@ -407,7 +403,7 @@ def route_displaced(packed, vbits, lens, *, nseed: int, num_shards: int, capacit
     scratch = torch.empty(tiles * S + 1, dtype=torch.int64, device=dev)
     kernels.launch("route_displaced", packed.data_ptr(), vbits.data_ptr(),
                    lens.data_ptr(), b, row4, row8, w, nseed, S, C, scratch.data_ptr(),
-                   send.data_ptr(), rec.data_ptr(), counts.data_ptr(), _stream(dev))
+                   send.data_ptr(), rec.data_ptr(), counts.data_ptr(), kernels.stream(dev))
     return send, rec, counts
 
 
@@ -433,7 +429,7 @@ def owner_probe(t1, seeds, lanes, *, base: int, per_seed: int, wide: bool):
     out = torch.empty((n, 2) if wide else (n,), dtype=torch.int32, device=dev)
     kernels.launch("owner_probe" + ("_wide" if wide else ""), lanes.data_ptr(), n,
                    base, per_seed, t1.data_ptr(), 2 * t1.shape[0], seeds.data_ptr(),
-                   out.data_ptr(), _stream(dev))
+                   out.data_ptr(), kernels.stream(dev))
     return out
 
 
@@ -460,7 +456,7 @@ def canonical_owner_probe(t1, lanes, *, base: int, per_shard: int, wide: bool):
     out = torch.empty((n, 2) if wide else (n,), dtype=torch.int32, device=dev)
     kernels.launch("canonical_owner_probe" + ("_wide" if wide else ""), lanes.data_ptr(),
                    n, base, per_shard, t1.data_ptr(), t1.shape[1] // cps, out.data_ptr(),
-                   _stream(dev))
+                   kernels.stream(dev))
     return out
 
 
@@ -494,7 +490,7 @@ def routed_finish(rec, reply, t3, *, b: int, w: int, do_rc: bool, bad_ix: int,
     out = torch.empty((b, 2 * w if do_rc else w), dtype=torch.int32, device=dev)
     kernels.launch("routed_finish" + ("_wide" if wide else ""), rec.data_ptr(),
                    reply.data_ptr(), b, w, t3.data_ptr(), n3, s3,
-                   int(do_rc), bad_ix, out.data_ptr(), _stream(dev))
+                   int(do_rc), bad_ix, out.data_ptr(), kernels.stream(dev))
     return out
 
 
@@ -514,7 +510,7 @@ def routed_canonical_finish(rec, reply, t2, t3, *, b: int, w: int, do_rc: bool,
     out = torch.empty((b, 2 * w if do_rc else w), dtype=torch.int32, device=dev)
     kernels.launch("routed_canonical_finish" + ("_wide" if wide else ""), rec.data_ptr(),
                    reply.data_ptr(), b, w, t2.data_ptr(), n2, s2, t3.data_ptr(), n3, s3,
-                   int(do_rc), bad_ix, out.data_ptr(), _stream(dev))
+                   int(do_rc), bad_ix, out.data_ptr(), kernels.stream(dev))
     return out
 
 

@@ -217,7 +217,7 @@ def shard_probe(table: dict, packed, vbits, lengths, *, prefix_lo: int, width: i
     kernels.launch("bsearch_probe_shard", packed.data_ptr(), vbits.data_ptr(),
                    lengths.data_ptr(), b, row4, row8, w, bin_ix.data_ptr(),
                    rec.data_ptr(), n, prefix_lo, bin_ix.shape[0] - 1, int(do_rc),
-                   ix.data_ptr(), found.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                   ix.data_ptr(), found.data_ptr(), kernels.stream(dev))
     return ix, found
 
 
@@ -305,7 +305,7 @@ def label_histogram(ids: torch.Tensor, num_labels: int) -> torch.Tensor:
         raise ValueError(f"num_labels {num_labels} out of range")
     hist = torch.empty(num_labels, dtype=torch.int32, device=dev)
     kernels.launch("label_histogram", ids.data_ptr(), ids.numel(), num_labels,
-                   hist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                   hist.data_ptr(), kernels.stream(dev))
     return hist
 
 

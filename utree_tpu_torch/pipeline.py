@@ -65,6 +65,7 @@ import pathlib
 import numpy as np
 import torch
 
+from utree_tpu_torch.classify_device import VoteTables
 from utree_tpu_torch.index import DeviceIndexArrays
 from utree_tpu_torch.lookup import (WIDE_LABELS, pack_reads_host,
                                     search_step_hist,
@@ -250,6 +251,10 @@ class SearchPipeline:
         # data parallel: the table replicated on every shard device
         # (utree_tpu/pipeline.py:316-374)
         self._tables = self._mesh.replicate(table)
+        # each shard's main step; the vote layout's reads that shard's vote
+        # tables, checked once here
+        self._steps = [functools.partial(self._step, vote=VoteTables.from_table(t))
+                       if self.layout == "vote" else self._step for t in self._tables]
 
     def _shard_mesh(self, n: int, batch_size: int, shard_devices):
         """The n shard devices, with utree_tpu/pipeline.py:133-142's checks
@@ -405,17 +410,17 @@ class SearchPipeline:
         return tuple(np.pad(a, ((0, pad),) + ((0, 0),) * (a.ndim - 1)) for a in arrays)
 
     def _run_shards(self, step, arrays, **kw) -> list[torch.Tensor]:
-        """`step` on each shard's rows of the host `arrays`, each on its
-        device; the outputs in row order."""
+        """`step` (None: each shard's main step) on each shard's rows of the
+        host `arrays`, each on its device; the outputs in row order."""
         tensors = [self._host(a) for a in arrays]
         n = self._mesh.size
         rows = tensors[0].shape[0] // n
         out = []
         for s, dev in enumerate(self._mesh.devices):
             with self._mesh.on(s):
-                out.append(step(self._tables[s],
-                                *(t[s * rows:(s + 1) * rows].to(dev, non_blocking=True)
-                                  for t in tensors), **kw))
+                out.append((step or self._steps[s])(
+                    self._tables[s], *(t[s * rows:(s + 1) * rows].to(dev, non_blocking=True)
+                                       for t in tensors), **kw))
         return out
 
     def dispatch_packed(self, packed: np.ndarray, vbits: np.ndarray,
@@ -435,7 +440,7 @@ class SearchPipeline:
             handle.kind = "routed"
             handle.redo = lambda: self._readback(self._fallback_step(self._tables, *tensors))
             return handle
-        handle = self._readback(self._run_shards(step or self._step, arrays, true_len=tl))
+        handle = self._readback(self._run_shards(step, arrays, true_len=tl))
         if step is None and self.layout == "compact":
             handle.kind = "compact"
             handle.redo = lambda: self._readback(
@@ -452,7 +457,7 @@ class SearchPipeline:
                 reads = np.pad(reads, ((0, 0), (0, 8 - reads.shape[1] % 8)))
             return self.dispatch_packed(*pack_reads_host(reads, lengths), step=step)
         return self._readback(self._run_shards(
-            step or self._step, self._pad_rows(reads, lengths.astype(np.int32))))
+            step, self._pad_rows(reads, lengths.astype(np.int32))))
 
     # ---- host-side exact replay of flagged reads ---------------------------
 

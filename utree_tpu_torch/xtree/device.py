@@ -239,7 +239,7 @@ def xtree_step(tables: dict, reads: torch.Tensor, lengths: torch.Tensor, *,
     kernels.launch("xtree_probe", reads.data_ptr(), lengths.data_ptr(), b, t, w, k, sl,
                    d1.data_ptr(), 2 * d1.shape[0], ds.data_ptr(), nseed,
                    d3.data_ptr(), n3, s3, out.data_ptr(),
-                   torch.cuda.current_stream(dev).cuda_stream)
+                   kernels.stream(dev))
     return tuple(out)
 
 

@@ -85,7 +85,8 @@ Phases; each passes or the script exits non-zero:
    phase 4's output;
 17. multi-host: two processes over gloo on the card, the merged output
    equal to phase 4's;
-18. sharded: K14 ascii_pack (both modes) on phase 3's 65,536 ASCII reads;
+18. sharded: K14 ascii_pack (both modes) on phase 3's 65,536 ASCII reads
+   and on chunk 0 of the 1 Mbp read;
    search_step at k=32 over the displaced, ladder, bsearch and hash tables
    of phases 4, 6, 10 and 13, each equal to window_ids on the reads packed
    on the host after the trim to L-31 windows, and search_step_hist at
@@ -95,7 +96,8 @@ Phases; each passes or the script exits non-zero:
    slice 0 of a 4-way ShardedIndex; the long-read histogram on a (4, 2)
    mesh over phase 8's long reads (K16) equal to bincounts of the
    single-device ids; K16 at one device's chunk of the 1 Mbp read, timed
-   beside torch.bincount on the same ids;
+   beside torch.bincount on the same ids and beside one launch (a
+   one-element fill_, the floor under K16's bound);
    dryrun.dryrun_multichip(8) with the eight shards on the card (its routed
    blocks on the full (4, 2) mesh: K11-K13, K17, K18);
 19. routed canonical: phase 6's ladder sharded four ways by t1 bucket
@@ -113,9 +115,12 @@ Phases; each passes or the script exits non-zero:
 
 Every path run (phases 4, 6-13, 15-19) starts with every launch count at 0
 and reads them just after; each kernel its path needs must have launched.
-Each kernel row prints events ms and device ms; K6 and K5 (phase 9), K7
-(phase 10), K10 (phase 13) and K15 (phase 18) also print ptxas's
-registers, shared memory and spills.
+Each kernel row prints events ms and device ms; a kernel checked at more
+than one shape keeps the others under its row's `shapes` (K2's
+histogram_packed at phase 8's long reads, its histogram_unpacked at phase
+9's PACKSIZE=64 batches, K14's append_rc mode and long-read chunk).  K6
+and K5 (phase 9), K7 (phase 10), K10 (phase 13) and K14, K15 and K16
+(phase 18) also print ptxas's registers, shared memory and spills.
 Prints the card line, a {"kernels": [...]} JSON line and, last, the
 {"ok": true, "device": {...}} line.  Imports nothing of JAX or of the JAX
 package: the tier recipe, the table cache and the host oracle are the
@@ -166,6 +171,9 @@ WIDE_ROUTED_CHECK = 4096  # phase 15's wide reads held to the CPU shards
 
 # launches summed over the path runs (each one counted from 0)
 PATH_LAUNCHES: dict[str, int] = {}
+# kernel name -> its rows checked at other shapes (phases 9, 18), kept as
+# the `shapes` of its one row in the kernels line
+EXTRA_SHAPES: dict[str, list[dict]] = {}
 # (entry function, usage) from the build's ptxas report (phase 2)
 PTXAS: list[tuple[str, str]] = []
 # the entry points whose rows print their kernels' ptxas usage, by the
@@ -174,7 +182,8 @@ PTXAS_ROWS = {"ladder_probe64": "ladder_probe64_kernel", "scan_probe64": "scan_p
               "bsearch_probe": "bsearch_probe_kernel",
               "bsearch_probe_shard": "bsearch_probe_shard_kernel",
               "hash_probe": "hash_probe_kernel", "xtree_probe": "xtree_probe_kernel",
-              "aufbau_vote": "aufbau_vote_kernel", "hist_compact": "compact"}
+              "aufbau_vote": "aufbau_vote_kernel", "hist_compact": "compact",
+              "ascii_pack": "ascii_pack_cu", "label_histogram": "label_histogram_kernel"}
 
 
 def fail(msg: str):
@@ -323,7 +332,14 @@ def check_kernel(name, source, replaces, kernel, plain, what: str, moved: int,
     return {"name": name, "route": "cuda", "source": f"utree_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": library_ms}
+            "bound_by": "bytes", "library_ms": library_ms, "shape": what}
+
+
+def extra_shape(row: dict) -> None:
+    """Keep a kernel's row checked at another shape as one of its `shapes`
+    in the kernels line, where each entry point stands once."""
+    EXTRA_SHAPES.setdefault(row["name"], []).append(
+        {k: row[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")})
 
 
 def drive(path: str, expect, fn):
@@ -855,10 +871,12 @@ def phase_k64(dev, kmers: int, nreads: int, work: pathlib.Path):
             name, f"{name}.cu", "utree_tpu/lookup.py:" + ("460" if mode == "auto" else "521"),
             lambda: lookup.window_ids64(tab, rt, lt, **kw),
             lambda: lookup.window_ids64_plain(tab, rt, lt, **kw), what, moved))
-        check_kernel("histogram_unpacked", "histogram.cu", "utree_tpu/lookup.py:662",
-                     lambda: lookup.histogram_unpacked(ids, L, HIST_CAP),
-                     lambda: lookup.unpacked_hist(ids, L, HIST_CAP), what + f", {kind} ids",
-                     nbytes(ids, lookup.histogram_unpacked(ids, L, HIST_CAP)))
+        extra_shape(check_kernel(
+            "histogram_unpacked", "histogram.cu", "utree_tpu/lookup.py:662",
+            lambda: lookup.histogram_unpacked(ids, L, HIST_CAP),
+            lambda: lookup.unpacked_hist(ids, L, HIST_CAP),
+            f"PACKSIZE=64, {what}, {kind} ids {tuple(ids.shape)}",
+            nbytes(ids, lookup.histogram_unpacked(ids, L, HIST_CAP))))
         out_txt = work / f"smoke64_{kind}.txt"
         rps = e2e(pipe, reads_fa, out_txt, nreads, f"k64 {kind} e2e",
                   (name, "histogram_unpacked"))
@@ -1830,12 +1848,15 @@ def phase_sharded(dev, base: dict):
     w = READ_LEN - 31
     what = f"B={b} x {READ_LEN} bp"
     packed, vbits = lookup.ascii_pack(reads, lens)
-    max_abs_err(lookup.ascii_pack(reads, lens, True), lookup.ascii_pack_plain(reads, lens, True))
-    log("kernel ascii_pack: append_rc mode (2L+1 positions) equal to plain")
     rows = [check_kernel("ascii_pack", "ascii_pack.cu", "utree_tpu/lookup.py:31",
                          lambda: lookup.ascii_pack(reads, lens),
                          lambda: lookup.ascii_pack_plain(reads, lens), what,
                          nbytes(reads, lens, packed, vbits))]
+    extra_shape(check_kernel("ascii_pack", "ascii_pack.cu", "utree_tpu/lookup.py:66",
+                             lambda: lookup.ascii_pack(reads, lens, True),
+                             lambda: lookup.ascii_pack_plain(reads, lens, True),
+                             f"{what}, append_rc mode (2L+1 positions)",
+                             nbytes(reads, lens, *lookup.ascii_pack(reads, lens, True))))
 
     # the ASCII k=32 step: search_step on each table = window_ids on the reads
     # packed on the host (width 192, true_len 152), trimmed to W = L-31
@@ -1952,14 +1973,29 @@ def phase_sharded(dev, base: dict):
     chunks, clens = (torch.from_numpy(a).to(dev) for a in S.split_long_read(seq, 8, 32))
     ids0 = lookup.search_step(bs, chunks[:1], clens[:1], **{
         k: v for k, v in kw.items() if k != "num_labels"})
-    rows.append(check_kernel(
+    row = check_kernel(
         "label_histogram", "label_histogram.cu", "utree_tpu/parallel/sharded.py:215",
         lambda: S.label_histogram(ids0, L), lambda: S.label_histogram_plain(ids0, L),
         f"chunk 0 of 8 of the {len(seq):,} bp read, {ids0.numel():,} ids",
         nbytes(ids0) + 4 * L,
         # the path's ids are >= 0, where bincount computes K16's function
         library=lambda: torch.bincount(torch.where(ids0 < L, ids0, L).view(-1),
-                                       minlength=L + 1)[:L]))
+                                       minlength=L + 1)[:L])
+    # K16's bound lies below one launch: the device time of a one-element
+    # fill_, timed the same way, is its floor
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    row["launch_floor_ms"] = device_ms(lambda: one.fill_(1), 20)
+    log(f"kernel label_histogram: bound {row['bound_ms']:.4f} ms, one launch (a one-element "
+        f"fill_) {row['launch_floor_ms']:.4f} ms on the device, the floor; K16 "
+        f"{row['device_ms']:.4f} ms")
+    rows.append(row)
+    # K14 at the long-read step's shape: this read's chunk 0
+    c0, l0 = chunks[:1], clens[:1]
+    extra_shape(check_kernel("ascii_pack", "ascii_pack.cu", "utree_tpu/lookup.py:31",
+                             lambda: lookup.ascii_pack(c0, l0),
+                             lambda: lookup.ascii_pack_plain(c0, l0),
+                             f"chunk 0 of 8 of the {len(seq):,} bp read, {tuple(c0.shape)}",
+                             nbytes(c0, l0, *lookup.ascii_pack(c0, l0))))
 
     t = time.perf_counter()
     drive("dryrun_multichip(8) on one card",
@@ -2175,6 +2211,8 @@ def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
     log("phases 15-19 took " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
     for k in kern:
         k["launches"] = PATH_LAUNCHES.get(k["name"], 0)
+        if k["name"] in EXTRA_SHAPES:
+            k.setdefault("shapes", []).extend(EXTRA_SHAPES[k["name"]])
     return {"kernels": kern, "displaced_rps": best, "ladder": ladder,
             "wide": wide, "long": long, "bsearch": bsearch, "k64": k64,
             "compact": compact, "xtree": xtree, "hash": hashed,

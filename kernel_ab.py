@@ -3,9 +3,10 @@
 bsearch_probe, K15 bsearch_probe_shard, K10 hash_probe, K5 scan_probe64,
 K6 ladder_probe64, K9 xtree_probe, K2's histograms, K11 route_displaced,
 the routed owner probes K12 owner_probe[_wide] and K17
-canonical_owner_probe[_wide], K3 aufbau_vote and K8 hist_compact of one or
-more checkouts of this repository on one NVIDIA GPU, on the same inputs,
-at chip_smoke.py's shapes, with each call's device time split by launch.
+canonical_owner_probe[_wide], K3 aufbau_vote, K8 hist_compact, K14
+ascii_pack and K16 label_histogram of one or more checkouts of this
+repository on one NVIDIA GPU, on the same inputs, at chip_smoke.py's
+shapes, with each call's device time split by launch.
 
     python3 kernel_ab.py [TREE ...] [--out FILE] [--only RE]
 
@@ -75,7 +76,14 @@ the routed owner probes;
   tables, SearchPipeline's max_iters), with the batch's count of reads of
   two or more labels and of those that walk; K8 `hist_compact` at phase
   11's shape (K2 `histogram_packed` rows of the same ids, over_cap 8,192)
-  and on the first 1024 of those rows (over_cap 64).
+  and on the first 1024 of those rows (over_cap 64);
+- K14 `ascii_pack` at phase 18's shapes: the batch's 65,536 ASCII reads of
+  150 bp, forward (`ascii_pack main`) and in append_rc's mode (`ascii_pack
+  rc`), and chunk 0 of 8 of the 1 Mbp long read, (1 x 125,031) (`ascii_pack
+  long read`); K16 `label_histogram` on that chunk's 249,994 window ids
+  (`label_histogram main`, 4096 labels), on as many ids of one label
+  (`label_histogram one label`) and on seeded runs of 1-64 ids over 70,000
+  labels (`label_histogram wide`, the global-atomic path).
 
 Then each tree runs in a process of its own (its `utree_tpu_torch` first on
 sys.path, its kernels built into its own .cuda_build/): every call's mean
@@ -97,7 +105,22 @@ e.g. 'bsearch' (K7, K15 and the searchsorted yardstick), 'hash_probe'
 'scan_probe64|hash_probe' (K5 and K10), '^(scan|ladder)_probe ' (K1 and
 K4 narrow), 'histogram', 'route', 'xtree' (K9 and its d1 yardstick),
 'xtree_probe|bsearch_probe_shard' (K9 and K15), 'owner_probe' (K12, K17
-and their yardsticks) or 'aufbau_vote|hist_compact' (K3 and K8).
+and their yardsticks), 'aufbau_vote|hist_compact' (K3 and K8) or
+'ascii_pack|label_histogram' (K14 and K16).
+
+    python3 kernel_ab.py [TREE ...] --steps [--rounds N] [--out FILE]
+
+times phase 18's steps of parallel/sharded.py, all trees in this one
+process, in turn: the replicated step on a (2, 1) mesh and the
+prefix-sharded step on (2, 4) and (1, 8) meshes over 65,536 reads of 150
+bp (RC), and the long-read histogram on a (4, 2) mesh over phase 8's 16
+long reads, every device of a mesh on the one card.  The first tree's code
+builds chip_smoke's 20M-k-mer tier, its bsearch records and the sharded
+indexes once; each output must equal the first tree's.  Prints each step's
+median and best reads/s (bases/s for the long reads) of the rounds, host
+clock around work that ends in a synchronize, and, for two distinct trees,
+the pairs as --e2e does; writes the runs to FILE
+(.bench_cache/steps_ab.json by default).
 
     python3 kernel_ab.py [TREE ...] --e2e [--rounds N] [--out FILE]
 
@@ -321,6 +344,46 @@ def _owner_rows(kind: str, table: dict, lanes, written):
     return local[written]
 
 
+def _sharded_inputs(index, genome, reads, dev, bs=None) -> tuple[dict, str]:
+    """Phase 18's K14 and K16 inputs: the batch's ASCII reads (B x 150),
+    chunk 0 of 8 of the longest long read (`split_long_read`, as the
+    long-read step cuts it) and its window ids through the bsearch records
+    (`search_step`, RC); the same count of ids all of the chunk's most
+    frequent label; and as many ids in runs of 1-64 over 70,000 labels
+    (a tenth of them the 64-mer tier's miss, 2^31-1), seeded."""
+    import numpy as np
+    import torch
+
+    from utree_tpu_torch import lookup
+    from utree_tpu_torch.hash_index import bsearch_to_device
+    from utree_tpu_torch.parallel import sharded as S
+
+    bs = bs if bs is not None else bsearch_to_device(index, dev)
+    seq = cs.long_reads(genome)[-1]
+    chunks, clens = S.split_long_read(seq, 8, 32)
+    chunk, clen = (torch.from_numpy(a[:1].copy()).to(dev) for a in (chunks, clens))
+    ids = lookup.search_step(bs, chunk, clen, k=32, do_rc=True, probe_iters=index.probe_iters,
+                             bad_ix=0xFFFF)
+    L = index.num_labels
+    hits = ids[ids < L]
+    top = int(torch.bincount(hits.long()).argmax()) if hits.numel() else 0
+    rng = np.random.default_rng(17)
+    runs = rng.integers(1, 65, ids.numel())
+    labels = rng.integers(0, cs.WIDE_LABELS, runs.size)
+    labels[rng.random(runs.size) < 0.1] = 0x7FFFFFFF
+    wide = np.repeat(labels, runs)[:ids.numel()].astype(np.int32).reshape(ids.shape)
+    out = {"reads": torch.from_numpy(np.ascontiguousarray(reads)),
+           "lens": torch.full((reads.shape[0],), cs.READ_LEN, dtype=torch.int32),
+           "chunk": chunk.cpu(), "chunk_len": clen.cpu(), "ids": ids.cpu(),
+           "one_label": torch.full_like(ids, top).cpu(), "wide": torch.from_numpy(wide),
+           "labels": L}
+    note = (f"K14/K16: {tuple(reads.shape)} reads; long read of {len(seq):,} bp, chunk 0 "
+            f"{tuple(chunk.shape)} ({int(clen[0]):,} bases), {ids.numel():,} ids, "
+            f"{hits.numel():,} hits over {int(torch.unique(hits).numel())} labels "
+            f"(most: {top}); wide: {cs.WIDE_LABELS:,} labels, {runs.size:,} runs drawn")
+    return out, note
+
+
 def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) -> str:
     """Make the inputs of the groups in `want` with this checkout's code on
     `dev`; save to path.  Returns what it made, as a line."""
@@ -346,7 +409,7 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
 
     t = time.perf_counter()
     out, notes = {"groups": sorted(want)}, []
-    if want & {"tier", "routed", "vote"}:
+    if want & {"tier", "routed", "vote", "sharded"}:
         index, genome, rng = cs.make_tier(kmers, cs.LABELS)
         L = index.num_labels
         reads = cs.make_reads(genome, rng, cs.BATCH)
@@ -399,6 +462,10 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
             f"{k} {tuple(v.shape)} {v.numel() * 4:,} B" for k, v in hashed.items())
                      + f"); {t1_rows.numel():,} valid words, {t1_miss:,} missing t1 "
                      f"({t1_miss / t1_rows.numel():.4f})")
+    if "sharded" in want:
+        out["sharded"], note = _sharded_inputs(index, genome, reads, dev,
+                                               bs if "tier" in want else None)
+        notes.append(note)
     if "vote" in want:
         from utree_tpu_torch.classify_device import aufbau_tables_to_device, build_aufbau_tables
 
@@ -685,6 +752,14 @@ def _calls(inp: dict | None, dev) -> list[tuple[str, str, Callable]]:
         rows = get("vote", "rows")[:b].contiguous()
         return lambda: lookup.hist_compact(rows, over_cap)
 
+    def k14(reads, lens, rc=False):
+        r, n = get("sharded", reads), get("sharded", lens)
+        return lambda: lookup.ascii_pack(r, n, rc)
+
+    def k16(ids, labels):
+        x = get("sharded", ids)
+        return lambda: S.label_histogram(x, labels)
+
     out = [("tier", "bsearch_probe main", k7),
            ("tier", "bsearch_probe words by searchsorted", searchsorted),
            ("tier", "bsearch_probe_shard (2, 4) slice 0", lambda: k15(4)),
@@ -723,6 +798,13 @@ def _calls(inp: dict | None, dev) -> list[tuple[str, str, Callable]]:
     out += [("vote", "aufbau_vote main", k3),
             ("vote", "hist_compact main", lambda: k8(cs.BATCH, cs.BATCH // 8)),
             ("vote", "hist_compact B=1024", lambda: k8(1024, 64))]
+    out += [("sharded", "ascii_pack main", lambda: k14("reads", "lens")),
+            ("sharded", "ascii_pack rc", lambda: k14("reads", "lens", True)),
+            ("sharded", "ascii_pack long read", lambda: k14("chunk", "chunk_len")),
+            ("sharded", "label_histogram main", lambda: k16("ids", inp["sharded"]["labels"])),
+            ("sharded", "label_histogram one label",
+             lambda: k16("one_label", inp["sharded"]["labels"])),
+            ("sharded", "label_histogram wide", lambda: k16("wide", cs.WIDE_LABELS))]
     return out
 
 
@@ -792,7 +874,8 @@ def _worker(tree: pathlib.Path, inputs: pathlib.Path, dev, only: str) -> dict:
                      "device_ms": q0.elapsed_time(q1) / QUEUED, "sha1": digest,
                      "split": split}
     usage = {k: v for k, v in ptxas_usage(report)
-             if re.search(r"probe|route|aufbau|compact|pairs|scatter|k\d+_", k)}
+             if re.search(r"probe|route|aufbau|compact|pairs|scatter|ascii_pack|label_hist|k\d+_",
+                          k)}
     return {"tree": str(tree), "build_s": secs, "ptxas": usage, "calls": res}
 
 
@@ -923,7 +1006,7 @@ def e2e_run(dev, trees: list[pathlib.Path], rounds: int, kmers: int, nreads: int
     return res
 
 
-def e2e_compare(res: list[dict]) -> list[str]:
+def e2e_compare(res: list[dict], passes=E2E_PASSES, key: str = "reads_per_s") -> list[str]:
     """With two distinct trees (the first A, the other B, e.g. A B B A):
     each pass's pooled median and quartiles of either tree, and in how many
     pairs B was the faster, pairing A's and B's runs of a round in order."""
@@ -932,8 +1015,8 @@ def e2e_compare(res: list[dict]) -> list[str]:
         return []
     at = [[i for i, r in enumerate(res) if r["tree"] == t] for t in trees]
     lines = []
-    for p in E2E_PASSES:
-        rps = [r["passes"][p]["reads_per_s"] for r in res]
+    for p in passes:
+        rps = [r["passes"][p][key] for r in res]
         pooled = [[x for i in ix for x in rps[i]] for ix in at]
         pairs = [(rps[a][k], rps[b][k]) for a, b in zip(*at) for k in range(len(rps[a]))]
         wins = sum(b > a for a, b in pairs)
@@ -947,17 +1030,122 @@ def e2e_compare(res: list[dict]) -> list[str]:
     return lines
 
 
-def e2e_main(trees: list[str], rounds: int, out: str) -> int:
-    """--e2e on the card: run, print and write the passes' rates."""
+def card_line() -> str | None:
+    """The card's name and power limit as nvidia-smi prints them, printed;
+    None, with a message, where there is no NVIDIA GPU."""
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_ab: needs an NVIDIA GPU", file=sys.stderr)
-        return 1
+        return None
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
     print(card, flush=True)
+    return card
+
+
+def steps_run(dev, trees: list[pathlib.Path], rounds: int, kmers: int,
+              nreads: int) -> list[dict]:
+    """--steps: phase 18's steps of every tree, `rounds` times in turn; one
+    result a tree.  The first tree's code builds the tier, its bsearch
+    records, the reads, phase 8's long reads and the 4- and 8-way
+    ShardedIndex once; each tree builds its own steps on those, every
+    device of each mesh on `dev`, and each output must equal the first
+    tree's."""
+    import numpy as np
+    import torch
+
+    mods = {tree: load_tree(tree) for tree in dict.fromkeys(trees)}
+    with using(mods[trees[0]]):
+        from utree_tpu_torch.hash_index import bsearch_to_device
+        from utree_tpu_torch.parallel import sharded as S
+
+        index, genome, rng = cs.make_tier(kmers, cs.LABELS)
+        reads = torch.from_numpy(np.ascontiguousarray(cs.make_reads(genome, rng, nreads))).to(dev)
+        lens = torch.full((nreads,), cs.READ_LEN, dtype=torch.int32, device=dev)
+        bs = bsearch_to_device(index, dev)
+        longs = [tuple(torch.from_numpy(a) for a in S.split_long_read(seq, 8, 32))
+                 for seq in cs.long_reads(genome)]
+        bases = sum(int(c[1].sum()) for c in longs)
+        sharded = {s: S.ShardedIndex.from_index(index, s) for s in (4, 8)}
+
+    def steps():
+        """The tree in place's steps: name -> (call, items a call)."""
+        from utree_tpu_torch.parallel import sharded as S
+        from utree_tpu_torch.parallel.mesh import make_mesh
+
+        m21, m42 = make_mesh(2, 1, [dev] * 2), make_mesh(4, 2, [dev] * 8)
+        r21, t21 = S.replicated_search_step(m21, index, do_rc=True), m21.replicate(bs)
+        h42 = S.long_read_histogram(m42, index, index.num_labels, do_rc=True)
+        t42 = m42.replicate(bs)
+        out = {"replicated (2, 1)": (lambda: r21(t21, reads, lens), nreads)}
+        for d, t in ((2, 4), (1, 8)):
+            mesh = make_mesh(d, t, [dev] * (d * t))
+            step = S.sharded_search_step(mesh, sharded[t], do_rc=True)
+            tabs = sharded[t].to_devices(mesh)
+            out[f"prefix-sharded ({d}, {t})"] = (
+                lambda step=step, tabs=tabs: step(tabs, reads, lens), nreads)
+        out["long-read histogram (4, 2)"] = (
+            lambda: torch.stack([h42(t42, c, n) for c, n in longs]), bases)
+        return out
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    calls = {}
+    for tree in mods:
+        with using(mods[tree]):
+            calls[tree] = steps()
+    names = list(calls[trees[0]])
+    res = [{"tree": str(tree), "passes": {p: {"per_s": []} for p in names}} for tree in trees]
+    want = {}
+    for _ in range(rounds):
+        for i, tree in enumerate(trees):
+            with using(mods[tree]):
+                for p in names:
+                    fn, items = calls[tree][p]
+                    sync()
+                    t0 = time.perf_counter()
+                    got = fn()
+                    sync()
+                    dt = time.perf_counter() - t0
+                    if not torch.equal(want.setdefault(p, got), got):
+                        raise SystemExit(f"{tree} {p}: output differs from {trees[0]}'s")
+                    res[i]["passes"][p]["per_s"].append(items / dt)
+    for r in res:
+        for p in r["passes"].values():
+            p["median"], p["best"] = statistics.median(p["per_s"]), max(p["per_s"])
+    return res
+
+
+def steps_main(trees: list[str], rounds: int, out: str) -> int:
+    """--steps on the card: run, print and write the steps' rates."""
+    import torch
+
+    card = card_line()
+    if card is None:
+        return 1
+    res = steps_run(torch.device("cuda"), [pathlib.Path(t).resolve() for t in trees], rounds,
+                    20_000_000, cs.BATCH)
+    names = list(res[0]["passes"])
+    for p in names:
+        print(f"{p}: median " + ", ".join(f"{r['passes'][p]['median']:,.0f}" for r in res)
+              + ", best " + ", ".join(f"{r['passes'][p]['best']:,.0f}" for r in res)
+              + (" bases/s" if p.startswith("long") else " reads/s"), flush=True)
+    for line in e2e_compare(res, names, "per_s"):
+        print(line, flush=True)
+    pathlib.Path(out).parent.mkdir(exist_ok=True)
+    pathlib.Path(out).write_text(json.dumps({"card": card, "runs": res}, indent=1))
+    print(f"outputs equal across {len(res)} trees x {rounds} rounds; on {card}", flush=True)
+    return 0
+
+
+def e2e_main(trees: list[str], rounds: int, out: str) -> int:
+    """--e2e on the card: run, print and write the passes' rates."""
+    import torch
+
+    card = card_line()
+    if card is None:
+        return 1
     res = e2e_run(torch.device("cuda"), [pathlib.Path(t).resolve() for t in trees], rounds,
                   20_000_000, 262_144, ROOT / ".bench_cache")
     for r in res:
@@ -985,11 +1173,15 @@ def main() -> int:
     ap.add_argument("--out", help="default .bench_cache/kernel_ab.json (--e2e: e2e_ab.json)")
     ap.add_argument("--only", default="", help="time only the calls this matches")
     ap.add_argument("--e2e", action="store_true", help="time the K3 and K8 search passes")
-    ap.add_argument("--rounds", type=int, default=8, help="--e2e: rounds of passes")
+    ap.add_argument("--steps", action="store_true", help="time phase 18's sharded steps")
+    ap.add_argument("--rounds", type=int, default=8, help="--e2e, --steps: rounds of passes")
     ap.add_argument("--worker", nargs=2, help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.e2e:
         return e2e_main(a.trees, a.rounds, a.out or str(ROOT / ".bench_cache" / "e2e_ab.json"))
+    if a.steps:
+        return steps_main(a.trees, a.rounds,
+                          a.out or str(ROOT / ".bench_cache" / "steps_ab.json"))
     a.out = a.out or str(ROOT / ".bench_cache" / "kernel_ab.json")
     if a.worker:
         print(json.dumps(_worker(pathlib.Path(a.worker[0]).resolve(),
@@ -997,13 +1189,9 @@ def main() -> int:
         return 0
     import torch
 
-    if not torch.cuda.is_available():
-        print("kernel_ab: needs an NVIDIA GPU", file=sys.stderr)
+    card = card_line()
+    if card is None:
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip()
-    print(card, flush=True)
     cache = ROOT / ".bench_cache"
     cache.mkdir(exist_ok=True)
     inputs = cache / "kernel_ab_inputs.pt"

@@ -38,6 +38,12 @@ CALLS = {name: group for group, name, _ in kernel_ab._calls(None, None)}
     ("aufbau_vote main", "vote"),
     ("hist_compact main", "vote"),
     ("hist_compact B=1024", "vote"),
+    ("ascii_pack main", "sharded"),
+    ("ascii_pack rc", "sharded"),
+    ("ascii_pack long read", "sharded"),
+    ("label_histogram main", "sharded"),
+    ("label_histogram one label", "sharded"),
+    ("label_histogram wide", "sharded"),
 ])
 def test_each_call_beside_its_input_group(name, group):
     assert CALLS[name] == group
@@ -63,6 +69,8 @@ def test_call_names_are_unique():
     ("owner_probe|route_displaced", {"routed", "tables", "tier"}),
     ("aufbau_vote|hist_compact", {"vote"}),
     ("hist_compact", {"vote"}),
+    ("ascii_pack|label_histogram", {"sharded"}),
+    ("label_histogram", {"sharded"}),
 ])
 def test_groups_of_a_selection(only, want):
     assert kernel_ab.groups(only) == want
@@ -320,3 +328,98 @@ def test_e2e_compare_pairs_each_rounds_runs_in_order():
     assert "a median 16 (quartiles 11-21); b median 16 (quartiles 11-24)" in lines[0]
     assert "faster in 2 of 4 pairs, median -6.1%" in lines[0]
     assert kernel_ab.e2e_compare(res[:2] + [run("c", [1.0, 1.0])]) == []
+
+
+@pytest.fixture(scope="module")
+def sharded_inputs(tmp_path_factory):
+    """The 'sharded' group at 60,000 k-mers, 256 reads and long reads of
+    2-20 kbp, on the CPU."""
+    saved = cs.BATCH, cs.LONG_BP
+    cs.BATCH, cs.LONG_BP = 256, (2_000, 20_000)
+    try:
+        path = tmp_path_factory.mktemp("ab") / "inputs.pt"
+        note = kernel_ab._inputs(path, torch.device("cpu"), {"sharded"}, kmers=60_000)
+        inp = torch.load(path)
+        calls = {name: make() for group, name, make in
+                 kernel_ab._calls(inp, torch.device("cpu")) if group == "sharded"}
+        index, genome, _ = cs.make_tier(60_000, cs.LABELS)
+        longest = cs.long_reads(genome)[-1]
+    finally:
+        cs.BATCH, cs.LONG_BP = saved
+    return inp, note, calls, index, longest
+
+
+def test_long_read_input_is_split_long_reads_chunk(sharded_inputs):
+    """K14's long-read call packs chunk 0 of 8 of the longest long read as
+    the long-read step cuts it, and K16's main call counts that chunk's
+    window ids through the bsearch records (RC), as phase 18 does."""
+    from utree_tpu_torch import lookup as lk
+    from utree_tpu_torch.hash_index import bsearch_to_device
+    from utree_tpu_torch.parallel import sharded as S
+
+    inp, note, calls, index, longest = sharded_inputs
+    x = inp["sharded"]
+    chunks, clens = S.split_long_read(longest, 8, 32)
+    assert torch.equal(x["chunk"], torch.from_numpy(chunks[:1]))
+    assert torch.equal(x["chunk_len"], torch.from_numpy(clens[:1]))
+    assert f"long read of {len(longest):,} bp" in note
+    packed, vbits = calls["ascii_pack long read"]()
+    want = lk.ascii_pack_plain(x["chunk"], x["chunk_len"])
+    assert torch.equal(packed, want[0]) and torch.equal(vbits, want[1])
+    ids = lk.search_step(bsearch_to_device(index, "cpu"), x["chunk"], x["chunk_len"], k=32,
+                         do_rc=True, probe_iters=index.probe_iters, bad_ix=0xFFFF)
+    assert torch.equal(x["ids"], ids) and ids.shape == (1, 2 * (chunks.shape[1] - 31))
+    L = x["labels"]
+    assert torch.equal(calls["label_histogram main"](), S.label_histogram_plain(ids, L))
+    assert int((ids < L).sum()) > 0
+
+
+def test_label_histogram_inputs_one_label_and_wide(sharded_inputs):
+    """The one-label ids are the chunk's most frequent label, as many as the
+    chunk's ids; the wide ids lie in runs over 70,000 labels and the miss."""
+    from utree_tpu_torch.parallel import sharded as S
+
+    inp, _, calls, _, _ = sharded_inputs
+    x = inp["sharded"]
+    ids, L = x["ids"], x["labels"]
+    top = int(torch.bincount(ids[ids < L].long()).argmax())
+    assert torch.equal(x["one_label"], torch.full_like(ids, top))
+    w = x["wide"]
+    assert w.shape == ids.shape
+    assert bool(((w >= 0) & (w < cs.WIDE_LABELS) | (w == 0x7FFFFFFF)).all())
+    assert int((w[:, 1:] != w[:, :-1]).sum()) < w.numel() // 8  # runs, not single ids
+    assert torch.equal(calls["label_histogram wide"](),
+                       S.label_histogram_plain(w, cs.WIDE_LABELS))
+    reads = calls["ascii_pack main"]()
+    assert reads[0].shape == (256, 38) and reads[1].shape == (256, 19)
+
+
+def test_steps_run_each_trees_steps_in_turn(tmp_path):
+    """--steps on two runs of this checkout, two rounds, at 60,000 k-mers,
+    256 reads and long reads of 2-20 kbp: every step of phase 18 runs on
+    each tree's own modules with equal outputs, and the modules the test
+    started with are back in place after."""
+    import sys
+
+    import utree_tpu_torch.parallel.sharded  # noqa: F401  (the modules the run must put back)
+
+    root = pathlib.Path(kernel_ab.__file__).resolve().parent
+    before = kernel_ab._modules()
+    saved = cs.LONG_BP
+    cs.LONG_BP = (2_000, 20_000)
+    try:
+        res = kernel_ab.steps_run(torch.device("cpu"), [root, root], 2, 60_000, 256)
+    finally:
+        cs.LONG_BP = saved
+        for k in kernel_ab._modules():
+            del sys.modules[k]
+        sys.modules.update(before)
+    assert [r["tree"] for r in res] == [str(root)] * 2
+    for r in res:
+        assert list(r["passes"]) == ["replicated (2, 1)", "prefix-sharded (2, 4)",
+                                     "prefix-sharded (1, 8)", "long-read histogram (4, 2)"]
+        for p in r["passes"].values():
+            assert len(p["per_s"]) == 2 and p["best"] >= p["median"] > 0
+    lines = kernel_ab.e2e_compare(res + [{"tree": "b", "passes": res[0]["passes"]}],
+                                  list(res[0]["passes"]), "per_s")
+    assert len(lines) == 4 and lines[0].startswith("replicated (2, 1): ")

@@ -1336,17 +1336,52 @@ def k32(tier, dev):
             "t1": hash_to_device(build_hash_index(index), dev)}
 
 
-@pytest.mark.parametrize("width", [120, 150, 200])
-def test_k14_ascii_pack_and_search_step_match_plain(tier, k32, dev, width):
-    """K14 in both modes against its plain version; search_step over each
-    k=32 table (K14, the probe, the trim) against the CPU twin."""
-    reads, lens = _ascii_k32(tier["genome"], 2000, width, dev, width)
+def _k14_equal(reads, lens):
+    """K14 in both modes, one launch each, equal to its plain version."""
     for rc in (False, True):
         n0 = kernels.launches["ascii_pack"]
         got = tl.ascii_pack(reads, lens, rc)
         assert kernels.launches["ascii_pack"] == n0 + 1
-        want = tl.ascii_pack_plain(reads, lens, rc)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        want = tl.ascii_pack_plain(reads.cpu(), lens.cpu(), rc)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), (tuple(reads.shape), rc)
+
+
+def _k14_odd_rows(n, width, seed, dev):
+    """(n, width) rows of A/C/G/T in both cases, N, n, and the bytes next to
+    the case fold ('!', 0x01, 0xC1, 0xE1, 0xE7, 0x7F, 0xFF, 0x00), lengths
+    from -2 to width + 3 with every length from 0 to width."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGTacgtACGTNn!\x01\xc1\xe1\xe7\x7f\xff\x00", np.uint8)
+    reads = alphabet[rng.integers(0, len(alphabet), (n, width))]
+    lens = rng.integers(-2, width + 4, n).astype(np.int32)
+    lens[:width + 1] = np.arange(width + 1)
+    return torch.from_numpy(reads).to(dev), torch.from_numpy(lens).to(dev)
+
+
+@pytest.mark.parametrize("width", [120, 150, 200])
+def test_k14_ascii_pack_and_search_step_match_plain(tier, k32, dev, width):
+    """K14 in both modes against its plain version: the genome's reads, rows
+    one byte narrower (no multiple of 8 or 16) of every length and of the
+    bytes next to the case fold, the same rows from an address that is not
+    on a 16 B boundary (reads[1:]), and long rows (one chunk of a 1 Mbp
+    read, 1 x 125,031, and 8 x 20,031) in span tiles; then search_step over
+    each k=32 table (K14, the probe, the trim) against the CPU twin."""
+    reads, lens = _ascii_k32(tier["genome"], 2000, width, dev, width)
+    _k14_equal(reads, lens)
+    odd, odd_lens = _k14_odd_rows(3 * width, width - 1, width, dev)
+    _k14_equal(odd, odd_lens)
+    assert odd[1:].data_ptr() % 16 != 0
+    _k14_equal(odd[1:], odd_lens[1:])
+    _k14_equal(reads[1:], lens[1:])
+    if width == 150:
+        g = tier["genome"]
+        for n, w in ((1, 125_031), (8, 20_031)):
+            rows = np.resize(g, n * w).reshape(n, w).copy()
+            rows[:, ::97] |= 0x20
+            rows[:, 5::101] = ord("N")
+            long_lens = np.full(n, w, np.int32)
+            long_lens[1:] = np.random.default_rng(w).integers(w // 2, w + 3, n - 1)
+            _k14_equal(torch.from_numpy(rows).to(dev), torch.from_numpy(long_lens).to(dev))
     index = tier["index"]
     for kind, table in k32.items():
         ctable = {k: v.cpu() for k, v in table.items()}
@@ -1409,18 +1444,61 @@ def test_k15_bsearch_probe_shard_matches_plain(tier, dev, S):
 @pytest.mark.parametrize("labels", [1, 5, 4096, 57344, 57345, 70000])
 def test_k16_label_histogram_matches_plain(dev, labels):
     """Shared-memory counts up to 57,344 labels, global atomics above;
-    negative ids as JAX's `.at[]` wraps them."""
+    negative ids as JAX's `.at[]` wraps them; no id and one id; every id
+    one label; runs of 1-64 equal ids, also from an address off a 16 B
+    boundary; calls back to back on one stream and on a second stream."""
     from utree_tpu_torch.parallel import sharded as TS
 
     rng = np.random.default_rng(labels)
-    for shape in ((1, 7), (3, 5000), (8, 250_000)):
-        ids = rng.integers(-labels - 3, labels + 3, shape).astype(np.int32)
-        ids[0, 0] = -1
+    batches = [rng.integers(-labels - 3, labels + 3, shape).astype(np.int32)
+               for shape in ((1, 7), (3, 5000), (8, 250_000))]
+    batches[0][0, 0] = -1
+    batches += [np.zeros((1, 0), np.int32), np.full((1, 1), labels - 1, np.int32),
+                np.full((2, 125_000), labels // 2, np.int32)]
+    runs = np.repeat(rng.integers(-2, labels + 2, 8000), rng.integers(1, 65, 8000))
+    batches += [runs.astype(np.int32).reshape(1, -1)]
+    outs = []
+    for ids in batches:
         t = torch.from_numpy(ids).to(dev)
         n0 = kernels.launches["label_histogram"]
         got = TS.label_histogram(t, labels)
         assert kernels.launches["label_histogram"] == n0 + 1
-        assert torch.equal(got.cpu(), TS.label_histogram_plain(t.cpu(), labels))
+        outs.append((got, TS.label_histogram_plain(t.cpu(), labels)))
+    flat = torch.from_numpy(runs.astype(np.int32)).to(dev)
+    assert flat[1:].data_ptr() % 16 != 0
+    outs.append((TS.label_histogram(flat[1:].view(1, -1), labels),
+                 TS.label_histogram_plain(flat[1:].cpu().view(1, -1), labels)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for ids in batches[1:3]:
+            t = torch.from_numpy(ids).to(dev)
+            outs.append((TS.label_histogram(t, labels), TS.label_histogram_plain(t.cpu(), labels)))
+    torch.cuda.synchronize()
+    for got, want in outs:
+        assert torch.equal(got.cpu(), want)
+
+
+def test_k16_replays_in_a_cuda_graph(dev):
+    """K16 keeps nothing between calls (its grid barrier is the cooperative
+    launch's own), so a call captured in a CUDA graph replays right, on both
+    paths, and a call after the replays still matches the plain version."""
+    from utree_tpu_torch.parallel import sharded as TS
+
+    ids = torch.from_numpy(np.random.default_rng(9).integers(0, 100, (2, 3000)).astype(np.int32))
+    t = ids.to(dev)
+    for labels in (100, 70_000):
+        TS.label_histogram(t, labels)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = TS.label_histogram(t, labels)
+        for _ in range(2):
+            graph.replay()
+        torch.cuda.synchronize()
+        want = TS.label_histogram_plain(ids, labels)
+        assert torch.equal(out.cpu(), want)
+        assert torch.equal(TS.label_histogram(t, labels).cpu(), want)
 
 
 def test_sharded_steps_on_one_card_equal_cpu(tier, k32, dev):

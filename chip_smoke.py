@@ -134,6 +134,7 @@ import contextlib
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -2260,10 +2261,18 @@ def main() -> int:
     PTXAS.extend(ptxas_usage(ptxas))
     log(f"build: {so.name} in {secs:.1f} s (0.0 = already built)")
     for name, usage in PTXAS:
-        # K2's streamed branch and K11's kernels by name, the rest by usage
-        # (and phases 9, 10 and 18 print K5, K6, K7 and K15's by name)
-        named = "histogram_rows" in name or "route_displaced_cu" in name
+        # K2's streamed branch, its register instances of 8 and 9 ids a lane
+        # (the main path's 242 ids, PACKSIZE=64's 258) and K11's kernels by
+        # name, the rest by usage (and phases 9, 10 and 18 print K5, K6, K7
+        # and K15's by name)
+        named = re.search(r"histogram_rows|histogram_kernelILi[89]E|route_displaced_cu", name)
         log(f"  ptxas: {name if named else '...'}: {usage}")
+    regs = [(int(re.search(r"Used (\d+) registers", u).group(1)),
+             sum(int(x) for x in re.findall(r"(\d+) bytes spill", u)))
+            for name, u in PTXAS if "histogram_kernelILi" in name]  # not K16's ILb
+    log(f"  ptxas: K2's {len(regs)} register-branch instances: "
+        f"{min(r for r, _ in regs)}-{max(r for r, _ in regs)} registers, "
+        f"{sum(s for _, s in regs)} bytes of spill stores and loads in all")
 
     res = run(torch.device("cuda"), a.kmers, a.reads, ROOT / ".bench_cache")
     if sorted(k["name"] for k in res["kernels"]) != sorted(KERNELS):

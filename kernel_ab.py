@@ -58,6 +58,11 @@ the routed owner probes;
   cuts them; calls `histogram_packed long read 0` to `15`, their shapes
   in the inputs line), and K2 `histogram` and `histogram_packed` at phase 3's
   shape (65,536 reads of 150 bp, 242 ids a read: the register branch);
+  K2 `histogram_unpacked` at phase 9's shape (`histogram_unpacked k64`: K6's
+  ids on the 64-mer ladder, 65,536 x 258, 70,000 labels) and at phase 7's
+  (`histogram_unpacked wide`: the 2M wide tier's ladder ids, 65,536 x 242,
+  70,000 labels), the inputs line counting each batch's reads by their
+  distinct labels (a read of u labels takes min(u, cap) + 1 passes);
 - K11 `route_displaced` at phase 15's shard shape (16,384 reads of 192
   positions, 161 windows, 4 owners, capacity 857,344) at the displaced
   table's seed count and at the ladder's b1 (phase 19);
@@ -96,14 +101,16 @@ queued behind a device sleep (no host time), and, from torch.profiler,
 the mean device time of each kernel and memset that the call launches
 (so a tree whose entry point launches a split of its kernel, kept under
 `.ab/` and never committed, reports each part), and ptxas's registers,
-shared memory and spills of the probes.  The outputs of every tree must
-be byte-identical.  Prints one JSON line per tree run and writes them all
-to FILE (.bench_cache/kernel_ab.json by default).  --only times the calls
-whose names match a regular expression, and makes only their inputs,
-e.g. 'bsearch' (K7, K15 and the searchsorted yardstick), 'hash_probe'
-(K10 and its t1 yardstick), 'probe64' (K5, K6 and their yardsticks),
-'scan_probe64|hash_probe' (K5 and K10), '^(scan|ladder)_probe ' (K1 and
-K4 narrow), 'histogram', 'route', 'xtree' (K9 and its d1 yardstick),
+shared memory and spills of the probes and of K2's instances.  The
+outputs of every tree must be byte-identical.  Prints one JSON line per
+tree run and writes them all to FILE (.bench_cache/kernel_ab.json by
+default).  --only times the calls whose names match a regular
+expression, and makes only their inputs, e.g. 'bsearch' (K7, K15 and the
+searchsorted yardstick), 'hash_probe' (K10 and its t1 yardstick),
+'probe64' (K5, K6 and their yardsticks), 'scan_probe64|hash_probe' (K5
+and K10), '^(scan|ladder)_probe ' (K1 and K4 narrow), 'histogram' (K2
+and K16), '^histogram' (K2 alone), 'histogram_unpacked' (its PACKSIZE=64
+and wide calls), 'route', 'xtree' (K9 and its d1 yardstick),
 'xtree_probe|bsearch_probe_shard' (K9 and K15), 'owner_probe' (K12, K17
 and their yardsticks), 'aufbau_vote|hist_compact' (K3 and K8) or
 'ascii_pack|label_histogram' (K14 and K16).
@@ -526,10 +533,15 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
                   **{name: _first_rows(tab, *wbatch) for name, tab in (
                       ("scan_probe_wide", wtables["displaced"]),
                       ("ladder_probe_wide", wtables["ladder"]))}}
+        # K2 histogram_unpacked at phase 7's shape: the wide ladder's ids
+        wide_ids = lookup.window_ids(wtables["ladder"], *wbatch, do_rc=True,
+                                     bad_ix=0x7FFFFFFF, num_labels=windex.num_labels,
+                                     true_len=TRUE_LEN)
         out.update(wide_labels=windex.num_labels, wide_batch=[x.cpu() for x in wbatch],
-                   wide={k: cpu(v) for k, v in wtables.items()})
+                   wide={k: cpu(v) for k, v in wtables.items()}, wide_ids=wide_ids.cpu())
         notes.append("wide " + ", ".join(f"{k} {tuple(v.shape)}" for tab in wtables.values()
-                                         for k, v in tab.items()))
+                                         for k, v in tab.items())
+                     + f"; K2 wide: {_labels_a_read(wide_ids, windex.num_labels)}")
     if "tables" in want or "wide" in want:
         sectors = {name: _sectors(*f) for name, f in firsts.items()}
         out.update(sectors=sectors, first_rows={name: f[0].cpu() for name, f in firsts.items()})
@@ -581,14 +593,16 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
         reach = {"lanes": rt.shape[0] * (rt.shape[1] - 63), "valid": int(rows64.numel()),
                  **cs.ladder64_reach(t64["ladder64"], rt, rl)}
         seed_bytes = t64["displaced64"]["d64_s"].numel() * 4
+        # K2 histogram_unpacked at phase 9's shape: K6's ids
+        ids64 = lookup.window_ids64(t64["ladder64"], rt, rl, do_rc=True, bad_ix=0x7FFFFFFF)
         out.update(k64={"labels": index64.num_labels, "reads": rt.cpu(), "lens": rl.cpu(),
                         "rows": rows64.cpu(), "d64_rows": d64_rows.cpu(), "reach": reach,
-                        **{k: cpu(v) for k, v in t64.items()}})
+                        "ids": ids64.cpu(), **{k: cpu(v) for k, v in t64.items()}})
         notes.append(f"K5/K6: {index64.num_records:,} 64-mers, " + ", ".join(
             f"{k} {tuple(v.shape)}" for tab in t64.values() for k, v in tab.items())
                      + f"; windows {json.dumps(reach)}; K5's seed table d64_s "
                      f"{seed_bytes:,} B, {'within' if seed_bytes <= L2_BYTES else 'above'} "
-                     "the card's 50 MB L2")
+                     f"the card's 50 MB L2; K2 k64: {_labels_a_read(ids64, index64.num_labels)}")
     if "xtree" in want:
         from utree_tpu_torch.xtree.align import XtreeAligner
         from utree_tpu_torch.xtree.build import build_xtree_db
@@ -617,6 +631,21 @@ def _inputs(path: pathlib.Path, dev, want: set[str], kmers: int = 20_000_000) ->
     note = "inputs: " + "; ".join(notes) + f" ({time.perf_counter() - t:.1f} s)"
     print(note, flush=True)
     return note
+
+
+def _labels_a_read(ids, num_labels: int) -> str:
+    """K2's input as the inputs line gives it: the ids' shape and the
+    reads by their count of distinct labels at HIST_CAP (cap + 1: more),
+    by the plain version; a read of u labels takes min(u, cap) + 1 of the
+    register branch's passes."""
+    import torch
+
+    from utree_tpu_torch import lookup as lk
+
+    nuniq = lk.compact_histogram(ids, num_labels, HIST_CAP)[2]
+    by = torch.bincount(nuniq.long(), minlength=HIST_CAP + 2).tolist()
+    return (f"ids {tuple(ids.shape)}, {num_labels:,} labels, reads by distinct labels "
+            f"{json.dumps(dict(enumerate(by)))}")
 
 
 def _digest(outs) -> str:
@@ -690,9 +719,9 @@ def _calls(inp: dict | None, dev) -> list[tuple[str, str, Callable]]:
         first = table["d1" if "d1" in table else "c1"]
         return lambda: torch.index_select(first, 0, r)
 
-    def hist(fn, *ids):
+    def hist(fn, ids, labels):
         x = get(*ids)
-        return lambda: fn(x, inp["num_labels"], HIST_CAP)
+        return lambda: fn(x, labels, HIST_CAP)
 
     def route(tag):
         packed, vbits, lens = get("route")
@@ -776,11 +805,17 @@ def _calls(inp: dict | None, dev) -> list[tuple[str, str, Callable]]:
                      probe(tab, batch, labels, bad)),
                     (group, f"{kind}{sfx} rows by index_select",
                      lambda name=kind + sfx, tab=tab: rows(name, tab))]
-    out += [("tables", "histogram main", lambda: hist(lookup.histogram, "main")),
-            ("tables", "histogram_packed main", lambda: hist(lookup.histogram_packed, "main"))]
+    out += [("tables", "histogram main",
+             lambda: hist(lookup.histogram, ("main",), inp["num_labels"])),
+            ("tables", "histogram_packed main",
+             lambda: hist(lookup.histogram_packed, ("main",), inp["num_labels"]))]
     out += [("tables", f"histogram_packed long read {i}",
-             lambda i=i: hist(lookup.histogram_packed, "long", i))
+             lambda i=i: hist(lookup.histogram_packed, ("long", i), inp["num_labels"]))
             for i in range(cs.LONG_READS)]
+    out += [("k64", "histogram_unpacked k64",
+             lambda: hist(lookup.histogram_unpacked, ("k64", "ids"), inp["k64"]["labels"])),
+            ("wide", "histogram_unpacked wide",
+             lambda: hist(lookup.histogram_unpacked, ("wide_ids",), inp["wide_labels"]))]
     out += [("tables", f"route_displaced {tag}", lambda tag=tag: route(tag))
             for tag in ("nseed", "b1")]
     out += [("k64", "ladder_probe64 main", lambda: probe64("ladder64")),
@@ -874,7 +909,7 @@ def _worker(tree: pathlib.Path, inputs: pathlib.Path, dev, only: str) -> dict:
                      "device_ms": q0.elapsed_time(q1) / QUEUED, "sha1": digest,
                      "split": split}
     usage = {k: v for k, v in ptxas_usage(report)
-             if re.search(r"probe|route|aufbau|compact|pairs|scatter|ascii_pack|label_hist|k\d+_",
+             if re.search(r"probe|route|aufbau|compact|pairs|scatter|ascii_pack|histogram|k\d+_",
                           k)}
     return {"tree": str(tree), "build_s": secs, "ptxas": usage, "calls": res}
 

@@ -44,6 +44,10 @@ CALLS = {name: group for group, name, _ in kernel_ab._calls(None, None)}
     ("label_histogram main", "sharded"),
     ("label_histogram one label", "sharded"),
     ("label_histogram wide", "sharded"),
+    ("histogram main", "tables"),
+    ("histogram_packed main", "tables"),
+    ("histogram_unpacked k64", "k64"),
+    ("histogram_unpacked wide", "wide"),
 ])
 def test_each_call_beside_its_input_group(name, group):
     assert CALLS[name] == group
@@ -71,6 +75,9 @@ def test_call_names_are_unique():
     ("hist_compact", {"vote"}),
     ("ascii_pack|label_histogram", {"sharded"}),
     ("label_histogram", {"sharded"}),
+    ("histogram", {"tables", "tier", "k64", "wide", "sharded"}),
+    ("^histogram", {"tables", "tier", "k64", "wide"}),
+    ("histogram_unpacked", {"k64", "wide"}),
 ])
 def test_groups_of_a_selection(only, want):
     assert kernel_ab.groups(only) == want
@@ -141,6 +148,47 @@ def test_yardstick_rows_are_the_probed_rows(small_inputs):
     w = ids64.shape[1] // 2
     hit = ((ids64[:, :w] != 0x7FFFFFFF) | (ids64[:, w:] != 0x7FFFFFFF))[valid64]
     assert bool((in_row == hit).all()) and int(hit.sum()) > 100
+
+
+def test_histogram_unpacked_k64_reads_k6s_ids(small_inputs):
+    """The PACKSIZE=64 call histograms the 64-mer ladder's ids of the
+    batch (phase 9's K6 output, 2 x 129 a read) over the tier's labels;
+    the inputs line counts the reads by their distinct labels."""
+    from utree_tpu_torch import lookup as lk
+
+    inp, note = small_inputs
+    k64 = inp["k64"]
+    ids = lk.window_ids64_plain(k64["ladder64"], k64["reads"], k64["lens"], do_rc=True,
+                                bad_ix=0x7FFFFFFF)
+    assert torch.equal(k64["ids"], ids) and ids.shape == (256, 258)
+    call = {name: make() for group, name, make in kernel_ab._calls(inp, torch.device("cpu"))
+            if name == "histogram_unpacked k64"}["histogram_unpacked k64"]
+    assert torch.equal(call(), lk.unpacked_hist(ids, k64["labels"], kernel_ab.HIST_CAP))
+    assert "K2 k64: ids (256, 258), 70,000 labels, reads by distinct labels" in note
+
+
+def test_histogram_unpacked_wide_reads_the_wide_ladders_ids(tmp_path):
+    """The wide call histograms the wide tier's ladder ids of its batch at
+    true_len 152 (phase 7's 2 x 121 a read) over 70,000 labels."""
+    from utree_tpu_torch import lookup as lk
+
+    saved = cs.BATCH, cs.WIDE_DISPLACED_KMERS
+    cs.BATCH, cs.WIDE_DISPLACED_KMERS = 256, 60_000
+    try:
+        note = kernel_ab._inputs(tmp_path / "inputs.pt", torch.device("cpu"), {"wide"},
+                                 kmers=60_000)
+    finally:
+        cs.BATCH, cs.WIDE_DISPLACED_KMERS = saved
+    inp = torch.load(tmp_path / "inputs.pt")
+    ids = lk.window_ids_plain(inp["wide"]["ladder"], *inp["wide_batch"], do_rc=True,
+                              bad_ix=0x7FFFFFFF, num_labels=inp["wide_labels"],
+                              true_len=kernel_ab.TRUE_LEN)
+    assert torch.equal(inp["wide_ids"], ids) and ids.shape == (256, 242)
+    assert inp["wide_labels"] == cs.WIDE_LABELS
+    call = {name: make() for group, name, make in kernel_ab._calls(inp, torch.device("cpu"))
+            if name == "histogram_unpacked wide"}["histogram_unpacked wide"]
+    assert torch.equal(call(), lk.unpacked_hist(ids, cs.WIDE_LABELS, kernel_ab.HIST_CAP))
+    assert "K2 wide: ids (256, 242), 70,000 labels" in note
 
 
 @pytest.fixture(scope="module")

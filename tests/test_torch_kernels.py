@@ -455,6 +455,56 @@ def test_k2_streamed_label_bitmap_limit(dev, num_labels, n):
         _k2_all_layouts(ids, num_labels, cap)
 
 
+def _register_ids(rng, rows, n, num_labels, cap):
+    """(rows, n) int32 ids for K2's register branch, one kind of row after
+    another: exactly cap and cap + 1 distinct labels (the largest label of
+    all among them) with negative ids and ids at and above num_labels; one
+    label in every id; no hit (misses and negative ids); ids drawn over
+    [-3, num_labels + 3); a read's few label runs among misses."""
+    ids = np.full((rows, n), BAD, np.int32)
+    for r in range(rows):
+        kind = r % 6
+        if kind <= 1:
+            d = cap + kind
+            labels = np.r_[rng.choice(num_labels - 1, d - 1, replace=False), num_labels - 1]
+            ids[r] = labels[np.arange(n) % d]
+            ids[r, rng.integers(0, n, n // 8)] = rng.choice([-1, -6, num_labels, num_labels + 2])
+        elif kind == 2:
+            ids[r] = rng.integers(0, num_labels)
+        elif kind == 3:
+            ids[r] = rng.choice([-1, -3, num_labels, num_labels + 9, BAD], n)
+        elif kind == 4:
+            ids[r] = rng.integers(-3, num_labels + 3, n)
+        else:
+            cuts = np.sort(rng.integers(0, n, 3))
+            ids[r] = np.repeat(rng.integers(0, num_labels, 4), np.diff(np.r_[0, cuts, n]))
+            ids[r, rng.random(n) < 0.3] = BAD
+    return ids
+
+
+@pytest.mark.parametrize("b", [1, 7, 65_537])
+@pytest.mark.parametrize("n", [242, 256, 257, 258, 288, 289])
+def test_k2_register_widths_match_plain(dev, n, b):
+    """One warp a read: the widths around the register instances' edges (8
+    registers a lane up to 256 ids, 9 up to 288, 10 above), a partial block
+    (1, 7 reads) and the grid's edge (65,537), the caps where the unpacked
+    row's store turns into two (from 16); rows of cap and cap + 1 labels,
+    one label, no hit; rows at a 4 B offset too.  Each entry point launches
+    once a call."""
+    rng = np.random.default_rng(n * 7 + b)
+    for num_labels in (4096, 70_000):
+        for cap in (1, 8, 15, 16, 30):
+            base = torch.from_numpy(_register_ids(rng, b + 1, n, num_labels, cap)).to(dev)
+            views = [base[:b]]
+            if b < 64:
+                views.append(base.view(-1)[1:1 + b * n].view(b, n))
+            for ids in views:
+                n0 = {k: kernels.launches[k] for k in
+                      ("histogram", "histogram_packed", "histogram_unpacked")}
+                _k2_all_layouts(ids, num_labels, cap)
+                assert all(kernels.launches[k] == v + 1 for k, v in n0.items())
+
+
 def _word_ascii(words):
     """32-mer words (uint64) -> their bases as (n, 32) ASCII."""
     shifts = np.uint64(2) * (np.uint64(31) - np.arange(32, dtype=np.uint64))

@@ -394,15 +394,13 @@ def test_pack_hist_and_unpacked_layout_overflow(cap):
     assert (nuniq == cap + 1).any() and (nuniq == 0).any()
 
 
-@pytest.mark.parametrize("cap", [1, 8])
-@pytest.mark.parametrize("n", [2049, 32_706])
-def test_histograms_at_long_widths_match_jax(n, cap):
-    """JAX's histogram rules at the widths K2's streamed branch takes (long
-    reads): a negative id counts in found but is never a label and never
-    overflows; an id at or above num_labels is a miss; slots past the
-    distinct count hold (-1, 0), packed as 0; exactly cap distinct labels do
-    not overflow, cap + 1 do; one label in every id.  compact_histogram,
-    pack_hist and unpacked_hist against utree_tpu.lookup's."""
+def _histograms_match_jax(n, cap):
+    """JAX's histogram rules on eight rows of n ids: a negative id counts in
+    found but is never a label and never overflows; an id at or above
+    num_labels is a miss; slots past the distinct count hold (-1, 0),
+    packed as 0; exactly cap distinct labels do not overflow, cap + 1 do;
+    one label in every id.  compact_histogram, pack_hist and unpacked_hist
+    against utree_tpu.lookup's."""
     rng = np.random.default_rng(n + cap)
     n_lab = 4096
     rows = np.full((8, n), BAD, np.int32)
@@ -430,6 +428,25 @@ def test_histograms_at_long_widths_match_jax(n, cap):
     assert nuniq[0] == cap and nuniq[1] == cap + 1 and nuniq[2] == 1 and nuniq[4] == 0
     assert found[4] == n // 2 and (j[0][4] == -1).all() and (j[1][4] == 0).all()
     assert nuniq[3] == cap + 1 and found[3] > 0
+
+
+@pytest.mark.parametrize("cap", [1, 8])
+@pytest.mark.parametrize("n", [2049, 32_706])
+def test_histograms_at_long_widths_match_jax(n, cap):
+    """The histogram rules at the widths K2's streamed branch takes (long
+    reads)."""
+    _histograms_match_jax(n, cap)
+
+
+@pytest.mark.parametrize("cap", [1, 8, 15, 16, 30])
+@pytest.mark.parametrize("n", [242, 256, 257, 258, 288, 289])
+def test_histograms_at_register_widths_match_jax(n, cap):
+    """The histogram rules at the widths around the edges of K2's register
+    instances (8 registers a lane up to 256 ids, 9 up to 288, 10 above;
+    242 and 258 ids are the wide-label and PACKSIZE=64 reads with RC) and
+    the caps where the unpacked row's warp store turns into two (2cap + 2
+    > 32 from cap 16)."""
+    _histograms_match_jax(n, cap)
 
 
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])

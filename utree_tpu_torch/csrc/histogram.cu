@@ -12,14 +12,24 @@
 // Bound: reading the (B, n) ids once (n = 2W = 242 for 150 bp reads with RC,
 // ~1 KB a read) and writing the rows; a few integer operations an id.
 //
-// Design, rows of at most 32*64 ids (the 150 bp main path): one warp per
-// read.  Each lane holds its strided share of the ids in K registers (K
-// chosen at launch so that 32*K >= n).  A round is a warp min over the ids
-// above the previous round's minimum, then a warp count of that minimum --
-// the same rounds as the JAX code, with no sort and no scatter.  A round
-// whose minimum is "none" ends the loop early; the remaining slots keep
-// their (-1, 0) fill, exactly as further JAX rounds would write them (the
-// packed layout packs that fill to 0).
+// Design, rows of at most 32*64 ids (the 150 bp main path, every
+// PACKSIZE=64 and wide-label read): one warp per read.  A warp a read
+// spends its time on instructions, not waiting on the ~1 KB it reads, so
+// the design cuts the instructions a read takes.  Each lane holds its
+// strided share of the ids in K registers, K fitted to the row at launch
+// (ceil(n/32), or at most a third more: 258 ids take 9, where a power of
+// two took 16).  The same rounds as the JAX code, with no sort and no
+// scatter, each one pass over the registers: the pass after label m
+// counts the ids equal to m and finds the least hit id above m (an
+// unsigned min of id - (m + 1), in which a negative id and every id up to
+// m lie above BIG), and the warp reduces both in hardware (redux.sync: one
+// instruction each, where a shuffle tree takes five dependent ones).  A
+// read of u labels takes min(u, cap) + 1 passes; the last one's minimum is
+// the overflow test.  Lane r keeps slot r's label and count, so the row
+// goes out in one or two warp-wide stores, not a word at a time from one
+// lane; slots past the distinct count keep their (-1, 0) fill, exactly as
+// further JAX rounds would write them (the packed layout packs that fill
+// to 0).
 //
 // Longer rows (long-read chunks, up to 2 x 16,385 ids; reads of 1-16 kbp):
 // one block of 1024 threads per row, so a launch of 2-64 chunk rows keeps
@@ -37,11 +47,14 @@
 // num_labels above the bitmap's limit (32 * BITMAP_WORDS) takes the JAX
 // rounds as block-wide min and count reductions over the same staged row.
 
+#include <utility>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int32_t BIG = 0x7FFFFFFF;
+constexpr uint32_t UBIG = 0x7FFFFFFFu;  // BIG, for the register branch's unsigned keys
 
 enum Layout { COMPACT, PACKED, UNPACKED };
 
@@ -94,60 +107,87 @@ __device__ __forceinline__ void put_tail(const Out& o, int64_t read, int32_t cap
   }
 }
 
-// Ids held in K registers per lane, rows of at most 32*K ids.
+// ---- the register branch: one warp a read ---------------------------------
+
+constexpr int RTHREADS = 256;  // threads of a register-branch block: 8 reads
+
+// Ids held in K registers a lane, rows of at most 32*K ids.
 template <int K, Layout L>
-__global__ void histogram_kernel(const int32_t* __restrict__ ids, int64_t B,
-                                 int32_t n, int32_t num_labels, int32_t cap,
-                                 Out out) {
-  int64_t read = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  int lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(RTHREADS)
+histogram_kernel(const int32_t* __restrict__ ids, int64_t B, int32_t n,
+                 int32_t num_labels, int32_t cap, Out out) {
+  const int64_t read = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
   if (read >= B) return;  // whole warps exit together: B is per warp
   const int32_t* row = ids + read * n;
 
-  // key = id for a hit (id < num_labels), BIG for a miss or past the row end
-  auto key_at = [&](int32_t i) -> int32_t {
-    if (i >= n) return BIG;
-    int32_t v = row[i];
-    return v < num_labels ? v : BIG;
-  };
-  int32_t reg[K];
+  // key = the id of a hit (id < num_labels, signed), BIG for a miss or
+  // past the row's end; as unsigned, a negative hit id lies above BIG
+  uint32_t key[K];
   int32_t hits = 0;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    reg[k] = key_at(lane + 32 * k);
-    hits += reg[k] < BIG;
+    const int32_t i = lane + 32 * k;
+    const int32_t v = i < n ? row[i] : BIG;
+    const bool hit = v < num_labels;
+    key[k] = static_cast<uint32_t>(hit ? v : BIG);
+    hits += hit;
   }
-  hits = warp_sum(hits);
-
-  int32_t cur = -1;
-  int32_t used = 0;
-  for (int r = 0; r < cap; ++r) {
-    int32_t lmin = BIG;
+  uint32_t lmin = UBIG;
 #pragma unroll
-    for (int k = 0; k < K; ++k)
-      if (reg[k] > cur && reg[k] < lmin) lmin = reg[k];
-    int32_t m = warp_min(lmin);
-    if (m == BIG) break;  // no hit id above cur: every later round is empty
+  for (int k = 0; k < K; ++k) lmin = min(lmin, key[k]);
+  uint32_t m = __reduce_min_sync(0xFFFFFFFFu, lmin);  // the least hit id >= 0, or BIG
+  hits = __reduce_add_sync(0xFFFFFFFFu, hits);
+
+  // Lane r keeps slot r: (-1, 0) unless a round fills it.  The pass after
+  // label m counts m and finds the next label: the least id - (m + 1) as
+  // unsigned, which puts every id up to m (and each negative id) above
+  // BIG - (m + 1), where the start value stands for "none".
+  int32_t label = -1, count = 0, used = 0;
+  while (m != UBIG && used < cap) {
+    if (lane == used) label = static_cast<int32_t>(m);
+    const uint32_t base = m + 1;
+    uint32_t next = UBIG - base;
     int32_t c = 0;
 #pragma unroll
-    for (int k = 0; k < K; ++k) c += reg[k] == m;
-    c = warp_sum(c);
-    if (lane == 0) put_slot<L>(out, read, cap, r, m, c);
-    cur = m;
+    for (int k = 0; k < K; ++k) {
+      next = min(next, key[k] - base);
+      c += key[k] == m;
+    }
+    c = __reduce_add_sync(0xFFFFFFFFu, c);
+    if (lane == used) count = c;
+    m = __reduce_min_sync(0xFFFFFFFFu, next) + base;
     ++used;
   }
-  if (lane == 0) {
-    for (int r = used; r < cap; ++r) put_slot<L>(out, read, cap, r, -1, 0);
+  // a hit id above the cap-th label: overflow
+  const int32_t nuniq = m != UBIG ? cap + 1 : used;
+
+  if constexpr (L == COMPACT) {
+    if (lane < cap) {
+      out.o0[read * cap + lane] = label;
+      out.o1[read * cap + lane] = count;
+    }
+    if (lane < 2) (lane ? out.o3 : out.o2)[read] = lane ? hits : nuniq;
+  } else if constexpr (L == PACKED) {
+    const uint32_t v = lane < cap
+        ? static_cast<uint32_t>(label + 1) | (static_cast<uint32_t>(count) << 16)
+        : static_cast<uint32_t>(nuniq) | (static_cast<uint32_t>(hits) << 5);
+    if (lane <= cap) out.o0[read * (cap + 1) + lane] = static_cast<int32_t>(v);
+  } else {
+    // [labels | counts | nuniq | found]: position p < cap is lane p's
+    // label, cap <= p < 2cap lane p - cap's count; 2cap + 2 > 32 positions
+    // (cap > 15) take a second store
+    const int32_t w = 2 * cap + 2;
+    int32_t* o = out.o0 + read * w;
+    const int32_t c0 = __shfl_sync(0xFFFFFFFFu, count, (lane - cap) & 31);
+    if (lane < w)
+      o[lane] = lane < cap ? label : lane < 2 * cap ? c0 : lane == 2 * cap ? nuniq : hits;
+    if (w > 32) {
+      const int32_t c1 = __shfl_sync(0xFFFFFFFFu, count, (lane + 32 - cap) & 31);
+      const int32_t p = lane + 32;
+      if (p < w) o[p] = p < 2 * cap ? c1 : p == 2 * cap ? nuniq : hits;
+    }
   }
-  // overflow: a hit id above the last extracted one (only possible when all
-  // cap rounds found a label)
-  int32_t over = 0;
-  if (used == cap) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) over |= reg[k] > cur && reg[k] < BIG;
-    over = __any_sync(0xFFFFFFFFu, over);
-  }
-  if (lane == 0) put_tail<L>(out, read, cap, over ? cap + 1 : used, hits);
 }
 
 // ---- the streamed branch: one block a row ----------------------------------
@@ -429,10 +469,23 @@ histogram_rows(const int32_t* __restrict__ ids, int32_t n, int32_t num_labels,
 template <int K, Layout L>
 void launch_k(const int32_t* ids, int64_t B, int32_t n, int32_t num_labels,
               int32_t cap, Out out, cudaStream_t stream) {
-  const int threads = 256;  // 8 reads per block
-  histogram_kernel<K, L><<<utree_blocks(B * 32, threads), threads, 0, stream>>>(
+  histogram_kernel<K, L><<<utree_blocks(B * 32, RTHREADS), RTHREADS, 0, stream>>>(
       ids, B, n, num_labels, cap, out);
 }
+
+// The register-branch instances: a row of n ids takes the least K >= n/32,
+// at most a third more registers than it fills.
+template <Layout L, int... Ks>
+void launch_regs(std::integer_sequence<int, Ks...>, const int32_t* ids, int64_t B,
+                 int32_t n, int32_t num_labels, int32_t cap, Out out,
+                 cudaStream_t stream) {
+  (void)((32 * Ks >= n ? (launch_k<Ks, L>(ids, B, n, num_labels, cap, out, stream), true)
+                       : false) || ...);
+}
+
+using RegInstances =
+    std::integer_sequence<int, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 16, 20, 24, 32, 40, 48, 64>;
+constexpr int MAX_REGS = 64;
 
 template <Layout L>
 int launch_rows(const int32_t* ids, int64_t B, int32_t n, int32_t num_labels,
@@ -464,18 +517,8 @@ int launch(const void* ids_v, int64_t B, int32_t n, int32_t num_labels,
   auto ids = static_cast<const int32_t*>(ids_v);
   auto stream = static_cast<cudaStream_t>(stream_v);
   if (B > 0) {
-    if (n <= 32 * 2)
-      launch_k<2, L>(ids, B, n, num_labels, cap, out, stream);
-    else if (n <= 32 * 4)
-      launch_k<4, L>(ids, B, n, num_labels, cap, out, stream);
-    else if (n <= 32 * 8)
-      launch_k<8, L>(ids, B, n, num_labels, cap, out, stream);
-    else if (n <= 32 * 16)
-      launch_k<16, L>(ids, B, n, num_labels, cap, out, stream);
-    else if (n <= 32 * 64)
-      launch_k<64, L>(ids, B, n, num_labels, cap, out, stream);
-    else
-      return launch_rows<L>(ids, B, n, num_labels, cap, out, stream);
+    if (n > 32 * MAX_REGS) return launch_rows<L>(ids, B, n, num_labels, cap, out, stream);
+    launch_regs<L>(RegInstances{}, ids, B, n, num_labels, cap, out, stream);
   }
   UTREE_LAUNCH_RESULT();
 }

@@ -111,9 +111,22 @@ Phases; each passes or the script exits non-zero:
    fallback, all equal; a ladder of phase 7's wide 2M tier through the
    _wide entry points, equal to the single device and (first 4096 reads)
    to CPU shards; each step's rate, device work only (no pipeline reaches
-   these steps).
+   these steps);
+20. built DB: xtree_refs' 64 references of 312,500 bp (20 Mbp) with a
+   two-column GG map whose species pairs share sequence (the fold makes
+   truncated labels) through the port's CLI `build --complevel 1` and
+   `compress` on the host, and through build_database_streaming (16
+   partitions, spills every 1M words) and write_ctr_streaming, byte-equal
+   to the CLI's files; 65,536 reads of 150 bp (make_reads' mix over those
+   genomes) through `search --rc` on the card under --lookup-mode auto (the
+   ladder: K4, K2, K3), displaced (K1) and bsearch (K7), each equal to
+   `search --host` byte for byte; the auto run again with --trace and
+   --profile-dir, its torch.profiler trace holding K4's, K2's and K3's
+   kernels by name; classify_batch and finalize_bytes(dispatch(...)) on
+   the first 8192 reads equal to the auto output's lines; seconds and
+   k-mers of each build step, reads/s of the auto search.
 
-Every path run (phases 4, 6-13, 15-19) starts with every launch count at 0
+Every path run (phases 4, 6-13, 15-20) starts with every launch count at 0
 and reads them just after; each kernel its path needs must have launched.
 Each kernel row prints events ms and device ms; a kernel checked at more
 than one shape keeps the others under its row's `shapes` (K2's
@@ -169,6 +182,11 @@ ROUTED_SHARDS = 4  # phase 15's shards, all on the one card
 MANY_SHARDS = 16  # phase 15's K11 check above 8 owners
 DP_SHARDS = 2  # phase 16's
 WIDE_ROUTED_CHECK = 4096  # phase 15's wide reads held to the CPU shards
+BUILT_REFS, BUILT_REF_LEN = 64, 312_500  # phase 20's references (20 Mbp)
+BUILT_CHUNK_WORDS = 1 << 20  # phase 20's streaming build: spills every 1M words
+BUILT_PARTITION_BITS = 4  # ... into 16 partitions
+BUILT_READS = 65_536
+BUILT_API_READS = 8192
 
 # launches summed over the path runs (each one counted from 0)
 PATH_LAUNCHES: dict[str, int] = {}
@@ -474,6 +492,9 @@ def phase_kernels(dev, table, reads, index, max_iters):
                      lambda: pack_vote(*aufbau_walk(vt, *hist, **vkw), hist[2], hist[3]),
                      what, vote_bytes(hist, vt, rows)),
     ]
+    packed_moved = nbytes(ids, lookup.histogram_packed(ids, L, HIST_CAP))
+    log(f"histogram_packed at {what} (phase 11's readback of these ids): bound "
+        f"{packed_moved / HBM_BYTES_PER_S * 1e3:.4f} ms ({packed_moved:,} bytes)")
     flags = int(((rows[:, 0].long() >> 24) & 1).sum())
     nuniq = hist[2].long()
     log(f"batch profile: hits/read {float(hist[3].float().mean()):.2f}, "
@@ -2138,8 +2159,155 @@ def phase_routed_canonical(dev, base: dict) -> tuple[list[dict], dict]:
     return rows, stats
 
 
+def built_map(map_path: pathlib.Path, refs: int, lineages: int = 10) -> None:
+    """Phase 20's two-column GG map over xtree_refs' references: refs 2j and
+    2j + 1 (the pair that shares a third of its sequence) are species of one
+    genus, so their shared k-mers fold to the genus and make a truncated
+    label; genera sit in `lineages` six-rank lineages."""
+    with open(map_path, "wb") as mp:
+        for i in range(refs):
+            lin = (i // 2) % lineages
+            mp.write(b"ref%04d\tk__Bacteria;p__phy%d;c__cls%d;o__ord%d;f__fam%d;g__gen%d;"
+                     b"s__sp%d\n" % (i, lin % 3, lin % 5, lin, lin, i // 2, i))
+
+
+def cli_run(argv: list[str]) -> str:
+    """utree_tpu_torch.cli.main(argv) in this process; returns what it
+    printed."""
+    import io
+
+    from utree_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return buf.getvalue()
+
+
+def phase_built(dev, work: pathlib.Path) -> dict:
+    """Phase 20: a database the port built, searched on the card.  Build and
+    compress through the CLI on this host, the streaming build and compress
+    byte-equal to them; BUILT_READS reads through `search --rc` under three
+    lookup modes on the card, each equal to `search --host`; the `auto` run
+    traced (--profile-dir) with its probe's and K2's kernels in the trace;
+    the list-of-reads API on the first BUILT_API_READS reads equal to the
+    auto output's lines."""
+    import numpy as np
+
+    from utree_tpu_torch.build_stream import build_database_streaming, write_ctr_streaming
+    from utree_tpu_torch.config import UTreeConfig
+    from utree_tpu_torch.formats import sniff_config
+    from utree_tpu_torch.index import DeviceIndexArrays
+    from utree_tpu_torch.pipeline import SearchPipeline
+    from utree_tpu_torch.utils.trace import kernel_names
+
+    d = work / "built"
+    d.mkdir(parents=True, exist_ok=True)
+    refs_fa, map_path = d / "refs.fa", d / "gg.map"
+    genomes = xtree_refs(refs_fa, d / "xtree.map", BUILT_REFS, BUILT_REF_LEN)
+    built_map(map_path, BUILT_REFS)
+    ubt, ctr = d / "db.ubt", d / "db.ctr"
+    stats: dict = {}
+    t = time.perf_counter()
+    printed = cli_run(["build", str(refs_fa), str(map_path), str(ubt), "--complevel", "1"])
+    stats["build_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cli_run(["compress", str(ubt), str(ctr)])
+    stats["compress_s"] = time.perf_counter() - t
+    kmers, labels = (int(x) for x in re.match(r"Built (\d+) k-mers, (\d+) labels",
+                                               printed).groups())
+    if labels <= BUILT_REFS:
+        fail(f"built DB: {labels} labels, the fold made no truncated label")
+    spill = d / "spill"
+    spill.mkdir(exist_ok=True)
+    t = time.perf_counter()
+    st = build_database_streaming(str(refs_fa), str(map_path), UTreeConfig(complevel=1),
+                                  str(d / "stream.ubt"), chunk_words=BUILT_CHUNK_WORDS,
+                                  partition_bits=BUILT_PARTITION_BITS, workdir=str(spill))
+    stats["stream_build_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    write_ctr_streaming(str(d / "stream.ubt"), str(d / "stream.ctr"), UTreeConfig(complevel=1))
+    stats["stream_compress_s"] = time.perf_counter() - t
+    if any(spill.iterdir()):
+        fail("streaming build: spill files left behind")
+    for ext, path in (("ubt", ubt), ("ctr", ctr)):
+        if (d / f"stream.{ext}").read_bytes() != path.read_bytes():
+            fail(f"streaming build: the .{ext} differs from the CLI's")
+    if (st.num_nodes, st.num_labels) != (kmers, labels):
+        fail(f"streaming build: {st.num_nodes} k-mers, {st.num_labels} labels against "
+             f"the CLI's {kmers}, {labels}")
+    stats.update(kmers=kmers, conflicted=st.num_conflicted, labels=labels,
+                 bp=BUILT_REFS * BUILT_REF_LEN)
+    log(f"built DB: {BUILT_REFS} refs x {BUILT_REF_LEN:,} bp, complevel 1; CLI build "
+        f"{stats['build_s']:.2f} s ({kmers:,} k-mers, {st.num_conflicted:,} conflicted, "
+        f"{labels} labels; {kmers / stats['build_s']:,.0f} k-mers/s), compress "
+        f"{stats['compress_s']:.2f} s ({ctr.stat().st_size:,} B); streaming build "
+        f"{stats['stream_build_s']:.2f} s ({2 ** BUILT_PARTITION_BITS} partitions, chunks of "
+        f"{BUILT_CHUNK_WORDS:,} words), streaming compress {stats['stream_compress_s']:.2f} s: "
+        ".ubt and .ctr byte-identical to the CLI's; host clock")
+
+    reads = make_reads(genomes.reshape(-1), np.random.default_rng(20), BUILT_READS)
+    reads_fa = d / "reads.fa"
+    write_fasta(reads_fa, reads)
+    host_out = d / "host.txt"
+    t = time.perf_counter()
+    cli_run(["search", str(ctr), str(reads_fa), str(host_out), "--rc", "--host"])
+    stats["host_reads_per_s"] = BUILT_READS / (time.perf_counter() - t)
+    want = host_out.read_bytes()
+    n_lines = want.count(b"\n")
+    if n_lines < BUILT_READS // 2:
+        fail(f"built DB: the host search wrote {n_lines} lines for {BUILT_READS} reads")
+    log(f"built DB: search --host {BUILT_READS} reads, {n_lines} lines, "
+        f"{stats['host_reads_per_s']:,.0f} reads/s with its DB load (host clock)")
+    probe = {"auto": "ladder_probe", "displaced": "scan_probe", "bsearch": "bsearch_probe"}
+    prof = d / "profile"
+    for mode, extra in (("auto", ["--trace"]), ("auto", ["--trace", "--profile-dir", str(prof)]),
+                        ("displaced", []), ("bsearch", [])):
+        out = d / f"{mode}.txt"
+        tag = f"built {mode}" + (" profiled" if "--profile-dir" in extra else "")
+        printed = drive(tag, (probe[mode], "histogram", "aufbau_vote"), lambda: cli_run(
+            ["search", str(ctr), str(reads_fa), str(out), "--rc", "--lookup-mode", mode,
+             "--device", dev.type, *extra]))
+        if out.read_bytes() != want:
+            fail(f"{tag}: the card's output differs from search --host")
+        if extra == ["--trace"]:
+            secs = float(re.search(r"^search \[([0-9.]+)s\]", printed, re.M).group(1))
+            stats["auto_reads_per_s"] = BUILT_READS / secs
+            log(f"{tag}: " + "; ".join(printed.strip().splitlines()))
+        log(f"{tag}: {BUILT_READS} reads, output byte-identical to search --host")
+    traces = list(prof.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"built auto profiled: {len(traces)} traces under {prof}")
+    names = kernel_names(str(traces[0]))
+    for k in ("ladder_probe_kernel", "histogram_kernel", "aufbau_vote_kernel"):
+        if dev.type == "cuda" and not any(k in n for n in names):
+            fail(f"built auto profiled: no {k} in the trace's {len(names)} kernels")
+    log(f"built auto profiled: {traces[0].name}, {traces[0].stat().st_size:,} B, "
+        f"{len(names)} distinct kernels, ladder_probe_kernel, histogram_kernel and "
+        "aufbau_vote_kernel among them")
+
+    idx = DeviceIndexArrays.from_ctr(str(ctr), sniff_config(str(ctr)))
+    pipe = SearchPipeline(idx, device=dev, do_rc=True)
+    names = [b"r%d" % i for i in range(BUILT_API_READS)]
+    seqs = [reads[i].tobytes() for i in range(BUILT_API_READS)]
+    head = b"".join(ln for ln in want.splitlines(keepends=True)
+                    if int(ln.split(b"\t", 1)[0][1:]) < BUILT_API_READS)
+    expect = ("ladder_probe", "histogram", "aufbau_vote")
+    lines = drive("built API classify_batch", expect, lambda: pipe.classify_batch(names, seqs))
+    if b"".join(ln + b"\n" for ln in lines if ln is not None) != head:
+        fail("built API: classify_batch's lines differ from the auto search's")
+    got = drive("built API finalize_bytes", expect,
+                lambda: pipe.finalize_bytes(names, seqs, pipe.dispatch(seqs)))
+    if got != head:
+        fail("built API: finalize_bytes(dispatch(...)) differs from the auto search's lines")
+    log(f"built API: classify_batch and finalize_bytes(dispatch(...)) on the first "
+        f"{BUILT_API_READS} reads ({len(lines) - lines.count(None)} lines) equal the auto "
+        "search's lines")
+    return stats
+
+
 def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
-    """Phases 3-19 on `dev`; returns what main() checks and prints."""
+    """Phases 3-20 on `dev`; returns what main() checks and prints."""
     from utree_tpu_torch.classify_device import (aufbau_tables_to_device,
                                                  build_aufbau_tables)
     from utree_tpu_torch.hash_index import displaced_to_device
@@ -2209,7 +2377,10 @@ def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
     rc_rows, routed_canonical = phase_routed_canonical(dev, base)
     kern += rc_rows
     secs["routed canonical"] = time.perf_counter() - t
-    log("phases 15-19 took " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    t = time.perf_counter()
+    built = phase_built(dev, work)
+    secs["built DB"] = time.perf_counter() - t
+    log("phases 15-20 took " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
     for k in kern:
         k["launches"] = PATH_LAUNCHES.get(k["name"], 0)
         if k["name"] in EXTRA_SHAPES:
@@ -2218,7 +2389,7 @@ def run(dev, kmers: int, nreads: int, work: pathlib.Path) -> dict:
             "wide": wide, "long": long, "bsearch": bsearch, "k64": k64,
             "compact": compact, "xtree": xtree, "hash": hashed,
             "shallow": shallow, "routed": routed, "dp": dp, "sharded": sharded,
-            "routed_canonical": routed_canonical}
+            "routed_canonical": routed_canonical, "built": built}
 
 
 def main() -> int:
@@ -2308,7 +2479,11 @@ def main() -> int:
         f"canonical (one card, device work) (1, {ROUTED_SHARDS}) "
         f"{res['routed_canonical']['reads_per_s']:,.0f}, its fallback "
         f"{res['routed_canonical']['fallback_reads_per_s']:,.0f}, wide "
-        f"{res['routed_canonical']['wide_reads_per_s']:,.0f} reads/s; on {card}")
+        f"{res['routed_canonical']['wide_reads_per_s']:,.0f} reads/s; built DB "
+        f"({res['built']['bp'] // 1_000_000} Mbp, {res['built']['kmers']:,} k-mers, host) "
+        f"build {res['built']['build_s']:.2f} s, compress {res['built']['compress_s']:.2f} s, "
+        f"streaming build {res['built']['stream_build_s']:.2f} s, its auto search "
+        f"{res['built']['auto_reads_per_s']:,.0f} reads/s; on {card}")
     print(json.dumps({"kernels": res["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
-"""Command line of the port (counterpart of `utree_tpu/cli.py`, search and
-the xtree tool):
+"""Command line of the port (counterpart of `utree_tpu/cli.py`: build,
+compress, search and the xtree tool):
 
+  python -m utree_tpu_torch.cli build <in.fa> <map> <out.ubt>
+      [--complevel N] [--rank-specific]
+  python -m utree_tpu_torch.cli compress <in.ubt> <out.ctr>
   python -m utree_tpu_torch.cli search <db.ctr> <reads.fa> <out.txt>
       [--rc] [--batch N]
       [--lookup-mode auto|canonical|displaced|bsearch|hash|routed]
       [--devices N] [--num-hosts H --host-id h --coordinator host:port]
       [--support-ranges 1|8] [--host] [--rank-specific] [--resume] [--trace]
-      [--device cuda|cpu]
+      [--profile-dir DIR] [--device cuda|cpu]
   python -m utree_tpu_torch.cli xtree-build --seqs fa --db-out db
       [--map m --comp c --k k]
   python -m utree_tpu_torch.cli xtree-align --db db --seqs q
@@ -14,6 +17,9 @@ the xtree tool):
        --redistribute --fast-redistribute --shallow-lca]
       [--device [cuda|cpu]] [--host]
 
+`build` writes the .ubt of utree-buildGG (utree-build with
+`--rank-specific`) and its label counts to <out.ubt>.gg.log (.log);
+`compress` writes the .ctr of utree-compress.  Both run on the host.
 `--host` runs the exact host search (`search_host.search_file`) or the
 xtree host engine (no device front end); a DB of a PACKSIZE other than 32
 or 64 takes the host search too.  `--rank-specific` runs the rank-specific
@@ -25,8 +31,10 @@ seed-bucket range.  `--num-hosts H` runs the multi-host driver
 (`parallel.distributed.search_file_multihost`): each process searches its
 range of the reads, the processes meet in a gloo process group at
 `--coordinator`, and host 0 writes the merged output; `--num-hosts 1`
-needs no process group.  `build` and `compress` of `utree_tpu.cli` are not
-ported yet (ROADMAP A.6b).
+needs no process group.  `--profile-dir DIR` writes a torch.profiler
+Chrome trace of the device search (host operators and, on a card, its
+kernels) under DIR; the host, rank-specific and multi-host searches ignore
+it, as `utree_tpu` does.
 """
 
 from __future__ import annotations
@@ -34,9 +42,29 @@ from __future__ import annotations
 import argparse
 
 
+def _cmd_build(a):
+    from utree_tpu_torch.build import build_database
+    from utree_tpu_torch.config import UTreeConfig
+    from utree_tpu_torch.formats import label_lines, write_ubt
+
+    cfg = UTreeConfig(complevel=a.complevel)
+    res = build_database(a.fasta, a.map, cfg, do_gg=not a.rank_specific)
+    write_ubt(a.out, res.words, res.ixs, res.labels.strings, cfg)
+    with open(a.out + (".log" if a.rank_specific else ".gg.log"), "wb") as f:
+        f.write(label_lines(res.labels.strings, res.label_counts))
+    print(f"Built {len(res.words)} k-mers, {len(res.labels)} labels -> {a.out}")
+
+
+def _cmd_compress(a):
+    from utree_tpu_torch.formats import sniff_config, write_ctr_from_ubt
+
+    write_ctr_from_ubt(a.input, a.out, sniff_config(a.input))
+    print(f"Compressed {a.input} -> {a.out}")
+
+
 def _cmd_search(a):
     from utree_tpu_torch.formats import sniff_config
-    from utree_tpu_torch.utils.trace import PhaseTimer
+    from utree_tpu_torch.utils.trace import PhaseTimer, Tracer
 
     tm = PhaseTimer(quiet=True)
     cfg = sniff_config(a.db)
@@ -91,7 +119,10 @@ def _cmd_search(a):
             if a.num_hosts:
                 n = search_file_multihost(pipe, a.reads, a.out, resume=a.resume)
             else:
-                n = pipe.search_file(a.reads, a.out, resume=a.resume)
+                with Tracer(a.profile_dir, pipe.device) as tr:
+                    n = pipe.search_file(a.reads, a.out, resume=a.resume)
+                if tr.path:
+                    print(f"profile: {tr.path}")
         where = pipe.device
         if a.trace:
             print(f"table_kind: {pipe.table_kind}, layout: {pipe.layout}")
@@ -139,6 +170,20 @@ def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="utree_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
+    b = sub.add_parser("build", help="utree-buildGG equivalent (host)")
+    b.add_argument("fasta")
+    b.add_argument("map")
+    b.add_argument("out")
+    b.add_argument("--complevel", type=int, default=1)
+    b.add_argument("--rank-specific", dest="rank_specific", action="store_true",
+                   help="utree-build (non-GG): conflicts poison k-mers")
+    b.set_defaults(fn=_cmd_build)
+
+    c = sub.add_parser("compress", help="utree-compress equivalent (host)")
+    c.add_argument("input")
+    c.add_argument("out")
+    c.set_defaults(fn=_cmd_compress)
+
     s = sub.add_parser("search", help="utree-searchGG equivalent on a GPU")
     s.add_argument("db")
     s.add_argument("reads")
@@ -178,6 +223,10 @@ def parser() -> argparse.ArgumentParser:
                    help="resume an interrupted search from its .ckpt sidecar")
     s.add_argument("--trace", action="store_true",
                    help="print per-phase timings and reads/s")
+    s.add_argument("--profile-dir", dest="profile_dir", default=None,
+                   help="write a torch.profiler Chrome trace of the device "
+                        "search (host operators, and the card's kernels) "
+                        "under this directory")
     s.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda runs the CUDA kernels; cpu their plain versions")
     s.set_defaults(fn=_cmd_search)

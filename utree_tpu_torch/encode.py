@@ -9,7 +9,9 @@ Reference semantics reimplemented vectorized:
   (itree.c:603-623);
 - search-time extraction: every valid window, with optional reverse-complement
   appended after a sentinel 'N' (itree.c:891-897, 903-933);
-- word packing: MSB-first 2 bits/base (itree.c:617-621).
+- word packing: MSB-first 2 bits/base (itree.c:617-621);
+- the build's stable word order (`word_sort_key`) and the .ctr record split
+  (`split_word`).
 
 Words are NumPy uint64 (k <= 32) or W128 (k = 64).
 """
@@ -93,6 +95,11 @@ def _pack_words_u64(codes: np.ndarray, starts: np.ndarray, k: int) -> np.ndarray
     return w
 
 
+def word_sort_key(words: np.ndarray):
+    """Stable argsort key handling both u64 and W128 words."""
+    return np.argsort(words, kind="stable", order=("hi", "lo") if words.dtype == W128 else None)
+
+
 def _empty_words(k: int) -> np.ndarray:
     return np.zeros(0, dtype=W128 if k > 32 else np.uint64)
 
@@ -163,3 +170,18 @@ def search_window_words(seq: bytes, k: int, do_rc: bool) -> np.ndarray:
     ok = (inv_cum[starts + k] - inv_cum[starts]) == 0
     return _pack_words_u64(codes, starts[ok], k)
 
+
+
+def split_word(words: np.ndarray, word_bits: int, suffix_bits: int):
+    """Split uint64 words into (prefix, suffix_hi, suffix_lo32) int arrays.
+
+    prefix = top (word_bits - suffix_bits) bits; suffix split into the
+    (suffix_bits-32) high bits and the low 32 bits: the two-lane
+    representation of the .ctr record split (itree.c:689-695).
+    """
+    words = words.astype(np.uint64)
+    prefix = (words >> np.uint64(suffix_bits)).astype(np.int64)
+    suffix = words & np.uint64((1 << suffix_bits) - 1)
+    hi = (suffix >> np.uint64(32)).astype(np.int32)
+    lo = (suffix & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    return prefix.astype(np.int32), hi, lo

@@ -1,16 +1,23 @@
-"""Reading a .ctr database (the port's copy of the reader side of
-`utree_tpu/formats.py`; the writers stay with the JAX package's CLI).
+"""Byte-exact .ubt / .ctr database (de)serialization (the port's copy of
+`utree_tpu/formats.py`).
+
+.ubt (UT_writeTreeBinary, itree.c:1317-1343):
+  u64 header {sizeof(WTYPE), 0, sizeof(IXTYPE), numNodes}; numNodes x
+  {word (little-endian WTYPE), ix (IXTYPE)} ascending by word; then ASCII
+  "label\\tcount\\n" per label id in order (dead labels included, count 0).
 
 .ctr (XT_cmp32, itree.c:1234-1315):
-  u64 header {sizeof(WTYPE), 0, sizeof(IXTYPE), numNodes}; 2^24+1 bin
-  offsets (u32 each when numNodes < 2^32-1, u64 otherwise); numNodes x (low
-  sizeof(WTYPE)-3 bytes of the word + IXTYPE), i.e. the 24-bit prefix is
-  dropped and the 40-bit suffix kept; then "label\tcount\n" per label.
-  The bin-offset table is built with a zero-sentinel scan that has
-  observable quirks (compute_bin_ix replays it literally, so lookups match
-  the reference exactly).
+  same header; 2^24+1 bin offsets (u32 each when numNodes < 2^32-1, u64
+  otherwise); numNodes x (low sizeof(WTYPE)-3 bytes of the word + IXTYPE),
+  i.e. the 24-bit prefix is dropped and the 40-bit suffix kept; then the
+  same label lines.  The bin-offset table is built with a zero-sentinel
+  scan that has observable quirks (first populated bin's offset temporarily
+  lands on 1 and is repaired by the first-nonzero fixup, itree.c:1282-1289);
+  compute_bin_ix replays that algorithm literally so the bytes, and any
+  downstream lookup behavior, match the reference exactly.
 
-Little-endian host assumed (itree.c:1306-1308).
+Little-endian host assumed (the reference's byte-truncation serialization is
+little-endian dependent, itree.c:1306-1308).
 """
 
 from __future__ import annotations
@@ -22,6 +29,16 @@ import numpy as np
 
 from utree_tpu_torch.config import UTreeConfig
 from utree_tpu_torch.encode import W128
+
+
+@dataclasses.dataclass
+class UbtData:
+    wtype_bytes: int
+    ixtype_bytes: int
+    words: np.ndarray  # uint64 ascending
+    ixs: np.ndarray  # int64
+    labels: list[bytes]
+    counts: np.ndarray  # uint64 per label
 
 
 @dataclasses.dataclass
@@ -49,11 +66,46 @@ def _parse_label_tail(tail: bytes) -> tuple[list[bytes], np.ndarray]:
     return labels, np.array(counts, dtype=np.uint64)
 
 
+def _words_le_bytes(words: np.ndarray, wtype_bytes: int) -> np.ndarray:
+    """(n, wtype_bytes) little-endian byte view of u64 or W128 words."""
+    n = len(words)
+    out = np.zeros((n, wtype_bytes), np.uint8)
+    if words.dtype == W128:
+        out[:, :8] = words["lo"].astype("<u8").view(np.uint8).reshape(n, 8)
+        out[:, 8:16] = words["hi"].astype("<u8").view(np.uint8).reshape(n, 8)
+    else:
+        # small-k words (wtype_bytes 1/2/4) are the low LE bytes of the u64
+        w8 = np.asarray(words, dtype="<u8").view(np.uint8).reshape(n, 8)
+        nb = min(8, wtype_bytes)
+        out[:, :nb] = w8[:, :nb]
+    return out
+
+
+def label_lines(labels: list[bytes], counts) -> bytes:
+    """The trailing "label\\tcount\\n" lines of a .ubt or .ctr."""
+    return b"".join(lbl + b"\t" + str(int(cnt)).encode() + b"\n"
+                    for lbl, cnt in zip(labels, counts))
+
+
 def _word_prefixes(words: np.ndarray, word_bits: int, prefix_bits: int) -> np.ndarray:
     """Top prefix_bits of each word, for u64 or W128 words."""
     if words.dtype == W128:
         return (words["hi"] >> np.uint64(word_bits - prefix_bits - 64)).astype(np.int64)
     return (np.asarray(words, dtype=np.uint64) >> np.uint64(word_bits - prefix_bits)).astype(np.int64)
+
+
+def write_ubt(path: str, words: np.ndarray, ixs: np.ndarray, labels: list[bytes],
+              config: UTreeConfig) -> None:
+    n = len(words)
+    wb, ib = config.wtype_bytes, config.ixtype_bytes
+    counts = np.bincount(np.asarray(ixs, dtype=np.int64), minlength=len(labels)).astype(np.uint64)
+    with open(path, "wb") as of:
+        of.write(struct.pack("<4Q", wb, 0, ib, n))
+        rec = np.zeros((n, wb + ib), np.uint8)
+        rec[:, :wb] = _words_le_bytes(words, wb)
+        rec[:, wb:] = np.asarray(ixs, dtype=f"<u{ib}").view(np.uint8).reshape(n, ib)
+        of.write(rec.tobytes())
+        of.write(label_lines(labels, counts))
 
 
 def sniff_config(path: str) -> UTreeConfig:
@@ -65,6 +117,25 @@ def sniff_config(path: str) -> UTreeConfig:
     if wsz * 4 not in (4, 8, 16, 32, 64) or isz not in (2, 4):
         raise ValueError(f"unrecognized DB header: WTYPE={wsz}B IXTYPE={isz}B")
     return UTreeConfig(packsize=wsz * 4, ixtype_bytes=isz)
+
+
+def read_ubt(path: str) -> UbtData:
+    with open(path, "rb") as fp:
+        data = fp.read()
+    wsz, csz, isz, n = struct.unpack_from("<4Q", data, 0)
+    if csz != 0:
+        raise ValueError("count-carrying trees are not supported (NO_COUNT builds only)")
+    rec_sz = wsz + isz
+    raw = np.frombuffer(data, np.uint8, count=n * rec_sz, offset=32).reshape(n, rec_sz)
+    if wsz == 16:
+        words = np.zeros(n, dtype=W128)
+        words["lo"] = raw[:, :8].copy().view("<u8").reshape(n)
+        words["hi"] = raw[:, 8:16].copy().view("<u8").reshape(n)
+    else:
+        words = raw[:, :wsz].copy().view(f"<u{wsz}").reshape(n).astype(np.uint64)
+    ixs = raw[:, wsz:].copy().view(f"<u{isz}").reshape(n).astype(np.int64)
+    labels, counts = _parse_label_tail(data[32 + n * rec_sz:])
+    return UbtData(wsz, isz, words, ixs, labels, counts)
 
 
 def compute_bin_ix(words: np.ndarray, word_bits: int, prefix_bits: int = 24) -> np.ndarray:
@@ -102,6 +173,36 @@ def compute_bin_ix(words: np.ndarray, word_bits: int, prefix_bits: int = 24) -> 
     filled = np.minimum.accumulate(filled[::-1])[::-1]
     bin_ix[u + 1 :] = filled
     return bin_ix
+
+
+def write_ctr_from_ubt(ubt_path: str, ctr_path: str, config: UTreeConfig = UTreeConfig()) -> None:
+    """utree-compress equivalent (XT_cmp32, itree.c:1234-1315), byte-exact."""
+    ubt = read_ubt(ubt_path)
+    write_ctr(ctr_path, ubt.words, ubt.ixs, ubt.labels, ubt.counts, config)
+
+
+def write_ctr(path: str, words: np.ndarray, ixs: np.ndarray, labels: list[bytes],
+              counts: np.ndarray, config: UTreeConfig = UTreeConfig()) -> None:
+    if config.ctr_suffix_bytes < 1:
+        raise ValueError(
+            f"PACKSIZE={config.packsize} words ({config.wtype_bytes}B) cannot "
+            f"be compressed: the CTR trims {config.ctr_trim_bytes} prefix "
+            "bytes (itree.c:690-692); the reference supports COMPRESS/SEARCH "
+            "for PACKSIZE >= 16 only")
+    n = len(words)
+    bin_ix = compute_bin_ix(words, config.word_bits, config.ctr_prefix_bits)
+    off_dtype = "<u4" if n < 0xFFFFFFFF else "<u8"  # numNodes < UINT32_MAX, itree.c:1303
+    suffix_bytes = config.ctr_suffix_bytes
+    with open(path, "wb") as of:
+        of.write(struct.pack("<4Q", config.wtype_bytes, 0, config.ixtype_bytes, n))
+        of.write(bin_ix.astype(off_dtype).tobytes())
+        # records: low `suffix_bytes` bytes of each little-endian word + ix
+        rec = np.zeros((n, config.ctr_record_bytes), dtype=np.uint8)
+        rec[:, :suffix_bytes] = _words_le_bytes(words, config.wtype_bytes)[:, :suffix_bytes]
+        rec[:, suffix_bytes:] = (np.asarray(ixs, dtype=f"<u{config.ixtype_bytes}")
+                                 .view(np.uint8).reshape(n, config.ixtype_bytes))
+        of.write(rec.tobytes())
+        of.write(label_lines(labels, counts))
 
 
 def read_ctr(path: str, config: UTreeConfig = UTreeConfig()) -> CtrData:

@@ -44,3 +44,7 @@ def iter_fasta_records(path: str) -> Iterator[tuple[bytes, bytes]]:
             if seq.endswith(b"\r"):
                 seq = seq[:-1]
             yield header, seq
+
+
+def read_linearized_fasta(path: str) -> list[tuple[bytes, bytes]]:
+    return list(iter_fasta_records(path))

@@ -240,6 +240,15 @@ class FastaScanner:
         return self.data[a:b]
 
 
+def pool_names(names: list[bytes]) -> tuple[bytes, np.ndarray]:
+    """Read names as the formatters take them: one NUL-terminated pool and
+    each name's start offset."""
+    offsets = np.zeros(len(names), np.int64)
+    if len(names) > 1:
+        np.cumsum([len(nm) + 1 for nm in names[:-1]], out=offsets[1:])
+    return (b"\x00".join(names) + b"\x00" if names else b"\x00"), offsets
+
+
 class VoteEngine:
     """Batch aufbau vote + formatting in C++ (exact peer of classify.py at
     support_ranges=1)."""
@@ -277,6 +286,18 @@ class VoteEngine:
                 np.ascontiguousarray(over_offsets, np.int64),
                 np.ascontiguousarray(over_labels, np.int32),
                 np.ascontiguousarray(over_counts, np.int32))
+
+    @property
+    def available(self) -> bool:
+        """Always true: the library was built (or the constructor raised)."""
+        return True
+
+    def vote_batch(self, names: list[bytes], hist_offsets: np.ndarray,
+                   labels: np.ndarray, counts: np.ndarray) -> bytes:
+        """vote_batch_pooled over a list of read names."""
+        name_pool, name_offsets = pool_names(names)
+        return self.vote_batch_pooled(len(names), name_pool, name_offsets,
+                                      hist_offsets, labels, counts)
 
     def vote_batch_pooled(self, n: int, name_pool: bytes, name_offsets: np.ndarray,
                           hist_offsets: np.ndarray, labels: np.ndarray,

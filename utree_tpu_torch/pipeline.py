@@ -37,6 +37,12 @@ Reads over `long_read_threshold` are cut into chunks (`split_long_read`)
 whose histograms go through the histogram step, merge on the host and take
 one vote (`classify_long_read`).
 
+A list of reads goes through the same steps: `dispatch(seqs)` packs them
+(`_pack`) and dispatches one batch; `finalize` returns each read's line
+(voted in Python, the device vote's rows through `_devvote_line`) and
+`finalize_bytes` the bytes `search_file` would write for them;
+`classify_batch` is `finalize(dispatch(...))`.
+
 Batches are dispatched asynchronously: the rows of a finished batch start
 their device->host copy into pinned memory at once, and the drain waits on
 that copy's CUDA event, `queue_depth` batches later.  Output bytes equal the
@@ -459,6 +465,73 @@ class SearchPipeline:
         return self._readback(self._run_shards(
             step, self._pad_rows(reads, lengths.astype(np.int32))))
 
+    # ---- the list-of-reads API (utree_tpu/pipeline.py:439-453, 678-762) ----
+
+    def _pack(self, seqs: list[bytes]):
+        """Reads of any length as an ASCII (B, L) batch and their lengths; L
+        is the longest read bucketed as search_file buckets it."""
+        max_len = max((len(s) for s in seqs), default=1)
+        lmax = _bucket_len64(max(max_len, self.index.config.packsize))
+        reads = np.zeros((len(seqs), lmax), np.uint8)
+        lengths = np.zeros(len(seqs), np.int32)
+        for i, s in enumerate(seqs):
+            reads[i, :len(s)] = np.frombuffer(s, np.uint8)
+            lengths[i] = len(s)
+        return reads, lengths
+
+    def dispatch(self, seqs: list[bytes]) -> _Readback:
+        """Dispatch one batch of reads (byte strings) through the main step;
+        returns its handle for `finalize` or `finalize_bytes`."""
+        return self.dispatch_matrix(*self._pack(seqs))
+
+    def finalize(self, names: list[bytes], seqs: list[bytes],
+                 handle: _Readback) -> list[bytes | None]:
+        """A dispatched batch's line for each read (None where it hit
+        nothing), without newlines, voted in Python; flagged and over-cap
+        reads replayed on the host."""
+        if self.layout == "vote":
+            u = self._wait_rows(handle).view(np.uint32).reshape(-1, 3)
+            return [self._devvote_line(nm, int(u[i, 0]), int(u[i, 1]), int(u[i, 2]), seqs[i])
+                    for i, nm in enumerate(names)]
+        return self._lines_py(names, handle, lambda i: seqs[i])
+
+    def classify_batch(self, names: list[bytes], seqs: list[bytes]) -> list[bytes | None]:
+        return self.finalize(names, seqs, self.dispatch(seqs))
+
+    def finalize_bytes(self, names: list[bytes], seqs: list[bytes],
+                       handle: _Readback) -> bytes:
+        """A dispatched batch's output lines, each with its newline, in read
+        order: the bytes search_file writes for these reads."""
+        from utree_tpu_torch.native import pool_names
+
+        return self._format(len(names), *pool_names(names), handle, lambda i: seqs[i])
+
+    def _devvote_line(self, name: bytes, w0: int, w1: int, w2: int,
+                      seq: bytes) -> bytes | None:
+        """One read's line from its device-vote row: the Python twin of the C
+        formatter `utree_format_device_vote`; a flagged read is replayed on
+        the host."""
+        from utree_tpu_torch.classify import aufbau_vote_counts
+        from utree_tpu_torch.classify_device import DV_EMPTY, DV_FULL
+
+        nu = (w0 >> 17) & 31
+        if nu == 0:
+            return None
+        strings = self.index.strings
+        if (w0 >> 24) & 1:  # flagged: exact host replay
+            return aufbau_vote_counts(name, *self._host_hist(seq), strings,
+                                      self.index.config.taxacut, 1)
+        rep = (w0 & 0x1FFFF) - 1
+        found = w1 & 0xFFFFF
+        if nu == 1:
+            return name + b"\t" + strings[rep] + b"\t" + str(found).encode() + b"\t1\t*"
+        dvcode = (w0 >> 22) & 3
+        dv = (w1 >> 20) & 0x7FF
+        sl, ol = w2 & 0xFFFF, w2 >> 16
+        tp = (b"" if dvcode == DV_EMPTY
+              else strings[rep] if dvcode == DV_FULL else strings[rep][:dv])
+        return name + b"\t" + tp + b"\t%d\t%d\t%d;%d" % (found, nu, sl, ol)
+
     # ---- host-side exact replay of flagged reads ---------------------------
 
     def _host_hits(self, seq: bytes) -> np.ndarray:
@@ -498,6 +571,13 @@ class SearchPipeline:
         found = (~empty) & (suffixes[np.minimum(p, len(suffixes) - 1)] == qsuf)
         hits = idx.ix[:-1][p[found]]
         return hits[hits < idx.num_labels]
+
+    def _host_hist(self, seq: bytes) -> tuple[np.ndarray, np.ndarray]:
+        """One read's exact histogram on the host: its hit labels ascending
+        and their counts."""
+        cnt = np.bincount(self._host_hits(seq))
+        nz = np.flatnonzero(cnt)
+        return nz, cnt[nz]
 
     # ---- rows -> lines ----------------------------------------------------------
 
@@ -549,10 +629,9 @@ class SearchPipeline:
         offsets = np.zeros(len(rows) + 1, np.int64)
         ls, cs = [], []
         for j, i in enumerate(rows):
-            cnt = np.bincount(self._host_hits(seq_of(int(i))))
-            nz = np.flatnonzero(cnt)
+            nz, cnt = self._host_hist(seq_of(int(i)))
             ls.append(nz.astype(np.int32))
-            cs.append(cnt[nz].astype(np.int32))
+            cs.append(cnt.astype(np.int32))
             offsets[j + 1] = offsets[j] + len(nz)
         return (offsets, np.concatenate(ls) if ls else np.zeros(0, np.int32),
                 np.concatenate(cs) if cs else np.zeros(0, np.int32))
@@ -616,32 +695,34 @@ class SearchPipeline:
                                                        offsets, flat_l, flat_c)
 
     def _vote_py(self, count, name_pool, name_offsets, handle, seq_of) -> bytes:
-        """support_ranges=8: every read voted in Python
-        (`classify.aufbau_vote_counts`), as the JAX pipeline's `finalize`
-        votes it; over-cap reads are replayed on the host.  The names are the
-        pool's NUL-terminated strings, in read order."""
+        """support_ranges=8: every read voted in Python, as the JAX
+        pipeline's `finalize` votes it.  The names are the pool's
+        NUL-terminated strings, in read order."""
+        lines = self._lines_py(name_pool.split(b"\x00")[:count], handle, seq_of)
+        return b"".join(ln + b"\n" for ln in lines if ln is not None)
+
+    def _lines_py(self, names: list[bytes], handle: _Readback, seq_of) -> list[bytes | None]:
+        """Histogram rows (any layout but the device vote's) -> each read's
+        line or None, by `classify.aufbau_vote_counts`; over-cap reads are
+        replayed on the host."""
         from utree_tpu_torch.classify import aufbau_vote_counts
 
-        labels, counts, nuniq, _ = self._unpack(self._rows(handle)[:count])
-        names = name_pool.split(b"\x00")
+        labels, counts, nuniq, _ = self._unpack(self._rows(handle)[:len(names)])
         strings, taxacut, cap = self.index.strings, self.index.config.taxacut, self.hist_cap
-        out = []
+        out: list[bytes | None] = []
         with self._phase("drain:vote"):
-            for i in range(count):
+            for i, name in enumerate(names):
                 nu = int(nuniq[i])
                 if nu == 0:
+                    out.append(None)
                     continue
                 if nu <= cap:
                     ks, vs = labels[i, :nu], counts[i, :nu]
                 else:  # device cap overflow: this read's exact histogram
-                    cnt = np.bincount(self._host_hits(seq_of(i)))
-                    ks = np.flatnonzero(cnt)
-                    vs = cnt[ks]
-                line = aufbau_vote_counts(names[i], ks, vs, strings, taxacut,
-                                          self.support_ranges)
-                if line is not None:
-                    out.append(line + b"\n")
-        return b"".join(out)
+                    ks, vs = self._host_hist(seq_of(i))
+                out.append(aufbau_vote_counts(name, ks, vs, strings, taxacut,
+                                              self.support_ranges))
+        return out
 
     def _format(self, *args) -> bytes:
         if self.support_ranges != 1:

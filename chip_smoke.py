@@ -423,7 +423,7 @@ def e2e(pipe, reads_fa, out_txt, nreads: int, path: str, expect, passes: int = 2
 
     best = 0.0
     for p in range(passes):
-        pipe.tracer = PhaseTimer(quiet=True)
+        pipe.tracer = PhaseTimer()
         t = time.perf_counter()
         n = drive(f"{path} pass {p + 1}", expect,
                   lambda: pipe.search_file(str(reads_fa), str(out_txt)))
@@ -817,7 +817,7 @@ def phase_long(dev, pipe, base: dict, work: pathlib.Path):
                     for s in shapes)
         + f"; plain {rows[0]['plain_ms']:.4f} ms at the shortest read's shape")
     out_txt = work / "smoke_long.txt"
-    pipe.tracer = PhaseTimer(quiet=True)
+    pipe.tracer = PhaseTimer()
     t = time.perf_counter()
     n = drive("long reads", ("ladder_probe", "histogram", "aufbau_vote",
                              "histogram_packed"),
@@ -1311,7 +1311,7 @@ def phase_xtree(dev, work: pathlib.Path):
         device step: pad, h2d, K9, d2h, scan-order rebuild), the ref tally
         and the writers; the rest is the taxonomy calls and the per-query
         tail."""
-        tm = PhaseTimer(quiet=True)
+        tm = PhaseTimer()
         targets = [(native, "xt_scan_queries", "record scan"),
                    (aligner, "_batch_ref_tally", "ref tally"),
                    (aligner, "_write_outputs", "writers")]

@@ -1016,7 +1016,10 @@ def e2e_run(dev, trees: list[pathlib.Path], rounds: int, kmers: int, nreads: int
 
                 for p in E2E_PASSES:
                     pipe, fa, n = pipes[tree][p]
-                    pipe.tracer = PhaseTimer(quiet=True)
+                    try:  # a tree that still narrates each phase unless quiet
+                        pipe.tracer = PhaseTimer(quiet=True)
+                    except TypeError:
+                        pipe.tracer = PhaseTimer()
                     out = work / f"e2e_ab_{i}_{p.replace(' ', '')}.txt"
                     if dev.type == "cuda":
                         torch.cuda.synchronize()

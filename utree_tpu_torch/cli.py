@@ -63,10 +63,18 @@ def _cmd_compress(a):
 
 
 def _cmd_search(a):
-    from utree_tpu_torch.formats import sniff_config
-    from utree_tpu_torch.utils.trace import PhaseTimer, Tracer
+    from utree_tpu_torch.utils import trace
 
-    tm = PhaseTimer(quiet=True)
+    # the command's phases with the index's and the table's set-up spans and
+    # the search's counters, in one record
+    with trace.scope() as tm:
+        _search(a, tm)
+
+
+def _search(a, tm):
+    from utree_tpu_torch.formats import sniff_config
+    from utree_tpu_torch.utils.trace import Tracer
+
     cfg = sniff_config(a.db)
     if cfg.packsize not in (32, 64) and not a.host and not a.rank_specific:
         # the device window extractor implements the 32/64-mer geometries;
@@ -113,8 +121,7 @@ def _cmd_search(a):
             pipe = SearchPipeline(idx, device=a.device, do_rc=a.rc,
                                   batch_size=a.batch, lookup_mode=a.lookup_mode,
                                   support_ranges=a.support_ranges,
-                                  devices=a.devices or None,
-                                  tracer=tm if a.trace else None)
+                                  devices=a.devices or None)
         with tm.phase("search"):
             if a.num_hosts:
                 n = search_file_multihost(pipe, a.reads, a.out, resume=a.resume)
@@ -127,8 +134,7 @@ def _cmd_search(a):
         if a.trace:
             print(f"table_kind: {pipe.table_kind}, layout: {pipe.layout}")
     if a.trace:
-        for name, dt in tm.phases.items():
-            print(f"{name} [{dt:.3f}s]")
+        print("\n".join(tm.lines()))
         rps = tm.rate("reads", "search")
         if rps:
             print(f"throughput: {rps:,.0f} reads/s on {where}")

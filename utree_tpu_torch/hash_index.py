@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from utree_tpu_torch.index import DeviceIndexArrays
+from utree_tpu_torch.utils import trace
 
 # 32-bit mix constants (Murmur3/splitmix-style finalizer pieces)
 _M1 = np.uint32(0x9E3779B1)
@@ -273,7 +274,9 @@ def build_canonical_hash_index(
               gather; the safety net when t2/t3 budgets cannot hold).
 
     Passing slots/load/slots2 pins a single geometry (tests)."""
-    key_lo, key_hi, vals, cpre, chi, clo, ng = _canonical_groups(index)
+    rec = trace.process()
+    with rec.phase("table:groups"):
+        key_lo, key_hi, vals, cpre, chi, clo, ng = _canonical_groups(index)
     if slots is not None:
         tiers = [(slots, load or CANON_LOAD, slots2 or CANON_SLOTS2, 1 << 27, 0)]
     else:
@@ -284,9 +287,11 @@ def build_canonical_hash_index(
         ]
     err: Exception | None = None
     for s_, load_, s2_, budget_, s3_ in tiers:
+        rec.count("table.attempts", 1)
         try:
-            return _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
-                                    s_, load_, s2_, budget_, slots3=s3_)
+            with rec.phase("table:tier"):
+                return _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
+                                        s_, load_, s2_, budget_, slots3=s3_)
         except (ValueError, RuntimeError) as e:
             err = e
     raise ValueError(f"canonical table does not fit any geometry tier: {err}")
@@ -301,7 +306,8 @@ def _canonical_groups(index: DeviceIndexArrays):
     cfg = index.config
     if cfg.packsize != 32:
         raise ValueError("canonical hash path implements k=32")
-    pre, hi, lo, ix = _reference_hits(index)
+    with trace.process().phase("table:hits"):
+        pre, hi, lo, ix = _reference_hits(index)
     # wideness keys off num_labels — the SAME quantity the jitted step uses
     # to pick the probe layout (a table built narrow but probed wide would
     # silently mis-read)
@@ -964,13 +970,18 @@ def bsearch_records(index: DeviceIndexArrays) -> np.ndarray:
     return records(index.suf_hi, index.suf_lo, index.ix)
 
 
+def check_bsearch_offsets(index: DeviceIndexArrays) -> None:
+    """Raise unless the bsearch replay can take the index's bin offsets."""
+    if index.bin_ix.dtype != np.int32:
+        raise ValueError(
+            f"the bsearch replay takes int32 bin offsets; this index holds "
+            f"{index.num_records:,} records (int64 offsets from 2^31)")
+
+
 def bsearch_to_device(index: DeviceIndexArrays, device) -> dict[str, torch.Tensor]:
     """The PACKSIZE=32 CTR records for the bsearch replay: bin_ix (2^24+1,)
     and rec (N+1, 4) (records_to_device); suf_lo (uint32) travels as its
     int32 bits and is compared unsigned.  K7 reads rec, the plain version
     the views: 16 (N+1) bytes of records, 320 MB at 20M."""
-    if index.bin_ix.dtype != np.int32:
-        raise ValueError(
-            f"the bsearch replay takes int32 bin offsets; this index holds "
-            f"{index.num_records:,} records (int64 offsets from 2^31)")
+    check_bsearch_offsets(index)
     return records_to_device(index.bin_ix, bsearch_records(index), device)

@@ -27,6 +27,7 @@ from utree_tpu_torch.hash_index import (_CANON_T1_CAP, _CANON_T2_BUDGET, _DISP_L
                                         _group_pos, _ranges_to_indices, _rc64,
                                         displaced_nseed, place_displaced_core)
 from utree_tpu_torch.index import DeviceIndexArrays
+from utree_tpu_torch.utils import trace
 
 CANON64_SLOTS = 2
 CANON64_LOAD = 0.3
@@ -194,9 +195,12 @@ def build_canonical_hash_index64(
             (CANON64_SLOTS, 0.56, 8, 1 << 26, 0),
         ]
     err = None
+    rec = trace.process()
     for s_, load_, s2_, budget_, s3_ in tiers:
+        rec.count("table.attempts", 1)
         try:
-            return _place64(lanes, k0, k1, k2, k3, ng, s_, load_, s2_, budget_, s3_)
+            with rec.phase("table:tier"):
+                return _place64(lanes, k0, k1, k2, k3, ng, s_, load_, s2_, budget_, s3_)
         except (ValueError, RuntimeError) as e:
             err = e
     raise ValueError(f"canonical64 table does not fit any geometry tier: {err}")

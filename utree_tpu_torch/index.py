@@ -28,6 +28,7 @@ from utree_tpu_torch.config import UTreeConfig
 from utree_tpu_torch.encode import W128
 from utree_tpu_torch.formats import CtrData, compute_bin_ix, read_ctr
 from utree_tpu_torch.taxonomy import count_semicolons
+from utree_tpu_torch.utils import trace
 
 
 def _probe_iters(bin_ix: np.ndarray) -> int:
@@ -65,9 +66,10 @@ class DeviceIndexArrays:
 
     @classmethod
     def from_ctr(cls, ctr: CtrData | str, config: UTreeConfig = UTreeConfig()) -> "DeviceIndexArrays":
-        if isinstance(ctr, str):
-            ctr = read_ctr(ctr, config)
-        return cls._from_parts(ctr.bin_ix, ctr.suffixes, ctr.ixs, ctr.labels, config)
+        with trace.process().phase("index"):
+            if isinstance(ctr, str):
+                ctr = read_ctr(ctr, config)
+            return cls._from_parts(ctr.bin_ix, ctr.suffixes, ctr.ixs, ctr.labels, config)
 
     @classmethod
     def from_build(cls, words: np.ndarray, ixs: np.ndarray, labels: list[bytes],
@@ -75,15 +77,19 @@ class DeviceIndexArrays:
         """Straight from sorted words and their label ids, skipping the .ctr
         round trip (the bin table still uses the reference compressor's
         algorithm, so lookups agree with a reference binary reading the
-        equivalent .ctr)."""
-        bin_ix = compute_bin_ix(words, config.word_bits, config.ctr_prefix_bits)
-        if words.dtype == W128:  # 104-bit suffix = (hi & 2^40-1, lo)
-            suffixes = np.zeros(len(words), dtype=W128)
-            suffixes["hi"] = words["hi"] & np.uint64((1 << 40) - 1)
-            suffixes["lo"] = words["lo"]
-        else:
-            suffixes = np.asarray(words, dtype=np.uint64) & np.uint64(config.suffix_mask)
-        return cls._from_parts(bin_ix, suffixes, np.asarray(ixs, np.int64), list(labels), config)
+        equivalent .ctr).  Spans `index` and, inside it, `index:bins`."""
+        rec = trace.process()
+        with rec.phase("index"):
+            with rec.phase("index:bins"):
+                bin_ix = compute_bin_ix(words, config.word_bits, config.ctr_prefix_bits)
+            if words.dtype == W128:  # 104-bit suffix = (hi & 2^40-1, lo)
+                suffixes = np.zeros(len(words), dtype=W128)
+                suffixes["hi"] = words["hi"] & np.uint64((1 << 40) - 1)
+                suffixes["lo"] = words["lo"]
+            else:
+                suffixes = np.asarray(words, dtype=np.uint64) & np.uint64(config.suffix_mask)
+            return cls._from_parts(bin_ix, suffixes, np.asarray(ixs, np.int64), list(labels),
+                                   config)
 
     @classmethod
     def _from_parts(cls, bin_ix, suffixes, ixs, labels, config) -> "DeviceIndexArrays":

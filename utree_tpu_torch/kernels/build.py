@@ -19,6 +19,8 @@ import shutil
 import subprocess
 import time
 
+from utree_tpu_torch.utils import trace
+
 PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / ".cuda_build"
@@ -129,7 +131,9 @@ def _nvcc() -> str:
 def build() -> tuple[pathlib.Path, float, str]:
     """Compile the kernels if no build of these exact sources exists.
     Returns (library path, seconds spent compiling, nvcc's ptxas report,
-    kept beside the library for a later call)."""
+    kept beside the library for a later call).  A compile counts in
+    `build.compiles` and runs in the span `build:nvcc` of the process record
+    (`utils.trace.process()`)."""
     srcs = _sources()
     digest = hashlib.sha1()
     for s in srcs:
@@ -141,31 +145,34 @@ def build() -> tuple[pathlib.Path, float, str]:
         return so, 0.0, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(exist_ok=True)
     nvcc = _nvcc()
-    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
-    t0 = time.perf_counter()
-    jobs = []
-    for src in (s for s in srcs if s.suffix == ".cu"):
-        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.PIPE, text=True)))
-    reports, failed = [], []
-    for obj, proc in jobs:  # wait for every job, so none outlives the build
-        out, err = proc.communicate()
-        reports.append(out + err)
-        if proc.returncode != 0:
-            failed.append(f"nvcc -c {obj.name} failed ({proc.returncode}):\n{err}")
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    if not failed:
-        link = subprocess.run(
-            [nvcc, "-shared", "-o", str(tmp), *(str(o) for o, _ in jobs)],
-            capture_output=True, text=True)
-        if link.returncode != 0:
-            failed.append(f"nvcc -shared failed ({link.returncode}):\n{link.stderr}")
-    for obj, _ in jobs:
-        obj.unlink(missing_ok=True)
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    rec = trace.process()
+    rec.count("build.compiles", 1)
+    with rec.phase("build:nvcc"):
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        t0 = time.perf_counter()
+        jobs = []
+        for src in (s for s in srcs if s.suffix == ".cu"):
+            obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.PIPE, text=True)))
+        reports, failed = [], []
+        for obj, proc in jobs:  # wait for every job, so none outlives the build
+            out, err = proc.communicate()
+            reports.append(out + err)
+            if proc.returncode != 0:
+                failed.append(f"nvcc -c {obj.name} failed ({proc.returncode}):\n{err}")
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *(str(o) for o, _ in jobs)],
+                capture_output=True, text=True)
+            if link.returncode != 0:
+                failed.append(f"nvcc -shared failed ({link.returncode}):\n{link.stderr}")
+        for obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     report.write_text("".join(reports))
     os.replace(tmp, so)  # atomic: a concurrent build never loads a torn file
     return so, time.perf_counter() - t0, "".join(reports)

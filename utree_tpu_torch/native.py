@@ -33,6 +33,8 @@ import subprocess
 
 import numpy as np
 
+from utree_tpu_torch.utils import trace
+
 PKG = pathlib.Path(__file__).resolve().parent
 HOST_SRC = PKG / "csrc" / "host"
 BUILD_DIR = PKG.parent / ".cuda_build"
@@ -40,7 +42,9 @@ BUILD_DIR = PKG.parent / ".cuda_build"
 
 def _compile(src: str) -> pathlib.Path:
     """Build csrc/host/<src> into a shared library unless a build of these
-    exact bytes exists.  With OpenMP where the toolchain has it."""
+    exact bytes exists.  With OpenMP where the toolchain has it.  A build
+    counts in `build.compiles` and runs in the span `build:g++` of the
+    process record (`utils.trace.process()`)."""
     cpp = HOST_SRC / src
     digest = hashlib.sha1(cpp.read_bytes()).hexdigest()[:16]
     so = BUILD_DIR / f"lib{cpp.stem}_{digest}.so"
@@ -50,13 +54,16 @@ def _compile(src: str) -> pathlib.Path:
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     base = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17"]
     errors = []
-    for flags in (["-fopenmp"], []):
-        r = subprocess.run([*base, *flags, str(cpp), "-o", str(tmp)],
-                           capture_output=True, text=True)
-        if r.returncode == 0:
-            os.replace(tmp, so)  # atomic: a concurrent build never loads a torn file
-            return so
-        errors.append(r.stderr)
+    rec = trace.process()
+    rec.count("build.compiles", 1)
+    with rec.phase("build:g++"):
+        for flags in (["-fopenmp"], []):
+            r = subprocess.run([*base, *flags, str(cpp), "-o", str(tmp)],
+                               capture_output=True, text=True)
+            if r.returncode == 0:
+                os.replace(tmp, so)  # atomic: a concurrent build never loads a torn file
+                return so
+            errors.append(r.stderr)
     tmp.unlink(missing_ok=True)
     raise RuntimeError(f"g++ could not build {cpp}:\n" + "\n".join(errors))
 

@@ -48,6 +48,14 @@ their device->host copy into pinned memory at once, and the drain waits on
 that copy's CUDA event, `queue_depth` batches later.  Output bytes equal the
 JAX pipeline's in every layout.
 
+`search_file`'s phases go to `tracer` (by default the process record,
+`utils.trace.process()`): `scan`, `piece`, `batch` holding `pack`,
+`dispatch`, `drain+vote` holding `drain:*`, `write`, `long-reads`, none
+open across a generator's yield.  The set-up spans (`table` holding
+`table:native`, `table:vote-tables`, `table:place`, `table:copy`) and the
+counters (`search.reads`, `search.replayed`, `search.redispatched`,
+`table.attempts`) go to the process record whatever the tracer.
+
 `devices=N` runs N shards from this one process (utree_tpu/pipeline.py:
 119-179): shard i on `cuda:i` (a ValueError when fewer cards are present),
 or N entries of the CPU on `device="cpu"`.  Without `lookup_mode="routed"`
@@ -64,7 +72,6 @@ on one card, say); it is no CLI option.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import pathlib
 
@@ -79,6 +86,7 @@ from utree_tpu_torch.lookup import (WIDE_LABELS, pack_reads_host,
                                     search_step_hist_packed,
                                     search_step_hist_packed_in,
                                     search_step_vote_compact)
+from utree_tpu_torch.utils import trace
 
 _MODES = ("auto", "canonical", "displaced", "bsearch", "hash", "routed")
 # `auto` table choice, as utree_tpu.pipeline resolves it: the displaced
@@ -180,12 +188,6 @@ class SearchPipeline:
                 "device='cuda' but torch.cuda.is_available() is False")
         self._mesh = self._shard_mesh(devices if multi else 1, batch_size, _shard_devices)
 
-        # the C++ scanner and formatter; a failed g++ build raises here (the
-        # port has no Python path for them)
-        from utree_tpu_torch.native import VoteEngine, fasta_lib
-
-        fasta_lib()
-        self._vote_engine = VoteEngine(index.strings, cfg.taxacut)
         self.index = index
         self.do_rc = do_rc
         self.batch_size = batch_size
@@ -193,6 +195,22 @@ class SearchPipeline:
         self.lookup_mode = lookup_mode
         self.support_ranges = support_ranges
         self.tracer = tracer
+        with trace.process().phase("table"):
+            self._init_table(device_vote, compact_readback, compact_over_cap, _table)
+
+    def _init_table(self, device_vote, compact_readback, compact_over_cap, _table) -> None:
+        """The native libraries, the readback layout, the vote tables and
+        the device table, each under its set-up span (`table:native`,
+        `table:vote-tables`, `table:place`, `table:copy`)."""
+        index, rec = self.index, trace.process()
+        cfg = index.config
+        # the C++ scanner and formatter; a failed g++ build raises here (the
+        # port has no Python path for them)
+        from utree_tpu_torch.native import VoteEngine, fasta_lib
+
+        with rec.phase("table:native"):
+            fasta_lib()
+            self._vote_engine = VoteEngine(index.strings, cfg.taxacut)
         # reads travel 2-bit packed at PACKSIZE=32 and as ASCII at 64; the
         # u16-packed histogram lanes need narrow labels and packed input
         # (utree_tpu/pipeline.py:314-315)
@@ -205,10 +223,11 @@ class SearchPipeline:
             self._init_routed(_table)
             return
         vtab = None
-        if packed_out and device_vote and support_ranges == 1:
+        if packed_out and device_vote and self.support_ranges == 1:
             from utree_tpu_torch.classify_device import build_aufbau_tables
 
-            vtab = build_aufbau_tables(index.strings)
+            with rec.phase("table:vote-tables"):
+                vtab = build_aufbau_tables(index.strings)
             if vtab.max_len > 2047:
                 vtab = None
         if not packed_out:
@@ -217,20 +236,19 @@ class SearchPipeline:
             self.layout = "vote"
         elif compact_readback and self._mesh.size == 1:
             self.layout = "compact"
-            self._over_cap = compact_over_cap or max(64, batch_size // 8)
+            self._over_cap = compact_over_cap or max(64, self.batch_size // 8)
         else:
             self.layout = "packed"
         if _table is None:
-            _table = self._build_table(index, lookup_mode)
+            _table = self._build_table(index, self.lookup_mode)
         self._kind = next((kind for key, kind in _TABLE_KINDS if key in _table), None)
         if self._kind is None:
             raise ValueError("_table must hold a device table: "
                              + ", ".join(k for k, _ in _TABLE_KINDS))
-        table = {k: v.to(self.device) for k, v in _table.items()}
         # any miss sentinel >= num_labels is equivalent (the histogram only
         # tests ix < num_labels); keep it inside int32
-        kw = dict(do_rc=do_rc, bad_ix=min(cfg.bad_ix, 0x7FFFFFFF),
-                  num_labels=index.num_labels, cap=hist_cap)
+        kw = dict(do_rc=self.do_rc, bad_ix=min(cfg.bad_ix, 0x7FFFFFFF),
+                  num_labels=index.num_labels, cap=self.hist_cap)
         if not self._packed:
             hist = functools.partial(search_step_hist, k=64, probe_iters=None)
         else:
@@ -239,13 +257,19 @@ class SearchPipeline:
         # long-read chunks need per-chunk histograms, merged on the host
         # before one vote, whatever the main step returns
         self._step_hist = functools.partial(hist, **kw)
-        if self.layout == "vote":
-            if not any(k.startswith("vt_") for k in table):
+        with rec.phase("table:copy"):
+            table = {k: v.to(self.device) for k, v in _table.items()}
+            if self.layout == "vote" and not any(k.startswith("vt_") for k in table):
                 from utree_tpu_torch.classify_device import aufbau_tables_to_device
 
                 table.update({"vt_" + k: v for k, v in
                               aufbau_tables_to_device(vtab, self.device).items()})
-            max_iters = (vtab.max_len + 4) * (hist_cap + 2) + 16
+            # data parallel: the table replicated on every shard device
+            # (utree_tpu/pipeline.py:316-374)
+            self._tables = self._mesh.replicate(table)
+            self._synchronize()
+        if self.layout == "vote":
+            max_iters = (vtab.max_len + 4) * (self.hist_cap + 2) + 16
             self._step = functools.partial(search_step_vote_compact,
                                            taxacut=cfg.taxacut,
                                            max_iters=max_iters, **kw)
@@ -254,13 +278,31 @@ class SearchPipeline:
                                            over_cap=self._over_cap, **kw)
         else:
             self._step = self._step_hist
-        # data parallel: the table replicated on every shard device
-        # (utree_tpu/pipeline.py:316-374)
-        self._tables = self._mesh.replicate(table)
         # each shard's main step; the vote layout's reads that shard's vote
         # tables, checked once here
         self._steps = [functools.partial(self._step, vote=VoteTables.from_table(t))
                        if self.layout == "vote" else self._step for t in self._tables]
+
+    def _synchronize(self) -> None:
+        """Wait for the work queued on every card of the mesh."""
+        for dev in dict.fromkeys(self._mesh.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def _placed(self, build, to_device, *args, tiers: bool = False) -> dict:
+        """`to_device(build(*args), device)`: the host placement under the
+        span `table:place`, the copy to the card under `table:copy`.  Each
+        call counts one geometry in `table.attempts`, unless `build` counts
+        its own (`tiers`, the ladders)."""
+        rec = trace.process()
+        if not tiers:
+            rec.count("table.attempts", 1)
+        with rec.phase("table:place"):
+            host = build(*args)
+        with rec.phase("table:copy"):
+            table = to_device(host, self.device)
+            self._synchronize()
+        return table
 
     def _shard_mesh(self, n: int, batch_size: int, shard_devices):
         """The n shard devices, with utree_tpu/pipeline.py:133-142's checks
@@ -304,8 +346,13 @@ class SearchPipeline:
                              f"on cards, got --devices {S}")
         self.layout = "packed"
         self._kind = "routed-displaced"
-        self._sharded = sharded = ShardedDisplacedIndex.build(self.index, S)
-        self._tables = sharded.to_devices(self._mesh)
+        rec = trace.process()
+        rec.count("table.attempts", 1)
+        with rec.phase("table:place"):
+            self._sharded = sharded = ShardedDisplacedIndex.build(self.index, S)
+        with rec.phase("table:copy"):
+            self._tables = sharded.to_devices(self._mesh)
+            self._synchronize()
         kw = dict(do_rc=self.do_rc, num_labels=self.index.num_labels,
                   cap=self.hist_cap, bad_ix=self.index.config.bad_ix)
         self._step_routed = routed_displaced_search_step(self._mesh, sharded, **kw)
@@ -324,35 +371,35 @@ class SearchPipeline:
         if index.config.packsize == 64:
             if want_displaced:
                 try:
-                    return hi.displaced64_to_device(h64.build_displaced_index64(index),
-                                                    self.device)
+                    return self._placed(h64.build_displaced_index64,
+                                        hi.displaced64_to_device, index)
                 except (ValueError, RuntimeError) as e:
                     if mode == "displaced":
                         raise RuntimeError(
                             f"--lookup-mode displaced cannot be honored: {e}") from e
             try:
-                return hi.canonical64_to_device(h64.build_canonical_hash_index64(index),
-                                                self.device)
+                return self._placed(h64.build_canonical_hash_index64,
+                                    hi.canonical64_to_device, index, tiers=True)
             except (ValueError, RuntimeError) as e:
                 raise RuntimeError(
                     "PACKSIZE=64 device search needs the canonical hash "
                     f"table, which this DB cannot build ({e}); use the "
                     "host path (search --host)") from e
         if mode == "hash":  # only when asked for, at any record count
-            return hi.hash_to_device(hi.build_hash_index(index), self.device)
+            return self._placed(hi.build_hash_index, hi.hash_to_device, index)
         if mode in ("canonical", "displaced") or (
                 mode == "auto" and n < _HASH_AUTO_MAX):
             if want_displaced:
                 try:
-                    return hi.displaced_to_device(hi.build_displaced_index(index),
-                                                  self.device)
+                    return self._placed(hi.build_displaced_index,
+                                        hi.displaced_to_device, index)
                 except (ValueError, RuntimeError) as e:
                     if mode == "displaced":
                         raise RuntimeError(
                             f"--lookup-mode displaced cannot be honored: {e}") from e
             try:
-                return hi.canonical_to_device(hi.build_canonical_hash_index(index),
-                                              self.device)
+                return self._placed(hi.build_canonical_hash_index,
+                                    hi.canonical_to_device, index, tiers=True)
             except (ValueError, RuntimeError) as e:
                 if mode == "canonical":
                     raise RuntimeError(
@@ -365,7 +412,7 @@ class SearchPipeline:
                         f"table ({e}); shard it across chips with --devices N "
                         "--lookup-mode routed, or force the ~15x-slower replay "
                         "explicitly with --lookup-mode bsearch") from e
-                return hi.bsearch_to_device(index, self.device)
+                return self._bsearch(index)
         # explicit --lookup-mode bsearch, or auto beyond the device tables'
         # ceiling, which must not be served at replay speed without asking
         if mode == "auto" and n >= _REPLAY_AUTO_MAX:
@@ -374,7 +421,15 @@ class SearchPipeline:
                 "ceiling; shard it across chips with --devices N --lookup-mode "
                 "routed, or force the ~15x-slower replay explicitly with "
                 "--lookup-mode bsearch")
-        return hi.bsearch_to_device(index, self.device)
+        return self._bsearch(index)
+
+    def _bsearch(self, index: DeviceIndexArrays) -> dict:
+        """`hash_index.bsearch_to_device`: the records placed, then copied."""
+        from utree_tpu_torch import hash_index as hi
+
+        hi.check_bsearch_offsets(index)
+        return self._placed(hi.bsearch_records,
+                            functools.partial(hi.records_to_device, index.bin_ix), index)
 
     @property
     def table_kind(self) -> str:
@@ -489,8 +544,11 @@ class SearchPipeline:
         """A dispatched batch's line for each read (None where it hit
         nothing), without newlines, voted in Python; flagged and over-cap
         reads replayed on the host."""
+        rec = trace.process()
+        rec.count("search.reads", len(names))
         if self.layout == "vote":
-            u = self._wait_rows(handle).view(np.uint32).reshape(-1, 3)
+            u = self._wait_rows(handle).view(np.uint32).reshape(-1, 3)[:len(names)]
+            rec.count("search.replayed", int(np.count_nonzero((u[:, 0] >> 24) & 1)))
             return [self._devvote_line(nm, int(u[i, 0]), int(u[i, 1]), int(u[i, 2]), seqs[i])
                     for i, nm in enumerate(names)]
         return self._lines_py(names, handle, lambda i: seqs[i])
@@ -582,7 +640,7 @@ class SearchPipeline:
     # ---- rows -> lines ----------------------------------------------------------
 
     def _phase(self, name: str):
-        return self.tracer.phase(name) if self.tracer is not None else contextlib.nullcontext()
+        return (self.tracer if self.tracer is not None else trace.process()).phase(name)
 
     def _wait_rows(self, handle: _Readback) -> np.ndarray:
         with self._phase("drain:d2h-wait"):
@@ -596,6 +654,7 @@ class SearchPipeline:
         arr = self._wait_rows(handle)
         if handle.kind == "routed":
             if arr.shape[0] and arr[0, -1]:
+                trace.process().count("search.redispatched", 1)
                 return self._wait_rows(handle.redo())
             return arr[:, :-1]
         if handle.kind != "compact":
@@ -614,6 +673,7 @@ class SearchPipeline:
         over = arr[2 * b:].reshape(oc + 1, cap + 1)
         n_over = int(over[0, 0])
         if n_over > oc:
+            trace.process().count("search.redispatched", 1)
             return self._wait_rows(handle.redo())
         mat = np.zeros((b, cap + 1), np.int32)
         mat[:, cap] = main[:, 0]  # tail: nuniq | found<<5
@@ -626,6 +686,7 @@ class SearchPipeline:
     def _replay(self, rows: np.ndarray, seq_of):
         """Exact host histograms of the reads `rows`, as an override CSR
         (offsets, labels, counts)."""
+        trace.process().count("search.replayed", len(rows))
         offsets = np.zeros(len(rows) + 1, np.int64)
         ls, cs = [], []
         for j, i in enumerate(rows):
@@ -709,6 +770,7 @@ class SearchPipeline:
 
         labels, counts, nuniq, _ = self._unpack(self._rows(handle)[:len(names)])
         strings, taxacut, cap = self.index.strings, self.index.config.taxacut, self.hist_cap
+        trace.process().count("search.replayed", int(np.count_nonzero(nuniq > cap)))
         out: list[bytes | None] = []
         with self._phase("drain:vote"):
             for i, name in enumerate(names):
@@ -724,12 +786,13 @@ class SearchPipeline:
                                               self.support_ranges))
         return out
 
-    def _format(self, *args) -> bytes:
+    def _format(self, count, *args) -> bytes:
+        trace.process().count("search.reads", count)
         if self.support_ranges != 1:
-            return self._vote_py(*args)
+            return self._vote_py(count, *args)
         return {"vote": self._format_devvote, "compact": self._vote_packed,
                 "packed": self._vote_packed,
-                "unpacked": self._vote_unpacked}[self.layout](*args)
+                "unpacked": self._vote_unpacked}[self.layout](count, *args)
 
     def _unpack(self, arr: np.ndarray):
         """Histogram rows (either layout) -> labels, counts (B, cap), nuniq,
@@ -762,6 +825,9 @@ class SearchPipeline:
         labels, counts, nuniq, _ = self._unpack(self._rows(
             self.dispatch_matrix(chunks, lens, step=step)))
         cap = self.hist_cap
+        rec = trace.process()
+        rec.count("search.reads", 1)
+        rec.count("search.replayed", int(np.count_nonzero(nuniq > cap)))
         agg: dict[int, int] = {}
         for r in range(len(chunks)):
             if nuniq[r] > cap:  # chunk overflowed the device histogram
@@ -802,15 +868,16 @@ class SearchPipeline:
                             sc = FastaScanner(tail)
                         yield sc
                     return
-                data = tail + chunk
-                if len(chunk) == chunk_bytes:
-                    cut = data.rfind(b"\n>")
-                    if cut == -1:
-                        tail = data  # one record spans the chunk: keep growing
-                        continue
-                    piece, tail = data[: cut + 1], data[cut + 1:]
-                else:
-                    piece, tail = data, b""
+                with tm.phase("piece"):
+                    data = tail + chunk
+                    if len(chunk) == chunk_bytes:
+                        cut = data.rfind(b"\n>")
+                        if cut == -1:
+                            tail = data  # one record spans the chunk: keep growing
+                            continue
+                        piece, tail = data[: cut + 1], data[cut + 1:]
+                    else:
+                        piece, tail = data, b""
                 if piece:
                     with tm.phase("scan"):
                         sc = FastaScanner(piece)
@@ -825,9 +892,8 @@ class SearchPipeline:
         only that slice of the file's records.  Output bytes equal an
         uninterrupted run's and the JAX pipeline's."""
         from utree_tpu_torch.utils.checkpoint import SearchCheckpoint
-        from utree_tpu_torch.utils.trace import PhaseTimer
 
-        tm = self.tracer if self.tracer is not None else PhaseTimer(quiet=True)
+        tm = self.tracer if self.tracer is not None else trace.process()
         ckpt = SearchCheckpoint(out_path)
         skip, out_bytes = ckpt.load() if resume else (0, 0)
         range_lo, range_hi = record_range if record_range is not None else (0, None)
@@ -875,12 +941,10 @@ class SearchPipeline:
                 spans, acc, maxlen = [], 0, 0
                 return item
 
-            for sc in self._iter_fasta_pieces(reads_path, tm):
-                if range_hi is not None and r_global >= range_hi:
-                    break
-                n_piece = sc.num_records
-                lens_all = sc.seq_lengths()
-                r = 0
+            def walk(sc, r, n_piece, lens_all):
+                """From record r of the piece on to the next items to
+                emit: (items, where to go on), None at the piece's end."""
+                nonlocal r_global, acc, maxlen
                 while r < n_piece:
                     if range_hi is not None and r_global >= range_hi:
                         break
@@ -891,12 +955,9 @@ class SearchPipeline:
                         continue
                     if lens_all[r] > threshold:
                         b = flush()  # long reads emit in record order
-                        if b is not None:
-                            yield b
-                        yield ("long", sc.record_name(r), sc.record_seq(r))
-                        r += 1
                         r_global += 1
-                        continue
+                        long = ("long", sc.record_name(r), sc.record_seq(r))
+                        return ([long] if b is None else [b, long]), r + 1
                     e = r
                     lim = self.batch_size - acc
                     while (e < n_piece and e - r < lim
@@ -912,8 +973,23 @@ class SearchPipeline:
                         r = e
                         r_global += count
                     if acc >= self.batch_size:
-                        yield flush()
-            b = flush()
+                        return [flush()], r
+                return [], None
+
+            # the walk runs in span `batch`, which closes before each yield:
+            # the consumer's dispatch and drain are not inside it
+            for sc in self._iter_fasta_pieces(reads_path, tm):
+                if range_hi is not None and r_global >= range_hi:
+                    break
+                with tm.phase("batch"):
+                    lens_all = sc.seq_lengths()
+                r = 0
+                while r is not None:
+                    with tm.phase("batch"):
+                        items, r = walk(sc, r, sc.num_records, lens_all)
+                    yield from items
+            with tm.phase("batch"):
+                b = flush()
             if b is not None:
                 yield b
             yield ("eof", min(r_global, range_hi) if range_hi is not None else r_global)

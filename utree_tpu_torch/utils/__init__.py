@@ -1,2 +1,3 @@
 """Host utilities of a search: `checkpoint.SearchCheckpoint` (resume) and
-`trace.PhaseTimer` (phase times, reads/s)."""
+`trace` (phase times and counters, the process's own record, the
+torch.profiler trace)."""

@@ -1,8 +1,13 @@
 """Tracing of a search (the port's copy of `utree_tpu/utils/trace.py`).
 
-- PhaseTimer: structured phase timing in the reference's narration style
-  (`phase [dt]`, xtree.c:289-473) plus a machine-readable summary and
-  throughput counters (reads/s);
+- PhaseTimer: inclusive seconds by phase name and named counters; while a
+  `torch.profiler` records, each phase is also a profiler annotation
+  `phase:<name>`, so a Chrome trace holds the program's phases on the same
+  clock as the card's kernels;
+- process(): the process's own PhaseTimer.  Set-up spans (`index`,
+  `table`, `build:*`) and the search's counters (`search.*`, `table.*`,
+  `build.*`) always go there, whatever tracer a search was handed, so they
+  can be read after the fact;
 - Tracer: `torch.profiler` around a block, the counterpart of the JAX
   package's `jax.profiler` trace; writes a Chrome trace (chrome://tracing,
   Perfetto, TensorBoard's profiler plugin) of the host's operators and, on a
@@ -15,28 +20,49 @@ import contextlib
 import json
 import os
 import socket
+import sys
 import time
+
+PHASE = "phase:"
+
+
+def _profiling() -> bool:
+    """Whether a torch.profiler is recording in this process: the plain
+    module flag torch sets at its start and clears at its stop (no torch,
+    no profiler)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
 
 
 class PhaseTimer:
-    """Named phase timers; prints `phase [dt]` like the reference and keeps a
-    summary dict for logs/JSON."""
+    """Inclusive seconds by phase name (`phases`, in the order each name
+    first opened, with the number of phases open around it then in
+    `depth`) and counters (`counts`)."""
 
-    def __init__(self, quiet: bool = False):
+    def __init__(self):
         self.phases: dict[str, float] = {}
+        self.depth: dict[str, int] = {}
         self.counts: dict[str, float] = {}
-        self.quiet = quiet
+        self._open = 0
 
     @contextlib.contextmanager
     def phase(self, name: str):
+        if name not in self.phases:
+            self.phases[name] = 0.0
+            self.depth[name] = self._open
+        self._open += 1
         t0 = time.perf_counter()
         try:
-            yield
+            if _profiling():
+                from torch.profiler import record_function
+
+                with record_function(PHASE + name):
+                    yield
+            else:
+                yield
         finally:
-            dt = time.perf_counter() - t0
-            self.phases[name] = self.phases.get(name, 0.0) + dt
-            if not self.quiet:
-                print(f"{name} [{dt:.3f}s]")
+            self.phases[name] += time.perf_counter() - t0
+            self._open -= 1
 
     def count(self, name: str, n: float):
         self.counts[name] = self.counts.get(name, 0.0) + n
@@ -45,15 +71,40 @@ class PhaseTimer:
         dt = self.phases.get(phase_name, 0.0)
         return self.counts.get(count_name, 0.0) / dt if dt else 0.0
 
-    def summary(self) -> dict:
-        out = {"phases_s": dict(self.phases), "counts": dict(self.counts)}
-        if "reads" in self.counts and "search" in self.phases:
-            out["reads_per_sec"] = self.rate("reads", "search")
-        return out
+    def lines(self) -> list[str]:
+        """`name [seconds]` a phase, indented two spaces a phase open
+        around it, then `name: count` a counter."""
+        return ([f"{'  ' * self.depth[name]}{name} [{s:.3f}s]" for name, s in self.phases.items()]
+                + [f"{name}: {n:,.0f}" for name, n in self.counts.items()])
 
-    def dump(self, path: str):
-        with open(path, "w") as f:
-            json.dump(self.summary(), f, indent=2)
+    def add(self, other: "PhaseTimer") -> None:
+        """Add `other`'s phases and counters to this timer's."""
+        for name, s in other.phases.items():
+            self.depth.setdefault(name, other.depth[name])
+            self.phases[name] = self.phases.get(name, 0.0) + s
+        for name, n in other.counts.items():
+            self.count(name, n)
+
+
+_PROCESS = PhaseTimer()
+
+
+def process() -> PhaseTimer:
+    """This process's PhaseTimer (set-up spans and counters)."""
+    return _PROCESS
+
+
+@contextlib.contextmanager
+def scope():
+    """A fresh process record for the block (one CLI command, one test),
+    added to the record outside it when the block ends."""
+    global _PROCESS
+    outer, _PROCESS = _PROCESS, PhaseTimer()
+    try:
+        yield _PROCESS
+    finally:
+        inner, _PROCESS = _PROCESS, outer
+        outer.add(inner)
 
 
 class Tracer:

@@ -20,8 +20,10 @@ Phases; each passes or the script exits non-zero:
    port's exact host path) must give the same bytes as the port's lines for
    them;
 6. ladder: the same tier under lookup_mode="auto" with no table given, which
-   must resolve to the canonical ladder (below 80M records); its geometry
-   and build time; K4 ladder_probe against its plain version; the reads end
+   must resolve to the canonical ladder (below 80M records), placed on the
+   card (`table.place_device` 1); its geometry, build time, placement
+   seconds and peak device memory; c1, c2 and c3 bit for bit the placement
+   on CPU tensors; K4 ladder_probe against its plain version; the reads end
    to end twice; the output must equal phase 4's byte for byte and the host
    path's for the first 2048 reads;
 7. wide labels: bench's tier with 70,000 labels (IXTYPE=u32): the ladder at
@@ -503,22 +505,51 @@ def phase_kernels(dev, table, reads, index, max_iters):
 
 
 def phase_ladder(dev, base: dict, work: pathlib.Path):
-    """Phase 6: the narrow ladder that `auto` resolves to at this size."""
+    """Phase 6: the narrow ladder that `auto` resolves to at this size,
+    placed on the card, held bit for bit to the same placement on CPU
+    tensors."""
+    import torch
+
     from utree_tpu_torch import lookup
+    from utree_tpu_torch.hash_index import build_canonical_hash_index
     from utree_tpu_torch.pipeline import SearchPipeline
+    from utree_tpu_torch.utils import trace
 
     index, reads = base["index"], base["reads"]
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    pipe = SearchPipeline(index, device=dev, do_rc=True, batch_size=BATCH,
-                          hist_cap=HIST_CAP)
+    with trace.scope() as rec:
+        pipe = SearchPipeline(index, device=dev, do_rc=True, batch_size=BATCH,
+                              hist_cap=HIST_CAP)
     build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - held
     if pipe.table_kind != "canonical":
         fail(f"auto resolved to {pipe.table_kind} at {index.num_records} records")
+    on_card = rec.counts.get("table.place_device", 0)
+    if on_card != 1:
+        fail(f"the ladder was not placed on the card (table.place_device {on_card})")
     t = base["k32_tables"]["c1"] = pipe._tables[0]
     geo = {k: tuple(t[k].shape) for k in ("c1", "c2", "c3")}
     log(f"ladder: auto -> canonical at {index.num_records:,} records; built in "
         f"{build_s:.1f} s; slots {geo['c1'][1] // 3}/{geo['c2'][1] // 3}/"
         f"{geo['c3'][1] // 3}; c1 {geo['c1']}, c2 {geo['c2']}, c3 {geo['c3']}")
+    t1 = time.perf_counter()
+    host = build_canonical_hash_index(index)
+    cpu_s = time.perf_counter() - t1
+    for k, a in (("c1", host.t1), ("c2", host.t2), ("c3", host.t3)):
+        if not torch.equal(t[k].cpu(), torch.from_numpy(a)):
+            fail(f"the ladder placed on the card differs from the CPU placement in {k}")
+    ph = rec.phases
+    log(f"ladder placed on the card: table:place {ph['table:place']:.3f} s "
+        f"(table:groups {ph['table:groups']:.3f} s, of it table:hits "
+        f"{ph['table:hits']:.3f} s; {rec.counts['table.attempts']:.0f} tiers "
+        f"{ph['table:tier']:.3f} s), table:copy {ph['table:copy']:.3f} s; peak device "
+        f"memory {peak / 1e9:.3f} GB above the {held / 1e9:.3f} GB held before; "
+        f"table.place_device {on_card:.0f}; c1, c2, c3 equal to the placement on "
+        f"CPU tensors ({cpu_s:.1f} s)")
+    del host
     packed, vbits, lens = batch_tensors(dev, reads)
     kw = dict(do_rc=True, bad_ix=0xFFFF, true_len=(READ_LEN + 7) & ~7,
               num_labels=index.num_labels)

@@ -2,12 +2,12 @@
 
 The port imports nothing of utree_tpu: it keeps copies of the host modules
 it needs (config, formats, index, encode, classify, search_host,
-classify_device.build_aufbau_tables, the numpy table placement of
-hash_index and hash_index64).  Each copy takes the same seeded inputs as
-its original here and must give the same arrays and bytes exactly.  The
-last test reads every file of the port (and chip_smoke.py and the GPU
-tests, which run where JAX is absent) and fails on an import of utree_tpu,
-bench or jax."""
+classify_device.build_aufbau_tables, the table placement of hash_index
+and hash_index64, whose ladder runs as tensor code on the CPU here).
+Each copy takes the same seeded inputs as its original here and must give
+the same arrays and bytes exactly.  The last test reads every file of the
+port (and chip_smoke.py and the GPU tests, which run where JAX is absent)
+and fails on an import of utree_tpu, bench or jax."""
 
 import ast
 import dataclasses
@@ -15,6 +15,7 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 import utree_tpu.classify as j_classify
 import utree_tpu.classify_device as j_classify_device
@@ -37,6 +38,7 @@ from utree_tpu.index import DeviceIndexArrays as JaxIndex
 from utree_tpu.testdata import make_toy_db, make_toy_reads
 from utree_tpu_torch.convert import index_from_jax
 from utree_tpu_torch.index import DeviceIndexArrays as PortIndex
+from utree_tpu_torch.utils import trace
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 # name -> (config, toy DB seed, refs, ref length, labels padded to)
@@ -171,6 +173,134 @@ def test_spilled_tables_equal_jax(dbs):
     want = j_hash._place_canonical(*j_hash._canonical_groups(jx), *chain, slots3=16)
     got = t_hash._place_canonical(*t_hash._canonical_groups(port), *chain, slots3=16)
     assert _equal(got, want) and got.t3.shape[0] > 8
+
+
+@pytest.mark.parametrize("refused", [1, 2], ids=["tier-a", "tiers-a-b"])
+@pytest.mark.parametrize("name", ["k32", "k32-u32"])
+def test_refused_tiers_equal_jax(dbs, monkeypatch, name, refused):
+    """The ladder with its first tier (or its first two) refused by budgets
+    pinned low in both packages: the tier kept, array for array, and one
+    `table.attempts` a tier tried."""
+    pins = {"_CANON_T1_CAP": 1 << 12, "_CANON_T2_BUDGET": 12 * 16}
+    if refused == 2:
+        pins.update(_T3_ENTRY_BUDGET=0, _T2_BYTE_CAP=1 << 12)
+    for mod in (j_hash, t_hash):
+        for k, v in pins.items():
+            monkeypatch.setattr(mod, k, v)
+    jx = dbs[name]["jax"]
+    want = j_hash.build_canonical_hash_index(jx)
+    with trace.scope() as rec:
+        got = t_hash.build_canonical_hash_index(index_from_jax(jx))
+    assert _equal(got, want) and rec.counts["table.attempts"] == refused + 1
+    assert (got.slots, got.slots2, got.slots3) == ((4, 2, 16) if refused == 1 else (4, 8, 1))
+    assert got.t2.shape[0] > 8 and "table.place_device" not in rec.counts
+
+
+def _edge_words(rng):
+    """uint64 32-mers at the lanes' edges (0, all ones, the top bit alone or
+    with the low bit, one 32-bit half all ones, alternating codes), 200
+    palindromes (rc(w) == w) and 500 random words with the top bit set.
+    Returns (words, palindromes)."""
+    edges = np.array([0, (1 << 64) - 1, 1 << 63, (1 << 63) | 1, 0xFFFFFFFF,
+                      0xFFFFFFFF << 32, 0x5555555555555555, 0xAAAAAAAAAAAAAAAA], np.uint64)
+    half = rng.integers(0, 1 << 32, 200, dtype=np.uint64)
+    # rc of a word below 2^32 carries rev2(~h) in its high half
+    pal = (j_hash._rc64(half) & np.uint64(0xFFFFFFFF00000000)) | half
+    top = rng.integers(0, 1 << 63, 500, dtype=np.uint64) | np.uint64(1 << 63)
+    return np.concatenate([edges, pal, top]), pal
+
+
+def test_rc64_twin_equals_jax():
+    """The port's reverse complement, from a uint64 array and from an int64
+    tensor of the same bits, against the JAX package's."""
+    words, pal = _edge_words(np.random.default_rng(8))
+    want = j_hash._rc64(words)
+    assert _equal(t_hash._rc64(words), want)
+    got = t_hash._rc64(torch.from_numpy(words.view(np.int64)))
+    assert got.dtype == torch.int64 and np.array_equal(got.numpy().view(np.uint64), want)
+    assert np.array_equal(j_hash._rc64(pal), pal) and np.array_equal(t_hash._rc64(pal), pal)
+
+
+@pytest.mark.parametrize("salt", [0, 0x6A09E667, 0x5BD1E995, 0x27D4EB2F])
+def test_mix_twin_equals_numpy(salt):
+    """The ladder's bucket mix on u32 lanes against `_mix_np`, lanes as
+    `_canonical_groups` gives them (int32, negative included): every triple
+    of edge values, then random lanes."""
+    edges = np.array([0, 1, 0xFF, 0xFFFF, 0x10000, 0x7FFFFFFF, -0x80000000, -2, -1], np.int32)
+    grid = [a.ravel() for a in np.meshgrid(edges, edges, edges, indexing="ij")]
+    rng = np.random.default_rng(salt & 0xFFFF)
+    rand = rng.integers(-(1 << 31), 1 << 31, (3, 4000)).astype(np.int32)
+    pre, hi, lo = (np.concatenate([g, r]) for g, r in zip(grid, rand))
+    want = j_hash._mix_np(pre, hi, lo ^ np.int64(salt))
+    got = t_hash._salted_mix(*(torch.from_numpy(a) for a in (pre, hi, lo)), salt)
+    assert got.dtype == torch.int64 and np.array_equal(got.numpy(), want.astype(np.int64))
+    assert _equal(t_hash._mix_np(pre, hi, lo ^ np.int64(salt)), want)
+
+
+@pytest.mark.parametrize("b", [1, 8, 1024, 1 << 20])
+def test_group_pos_twin_equals_jax(b):
+    """Group positions from a uint32 array (NumPy out) and from a u32-lane
+    tensor (tensors out) against the JAX package's, edge hashes included."""
+    rng = np.random.default_rng(b)
+    h = np.concatenate([[0, 0xFFFFFFFF, 0xFFFFFFFF, 0x80000000],
+                        rng.integers(0, 1 << 32, 5000)]).astype(np.uint32)
+    want = j_hash._group_pos(h, b)
+    got = t_hash._group_pos(h, b)
+    assert all(_equal(g, w) for g, w in zip(got, want))
+    got = t_hash._group_pos(torch.from_numpy(h.astype(np.int64)), b)
+    assert all(g.dtype == torch.int64 and np.array_equal(g.numpy(), w)
+               for g, w in zip(got, want))
+    assert all(len(a) == 0 for a in t_hash._group_pos(np.zeros(0, np.uint32), b))
+
+
+def _anomalous_bins(index) -> int:
+    """Populated bins whose record range is not strictly increasing by
+    suffix: those `_reference_hits` replays probe by probe."""
+    n = index.num_records
+    s = (index.suf_hi[:n].astype(np.uint64) << np.uint64(32)) | index.suf_lo[:n].view(np.uint32)
+    starts, ends = index.bin_ix[:-1].astype(np.int64), index.bin_ix[1:].astype(np.int64)
+    return sum(bool(np.any(s[a + 1:b] <= s[a:b - 1]))
+               for a, b in zip(starts[ends > starts + 1], ends[ends > starts + 1]))
+
+
+def _fold_cases():
+    from test_torch_hash import CASES
+
+    words, pal = _edge_words(np.random.default_rng(9))
+    words = np.unique(np.concatenate([words, j_hash._rc64(words[:300])]))
+    # one word alone in prefix bin 0 with the largest suffix: the next
+    # populated bin's range takes it in and is no longer sorted (as
+    # tests/test_torch_lookup.py's _abnormal_index)
+    rng = np.random.default_rng(21)
+    merged = np.concatenate([[np.uint64(0xFFFFFFFFFF)],
+                             np.unique(rng.integers(1 << 40, 1 << 46, 4000, dtype=np.uint64))])
+    cases = {k: CASES[k] for k in ("singleton-first-bin", "contaminated-bin0", "u32")}
+    cases["merged-unsorted-bin"] = lambda: (merged, np.arange(len(merged)) % 30, 30,
+                                            UTreeConfig(), None)
+    cases["edges-and-palindromes"] = lambda: (words, np.arange(len(words)) % 11, 11,
+                                              UTreeConfig(), None)
+    return cases
+
+
+@pytest.mark.parametrize("case", ["singleton-first-bin", "contaminated-bin0",
+                                  "merged-unsorted-bin", "u32", "edges-and-palindromes"])
+def test_canonical_fold_equals_jax(case):
+    """`_canonical_groups` (NumPy out, and int32 tensors out) against the
+    JAX package's, on DBs with anomalous bins (the compressor's quirks),
+    wide labels, words with the top bit set, w and rc(w) under different
+    labels, and palindromes."""
+    words, ixs, nlab, cfg, _ = _fold_cases()[case]()
+    jx = JaxIndex.from_build(words, np.asarray(ixs, np.int64),
+                             [b"l%d" % i for i in range(nlab)], cfg)
+    if case == "merged-unsorted-bin":
+        assert _anomalous_bins(jx) > 0
+    want = j_hash._canonical_groups(jx)
+    got = t_hash._canonical_groups(index_from_jax(jx))
+    assert len(got) == len(want) and all(_equal(g, w) for g, w in zip(got, want))
+    tens = t_hash._canonical_groups(index_from_jax(jx), "cpu")
+    assert tens[-1] == want[-1] and all(
+        t.dtype == torch.int32 and np.array_equal(t.numpy(), w)
+        for t, w in zip(tens[:-1], want[:-1]))
 
 
 @pytest.mark.parametrize("support_ranges", [1, 8])

@@ -252,6 +252,35 @@ def _probe_and_hists(table, packed, vbits, lens, num_labels, probe):
                                    tl.unpacked_hist(ids, num_labels, cap))
 
 
+def test_ladder_placed_on_card_equals_cpu(dev):
+    """The ladder placed on the card at 20M+ keys: the fold, the tier walk
+    (`table.place_device` 1) and tier B's three-level chain give c1, c2 and
+    c3 bit for bit as the same code on CPU tensors."""
+    from utree_tpu_torch.hash_index import (_canonical_groups, _place_canonical,
+                                            build_canonical_hash_index)
+    from utree_tpu_torch.utils import trace
+
+    index, _, _ = make_tier(20_100_000, 64)  # 20M distinct 32-mers and more
+    with trace.scope() as rec:
+        card = build_canonical_hash_index(index, device=dev)
+    assert rec.counts["table.place_device"] == 1 and card.t1.device.type == "cuda"
+    host = build_canonical_hash_index(index)
+    assert card.num_entries == host.num_entries >= 20_000_000
+    for k in ("t1", "t2", "t3"):
+        assert torch.equal(getattr(card, k).cpu(), torch.from_numpy(getattr(host, k)))
+    del card, host
+    groups = _canonical_groups(index, dev)
+    cpu = _canonical_groups(index, "cpu")
+    assert groups[-1] == cpu[-1] and all(torch.equal(g.cpu(), c)
+                                         for g, c in zip(groups[:-1], cpu[:-1]))
+    chain = (4, 0.56, 2, 1 << 27)  # tier B's geometry, refused tier A or not
+    card = _place_canonical(*groups, *chain, slots3=16)
+    host = _place_canonical(*cpu, *chain, slots3=16)
+    assert card.t2.shape[0] > 8 and card.t3.shape[0] > 8
+    for k in ("t1", "t2", "t3"):
+        assert torch.equal(getattr(card, k).cpu(), getattr(host, k))
+
+
 @pytest.mark.parametrize("geometry", ["default", "chain"])
 def test_k4_ladder_probe_matches_plain(tier, dev, geometry):
     from utree_tpu_torch.hash_index import canonical_to_device

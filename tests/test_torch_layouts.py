@@ -288,6 +288,50 @@ def _no_fit(*a, **k):
     raise ValueError("no geometry fits")
 
 
+@pytest.mark.parametrize("error", [torch.OutOfMemoryError, RuntimeError],
+                         ids=["out-of-memory", "runtime-error"])
+def test_device_error_in_a_tier_propagates(env, monkeypatch, error):
+    """A device out of memory, or any RuntimeError that is not a budget
+    refusal, raised inside a ladder tier leaves build_canonical_hash_index
+    and SearchPipeline(...) as it is: no next tier, no bsearch."""
+    import utree_tpu_torch.hash_index as TH
+
+    tiers = []
+
+    def place(*a, **k):
+        tiers.append(a[7])
+        raise error("CUDA out of memory")
+
+    monkeypatch.setattr(TH, "_place_canonical", place)
+    port = index_from_jax(_index(env, "narrow"))
+    with pytest.raises(error, match="out of memory"):
+        TH.build_canonical_hash_index(port)
+    with pytest.raises(error, match="out of memory"):
+        SearchPipeline(port, device="cpu", do_rc=True, batch_size=BATCH)
+    assert tiers == [2, 2]  # tier A, once each
+
+
+def test_budget_refusal_moves_to_next_tier(env, monkeypatch):
+    """A budget refusal (TierRefused) in tier A: the pipeline places tier
+    B and counts both attempts."""
+    import utree_tpu_torch.hash_index as TH
+    from utree_tpu_torch.utils import trace
+
+    real = TH._place_canonical
+
+    def place(*a, **k):
+        if a[7] == 2:
+            raise TH.TierRefused("canonical table would exceed the HBM budget")
+        return real(*a, **k)
+
+    monkeypatch.setattr(TH, "_place_canonical", place)
+    with trace.scope() as rec:
+        pipe = SearchPipeline(index_from_jax(_index(env, "narrow")), device="cpu",
+                              do_rc=True, batch_size=BATCH)
+    assert pipe.table_kind == "canonical" and pipe._tables[0]["c1"].shape[1] == 12
+    assert rec.counts["table.attempts"] == 2 and "table.place_device" not in rec.counts
+
+
 def test_auto_falls_back_to_bsearch(env, tmp_path, monkeypatch):
     """With both table builders failing (the JAX package's and the port's
     copies), `auto` takes the bsearch replay in both pipelines below 80M

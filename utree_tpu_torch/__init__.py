@@ -11,8 +11,9 @@ host code it needs.
                    hist_compact (+ plain versions)
   classify_device  aufbau vote: K3 aufbau_vote (+ plain version), and the
                    walk's label tables (build_aufbau_tables)
-  hash_index       the displaced table and the canonical ladder (numpy
-                   placement), and every table -> device tensors
+  hash_index       the displaced table (numpy placement) and the
+                   canonical ladder (torch, placed on the pipeline's
+                   device), and every table -> device tensors
   hash_index64     the 64-mer ladder and displaced table (numpy placement)
   pipeline         SearchPipeline: GG search at PACKSIZE=32 on either table
                    or the bsearch replay, at PACKSIZE=64 on either 64-mer

@@ -1,5 +1,9 @@
-"""Exact hash tables of the reference lookup: the port's copy of the numpy
+"""Exact hash tables of the reference lookup: the port's copy of the
 placement in `utree_tpu/hash_index.py`, and the device tables built from it.
+The canonical fold, the group positions and the ladder's tiers are tensor
+code, run on the card where the pipeline places its ladder there and on
+the CPU for the other builders (the same bits as the NumPy original); the
+rest is NumPy, as in the original.
 
 The reference lookup is not pure membership: the compressor's quirky bin
 table can make existing k-mers unfindable or let a bin's probe range
@@ -19,7 +23,8 @@ The legacy two-table hash (`build_hash_index`) keys the forward word
 itself: one 8-slot t1 row per bucket, its overflow in a differently mixed
 t2, one label id a slot.
 
-All move to a device as int32 tensors under the JAX pytree's keys:
+All move to a device as int32 tensors under the JAX pytree's keys (a
+table placed on the card already is one and passes through):
 
   displaced_to_device    {d1, ds, d3}
   canonical_to_device    {c1, c2, c3}
@@ -41,7 +46,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from utree_tpu_torch._u32 import M, i32, u32
 from utree_tpu_torch.index import DeviceIndexArrays
+from utree_tpu_torch.lookup import mix
 from utree_tpu_torch.utils import trace
 
 # 32-bit mix constants (Murmur3/splitmix-style finalizer pieces)
@@ -68,6 +75,7 @@ CANON_SLOTS2 = 16
 # satisfy both raise, and the pipeline falls back to the bsearch path.
 _CANON_T2_BUDGET = (1 << 20) + (1 << 18)  # 1.25MB of entries -> t2 <= ~1.5MB
 _CANON_T1_CAP = 6 << 30  # v5e HBM is 16GB; measured step workspace + t2 need ~8GB headroom at batch 65536
+_SIGN = -(1 << 63)  # w ^ _SIGN: a uint64's order as its int64 bits' order
 
 
 def _mix_np(pre: np.ndarray, hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
@@ -204,20 +212,23 @@ def _probe_range(suffixes: np.ndarray, ixs: np.ndarray, q: int):
     return int(ixs[p]) if int(suffixes[p]) == q else None
 
 
-def _rc64(w: np.ndarray) -> np.ndarray:
-    """uint64 reverse complement of 32-mers: complement 2-bit codes (A<->T,
-    C<->G under the 2-bit encoding is bitwise NOT) then reverse base order
-    (arithmetic form of the RC table, itree.c:93-95,891-897)."""
+def _rc64(w):
+    """Reverse complement of 32-mers: complement the 2-bit codes (A<->T,
+    C<->G under the 2-bit encoding is bitwise NOT), then reverse the base
+    order (arithmetic form of the RC table, itree.c:93-95,891-897).
+
+    A uint64 array gives a uint64 array; an int64 tensor (the uint64 bits)
+    gives an int64 tensor on its device.  Each right shift is masked, since
+    an int64 shifts its sign bit in."""
+    if isinstance(w, np.ndarray):
+        t = torch.from_numpy(np.asarray(w, np.uint64).view(np.int64))
+        return _rc64(t).numpy().view(np.uint64)
     x = ~w
-    m2 = np.uint64(0x3333333333333333)
-    m4 = np.uint64(0x0F0F0F0F0F0F0F0F)
-    m8 = np.uint64(0x00FF00FF00FF00FF)
-    m16 = np.uint64(0x0000FFFF0000FFFF)
-    x = ((x & m2) << np.uint64(2)) | ((x >> np.uint64(2)) & m2)
-    x = ((x & m4) << np.uint64(4)) | ((x >> np.uint64(4)) & m4)
-    x = ((x & m8) << np.uint64(8)) | ((x >> np.uint64(8)) & m8)
-    x = ((x & m16) << np.uint64(16)) | ((x >> np.uint64(16)) & m16)
-    return (x << np.uint64(32)) | (x >> np.uint64(32))
+    x = ((x & 0x3333333333333333) << 2) | ((x >> 2) & 0x3333333333333333)
+    x = ((x & 0x0F0F0F0F0F0F0F0F) << 4) | ((x >> 4) & 0x0F0F0F0F0F0F0F0F)
+    x = ((x & 0x00FF00FF00FF00FF) << 8) | ((x >> 8) & 0x00FF00FF00FF00FF)
+    x = ((x & 0x0000FFFF0000FFFF) << 16) | ((x >> 16) & 0x0000FFFF0000FFFF)
+    return (x << 32) | ((x >> 32) & M)
 
 
 @dataclasses.dataclass
@@ -238,15 +249,22 @@ class CanonicalHashArrays:
     Values are derived from the reference probe's own results, quirks
     included (see _reference_hits).  t1 rows are `slots` entries; overflow
     lives in t2 (differently mixed), sized to stay small enough for the
-    on-chip gather fast path."""
+    on-chip gather fast path.  The tables are NumPy arrays, or int32
+    tensors on the card where the ladder was placed there."""
 
-    t1: np.ndarray  # int32 (B1, slots*3)
-    t2: np.ndarray  # int32 (B2, slots2*3)
-    t3: np.ndarray  # int32 (B3, slots3*3); 8-row sentinel = absent
+    t1: np.ndarray | torch.Tensor  # int32 (B1, slots*3)
+    t2: np.ndarray | torch.Tensor  # int32 (B2, slots2*3)
+    t3: np.ndarray | torch.Tensor  # int32 (B3, slots3*3); 8-row sentinel = absent
     slots: int
     slots2: int
     slots3: int
     num_entries: int
+
+
+class TierRefused(ValueError):
+    """A geometry tier's budget refuses the table; the ladder tries its next
+    tier.  Nothing else is taken as a refusal: a device out of memory (a
+    RuntimeError) propagates."""
 
 
 def build_canonical_hash_index(
@@ -254,6 +272,7 @@ def build_canonical_hash_index(
     slots: int | None = None,
     load: float | None = None,
     slots2: int | None = None,
+    device=None,
 ) -> CanonicalHashArrays:
     """Build the canonical table, walking a geometry LADDER so that big DBs
     degrade gracefully instead of losing the hash path entirely:
@@ -273,10 +292,17 @@ def build_canonical_hash_index(
       tier C: 4 slots + wide-rowed HBM t2 (every probe pays a 96B second
               gather; the safety net when t2/t3 budgets cannot hold).
 
-    Passing slots/load/slots2 pins a single geometry (tests)."""
+    Passing slots/load/slots2 pins a single geometry (tests).
+
+    The fold and the tiers run as tensor code on `device`: on a CUDA device
+    the tables come back as tensors on it (counter `table.place_device`);
+    with None or the CPU, as NumPy arrays.  Either gives the same bits."""
     rec = trace.process()
+    on_card = device is not None and torch.device(device).type != "cpu"
     with rec.phase("table:groups"):
-        key_lo, key_hi, vals, cpre, chi, clo, ng = _canonical_groups(index)
+        groups = _canonical_groups(index, device if on_card else None)
+    if on_card:
+        rec.count("table.place_device", 1)
     if slots is not None:
         tiers = [(slots, load or CANON_LOAD, slots2 or CANON_SLOTS2, 1 << 27, 0)]
     else:
@@ -290,19 +316,22 @@ def build_canonical_hash_index(
         rec.count("table.attempts", 1)
         try:
             with rec.phase("table:tier"):
-                return _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
-                                        s_, load_, s2_, budget_, slots3=s3_)
-        except (ValueError, RuntimeError) as e:
+                return _place_canonical(*groups, s_, load_, s2_, budget_, slots3=s3_)
+        except TierRefused as e:
             err = e
     raise ValueError(f"canonical table does not fit any geometry tier: {err}")
 
 
-def _canonical_groups(index: DeviceIndexArrays):
+def _canonical_groups(index: DeviceIndexArrays, device=None):
     """Reference-hit set folded to canonical dual-value groups: the entry
     arrays every geometry places.  Returns (key_lo, key_hi, vals2d, cpre,
     chi, clo, num_groups) where vals2d is (ng, 1) int32 packed u16 pairs for
     label ids < 65535, or (ng, 2) int32 (va, vb) WIDE entries otherwise
-    (IXTYPE=u32 DBs keep the fast path; slots grow from 12B to 16B)."""
+    (IXTYPE=u32 DBs keep the fast path; slots grow from 12B to 16B).
+
+    The hits are found on the host; the fold runs on `device` (None: the
+    CPU, and the arrays come back as NumPy arrays; else int32 tensors on
+    it)."""
     cfg = index.config
     if cfg.packsize != 32:
         raise ValueError("canonical hash path implements k=32")
@@ -314,73 +343,93 @@ def _canonical_groups(index: DeviceIndexArrays):
     wide = index.num_labels >= 0xFFFF
     if wide and len(ix) and int(ix.max()) >= 0x7FFFFFFE:
         raise ValueError("canonical hash path requires label ids < 2^31-1")
-    w = (
-        (pre.astype(np.uint64) << np.uint64(40))
-        | (hi.astype(np.uint64) << np.uint64(32))
-        | lo.astype(np.uint64)
-    )
+    lanes = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device or "cpu")
+             for a in (pre, hi, lo, ix)]
+    del pre, hi, lo, ix
+    groups = _fold(lanes, wide)
+    if device is None:
+        *arrays, ng = groups
+        return (*(a.numpy() for a in arrays), ng)
+    return groups
+
+
+def _fold(lanes: list, wide: bool):
+    """`_canonical_groups`' fold of the hit lanes [pre, hi, lo, ix] (int32
+    tensors, `lo` the u32 bits) on their device.  A uint64 word is held as
+    its int64 bits; `^ _SIGN` maps its unsigned order onto int64's for the
+    min and the sort.  The list is emptied, so that each full-width
+    transient retires as soon as it is spent (a quarter to half a GB each
+    at 60M hits)."""
+    pre, hi, lo, ix = lanes
+    lanes.clear()
+    w = (pre.to(torch.int64) << 40) | (hi.to(torch.int64) << 32) | u32(lo)
     del pre, hi, lo
-    r = _rc64(w)
-    c = np.minimum(w, r)
-    del r
+    c = _rc64(w)
+    w ^= _SIGN
+    c ^= _SIGN
+    torch.minimum(w, c, out=c)
     is_fwd = w == c
     del w
-    # transients retire as soon as possible: at the 1.2G flagship scale each
-    # full-width array here is ~10GB of host RAM
-    order = np.argsort(c, kind="stable")
-    cs = c[order]
+    cs, order = torch.sort(c, stable=True)
     del c
     isf = is_fwd[order]
     del is_fwd
-    ixs = ix[order].astype(np.uint32)
+    ixs = u32(ix[order])
     del ix, order
-    new = np.ones(len(cs), bool)
+    new = torch.ones(len(cs), dtype=torch.bool, device=cs.device)
     if len(cs) > 1:
         new[1:] = cs[1:] != cs[:-1]
-    gid = np.cumsum(new) - 1
+    gid = torch.cumsum(new, 0) - 1
     ng = int(gid[-1]) + 1 if len(cs) else 0
-    va = np.zeros(ng, np.uint32)
-    vb = np.zeros(ng, np.uint32)
-    va[gid[isf]] = ixs[isf] + np.uint32(1)
-    vb[gid[~isf]] = ixs[~isf] + np.uint32(1)
+    va = torch.zeros(ng, dtype=torch.int64, device=cs.device)
+    vb = torch.zeros_like(va)
+    # one forward and one reverse hit at most a group (each word is one
+    # bin's suffix once), so every index below is unique
+    va[gid[isf]] = (ixs[isf] + 1) & M
+    isf.logical_not_()
+    vb[gid[isf]] = (ixs[isf] + 1) & M
     del gid, isf, ixs
-    ck = cs[new]
+    ck = cs[new] ^ _SIGN
     del cs, new
     pal = ck == _rc64(ck)  # palindromic 32-mer: one word, hit on both scans
     vb[pal] = va[pal]
     del pal
     if wide:
-        vals = np.stack([va.view(np.int32), vb.view(np.int32)], axis=1)
+        vals = torch.stack([i32(va), i32(vb)], dim=1)
     else:
-        vals = (va | (vb << np.uint32(16))).view(np.int32)[:, None]
+        vals = i32(va | (vb << 16))[:, None]
     del va, vb
-    key_lo = (ck & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
-    key_hi = (ck >> np.uint64(32)).astype(np.uint32).view(np.int32)
-    # (cpre, chi, clo) feed only the uint32 mixes (_mix_np and twins), which
-    # truncate to the low 32 bits of whatever integer dtype arrives — narrow
-    # lanes are bit-identical inputs at a third of the memory
-    cpre = (ck >> np.uint64(40)).astype(np.int32)
-    chi = ((ck >> np.uint64(32)) & np.uint64(0xFF)).astype(np.int32)
-    clo = key_lo
-    return key_lo, key_hi, vals, cpre, chi, clo, ng
+    key_lo = i32(ck)
+    key_hi = i32(ck >> 32)
+    # (cpre, chi, clo) feed only the u32 mixes, which read the low 32 bits
+    # of whatever integer arrives — narrow lanes are bit-identical inputs
+    # at a third of the memory
+    cpre = ((ck >> 40) & 0xFFFFFF).to(torch.int32)
+    chi = ((ck >> 32) & 0xFF).to(torch.int32)
+    return key_lo, key_hi, vals, cpre, chi, key_lo, ng
 
 
-def _group_pos(h: np.ndarray, b: int):
+def _group_pos(h, b: int):
     """Sorted-group placement positions for bucketed hashing: returns
-    (order, sb, pos) where sb = sorted bucket ids and pos = each entry's
-    rank within its bucket."""
-    bucket = (h & np.uint32(b - 1)).astype(np.int64)
-    order = np.argsort(bucket, kind="stable")
-    sb = bucket[order]
-    new = np.ones(len(sb), bool)
+    (order, sb, pos) where sb = sorted bucket ids (h's low bits under the
+    power of two b) and pos = each entry's rank within its bucket.  `h`
+    holds non-negative hashes below 2^32 (u32 lanes): a NumPy array gives
+    int64 arrays, a tensor int64 tensors on its device."""
+    if isinstance(h, np.ndarray):
+        t = torch.from_numpy(np.asarray(h, np.int64))
+        return tuple(a.numpy() for a in _group_pos(t, b))
+    sb, order = torch.sort(h.to(torch.int64) & (b - 1), stable=True)
+    new = torch.ones(len(sb), dtype=torch.bool, device=sb.device)
     if len(sb) > 1:
         new[1:] = sb[1:] != sb[:-1]
-    grp = np.maximum.accumulate(np.where(new, np.arange(len(sb)), 0))
-    pos = np.arange(len(sb)) - grp
+    at = torch.arange(len(sb), device=sb.device)
+    pos = at - torch.cummax(torch.where(new, at, 0), 0).values
     return order, sb, pos
 
 
-def _fill(table: np.ndarray, sb, pos, src, key_lo, key_hi, vals2d):
+def _fill(table, sb, pos, src, key_lo, key_hi, vals2d):
+    """Entries src to (row sb, slot pos) of `table`: NumPy arrays or
+    tensors alike; each (row, slot) is written once."""
     cps = 2 + vals2d.shape[1]  # cols per slot
     table[sb, pos * cps] = key_lo[src]
     table[sb, pos * cps + 1] = key_hi[src]
@@ -395,9 +444,24 @@ _T2_BYTE_CAP = 1 << 30
 _T3_BYTE_CAP = 8 << 20
 
 
+def _salted_mix(cpre, chi, clo, salt: int = 0):
+    """`_mix_np(cpre, chi, clo ^ salt)` on tensors: a u32 lane (int64)."""
+    return mix(u32(cpre), u32(chi), u32(clo) ^ salt)
+
+
 def _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
                      slots, load, slots2, t2_budget_entries,
                      slots3: int = 0) -> CanonicalHashArrays:
+    """One geometry of the ladder over `_canonical_groups`' arrays, as
+    tensor code on their device: NumPy arrays in, NumPy tables out (placed
+    on the CPU); tensors in, tensors out.  A budget refuses with
+    TierRefused."""
+    if isinstance(key_lo, np.ndarray):
+        lanes = (torch.from_numpy(a) for a in (key_lo, key_hi, vals, cpre, chi, clo))
+        t = _place_canonical(*lanes, ng, slots, load, slots2, t2_budget_entries,
+                             slots3=slots3)
+        return dataclasses.replace(t, t1=t.t1.numpy(), t2=t.t2.numpy(), t3=t.t3.numpy())
+    dev = key_lo.device
     cps = 2 + vals.shape[1]  # cols per slot (3 narrow, 4 wide)
     row_bytes = slots * cps * 4
     b1 = max(8, 1 << int(np.ceil(np.log2(max(1, ng / (slots * load))))))
@@ -407,30 +471,34 @@ def _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
     # has ~n^2/2^33 birthday-colliding pairs (46K at 20M keys) that no table
     # growth can separate; the fold makes residual pair collisions scale with
     # 1/b1 instead
-    h1 = _mix_np(cpre, chi, clo)
-    hb = _mix_np(cpre, chi, clo ^ np.int64(0x6A09E667))
-    g = h1 ^ ((hb << np.uint32(15)) | (hb >> np.uint32(17)))
+    g = _salted_mix(cpre, chi, clo)
+    hb = _salted_mix(cpre, chi, clo, 0x6A09E667)
+    g ^= ((hb << 15) & M) | (hb >> 17)
+    del hb
     # grow t1 until the spill fits this tier's t2 budget
     while True:
         sb_order, sb, pos_in = _group_pos(g, b1)
         fits = pos_in < slots
-        n_spill = int((~fits).sum())
+        n_spill = len(fits) - int(fits.sum())
         if n_spill <= t2_budget_entries:
             break
         if b1 * row_bytes * 2 > _CANON_T1_CAP:
-            raise ValueError("canonical table would exceed the HBM budget")
+            raise TierRefused("canonical table would exceed the HBM budget")
         b1 *= 2
-    t1 = np.zeros((b1, slots * cps), np.int32)
+        del sb_order, sb, pos_in, fits
+    del g
+    t1 = torch.zeros((b1, slots * cps), dtype=torch.int32, device=dev)
     _fill(t1, sb[fits], pos_in[fits], sb_order[fits], key_lo, key_hi, vals)
     spill = sb_order[~fits]
+    del sb_order, sb, pos_in, fits
 
-    t3 = np.zeros((8, max(slots3, 1) * cps), np.int32)
+    t3 = torch.zeros((8, max(slots3, 1) * cps), dtype=torch.int32, device=dev)
     if len(spill) == 0:
-        t2 = np.zeros((8, slots2 * cps), np.int32)  # shape<=8 rows: probe skipped
+        t2 = torch.zeros((8, slots2 * cps), dtype=torch.int32, device=dev)  # shape<=8 rows: probe skipped
         return CanonicalHashArrays(t1=t1, t2=t2, t3=t3, slots=slots,
                                    slots2=slots2, slots3=max(slots3, 1),
                                    num_entries=ng)
-    h2 = _mix_np(cpre[spill], chi[spill], clo[spill] ^ np.int64(0x5BD1E995))
+    h2 = _salted_mix(cpre[spill], chi[spill], clo[spill], 0x5BD1E995)
 
     if slots3:
         # 3-level chain: t2 rows NARROW (1 sector at slots2=2 -> ~15ns
@@ -444,13 +512,13 @@ def _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
             if n3 <= _T3_ENTRY_BUDGET:
                 break
             if b2 * slots2 * cps * 4 * 2 > _T2_BYTE_CAP:
-                raise RuntimeError("canonical t2 overflow exceeds the t3 budget")
+                raise TierRefused("canonical t2 overflow exceeds the t3 budget")
             b2 *= 2
-        t2 = np.zeros((b2, slots2 * cps), np.int32)
+        t2 = torch.zeros((b2, slots2 * cps), dtype=torch.int32, device=dev)
         _fill(t2, sb2[~over], pos2[~over], spill[order2[~over]], key_lo, key_hi, vals)
         rest = spill[order2[over]]
         if len(rest):
-            h3 = _mix_np(cpre[rest], chi[rest], clo[rest] ^ np.int64(0x27D4EB2F))
+            h3 = _salted_mix(cpre[rest], chi[rest], clo[rest], 0x27D4EB2F)
             b3 = max(16, 1 << int(np.ceil(np.log2(max(1, len(rest) / max(1, slots3 // 2))))))
             while True:
                 order3, sb3, pos3 = _group_pos(h3, b3)
@@ -458,8 +526,8 @@ def _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
                     break
                 b3 *= 2
                 if b3 * slots3 * cps * 4 > _T3_BYTE_CAP:
-                    raise RuntimeError("canonical t3 overflow")
-            t3 = np.zeros((b3, slots3 * cps), np.int32)
+                    raise TierRefused("canonical t3 overflow")
+            t3 = torch.zeros((b3, slots3 * cps), dtype=torch.int32, device=dev)
             _fill(t3, sb3, pos3, rest[order3], key_lo, key_hi, vals)
         return CanonicalHashArrays(t1=t1, t2=t2, t3=t3, slots=slots,
                                    slots2=slots2, slots3=slots3, num_entries=ng)
@@ -473,8 +541,8 @@ def _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
         # t2 may legitimately be LARGE in the HBM-spill tier; only a hard
         # byte cap (2GB) stops the growth spiral
         if b2 * slots2 * cps * 4 > 2 << 30:
-            raise RuntimeError("canonical spill table overflow")
-    t2 = np.zeros((b2, slots2 * cps), np.int32)
+            raise TierRefused("canonical spill table overflow")
+    t2 = torch.zeros((b2, slots2 * cps), dtype=torch.int32, device=dev)
     _fill(t2, sb2, pos2, spill[order2], key_lo, key_hi, vals)
     return CanonicalHashArrays(t1=t1, t2=t2, t3=t3, slots=slots,
                                slots2=slots2, slots3=max(slots3, 1),
@@ -909,7 +977,8 @@ def respill_displaced_t3(t3_old: np.ndarray, wide: bool) -> np.ndarray:
 # ---- device tables --------------------------------------------------------
 
 def _to_device(pairs, device) -> dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    return {k: (a if isinstance(a, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(a, np.int32))).to(device)
             for k, a in pairs}
 
 

@@ -121,17 +121,6 @@ def _rc128(hi: np.ndarray, lo: np.ndarray):
     return _rc64(lo), _rc64(hi)
 
 
-def _group_positions(bucket: np.ndarray):
-    order = np.argsort(bucket, kind="stable")
-    sb = bucket[order]
-    nw = np.ones(len(sb), bool)
-    if len(sb) > 1:
-        nw[1:] = sb[1:] != sb[:-1]
-    grp = np.maximum.accumulate(np.where(nw, np.arange(len(sb)), 0))
-    pos = np.arange(len(sb)) - grp
-    return order, sb, pos
-
-
 def _canonical_groups64(index: DeviceIndexArrays):
     """Canonical (128-bit lex-min of word/RC) dual-value entries as four
     uint32 key lanes + (va, vb); the 64-mer twin of
@@ -221,7 +210,7 @@ def _place64(lanes, k0, k1, k2, k3, ng, slots, load, slots2,
     while b1 * slots * 24 > _CANON_T1_CAP:
         b1 //= 2
     while True:
-        order1, sb, pos = _group_positions((g & np.uint32(b1 - 1)).astype(np.int64))
+        order1, sb, pos = _group_pos(g, b1)
         fits = pos < slots
         if int((~fits).sum()) <= t2_budget_entries:
             break
@@ -242,7 +231,7 @@ def _place64(lanes, k0, k1, k2, k3, ng, slots, load, slots2,
         # 3-level chain: narrow t2 rows; its Poisson tail goes to cached t3
         b2 = max(16, 1 << int(np.ceil(np.log2(max(1, len(spill) / (slots2 * 0.3))))))
         while True:
-            order2, sb2, pos2 = _group_positions((h2 & np.uint32(b2 - 1)).astype(np.int64))
+            order2, sb2, pos2 = _group_pos(h2, b2)
             over = pos2 >= slots2
             n3 = int(over.sum())
             if n3 <= 120_000:
@@ -257,7 +246,7 @@ def _place64(lanes, k0, k1, k2, k3, ng, slots, load, slots2,
             h3 = _mix4_np(k0[rest], k1[rest], k2[rest], k3[rest], 0x27D4EB2F)
             b3 = max(16, 1 << int(np.ceil(np.log2(max(1, len(rest) / max(1, slots3 // 2))))))
             while True:
-                order3, sb3, pos3 = _group_positions((h3 & np.uint32(b3 - 1)).astype(np.int64))
+                order3, sb3, pos3 = _group_pos(h3, b3)
                 if len(pos3) == 0 or int(pos3.max()) < slots3:
                     break
                 b3 *= 2
@@ -269,7 +258,7 @@ def _place64(lanes, k0, k1, k2, k3, ng, slots, load, slots2,
 
     b2 = max(16, 1 << int(np.ceil(np.log2(max(1, len(spill) / max(1, slots2 // 2))))))
     while True:
-        order2, sb2, pos2 = _group_positions((h2 & np.uint32(b2 - 1)).astype(np.int64))
+        order2, sb2, pos2 = _group_pos(h2, b2)
         if len(pos2) == 0 or int(pos2.max()) < slots2:
             break
         b2 *= 2
@@ -339,7 +328,7 @@ def build_displaced_index64(
                       0x27D4EB2F)
         b3 = max(16, 1 << int(np.ceil(np.log2(max(1, len(spilled) / (slots3 // 2))))))
         while True:
-            order3, sb3, pos3 = _group_pos(h3.astype(np.int64), b3)
+            order3, sb3, pos3 = _group_pos(h3, b3)
             if len(pos3) == 0 or int(pos3.max()) < slots3:
                 break
             b3 *= 2

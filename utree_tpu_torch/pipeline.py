@@ -290,17 +290,19 @@ class SearchPipeline:
                 torch.cuda.synchronize(dev)
 
     def _placed(self, build, to_device, *args, tiers: bool = False) -> dict:
-        """`to_device(build(*args), device)`: the host placement under the
-        span `table:place`, the copy to the card under `table:copy`.  Each
-        call counts one geometry in `table.attempts`, unless `build` counts
-        its own (`tiers`, the ladders)."""
+        """`to_device(build(*args), device)`: the placement under the span
+        `table:place`, which waits for the card (a ladder is placed there),
+        the copy to the card under `table:copy`.  Each call counts one
+        geometry in `table.attempts`, unless `build` counts its own
+        (`tiers`, the ladders)."""
         rec = trace.process()
         if not tiers:
             rec.count("table.attempts", 1)
         with rec.phase("table:place"):
-            host = build(*args)
+            placed = build(*args)
+            self._synchronize()
         with rec.phase("table:copy"):
-            table = to_device(host, self.device)
+            table = to_device(placed, self.device)
             self._synchronize()
         return table
 
@@ -360,8 +362,11 @@ class SearchPipeline:
 
     def _build_table(self, index: DeviceIndexArrays, mode: str) -> dict:
         """The device table `mode` resolves to, as utree_tpu/pipeline.py:180-288
-        resolves it, with its exception types and messages; the numpy
-        placement of `hash_index` / `hash_index64` builds the hash tables."""
+        resolves it, with its exception types and messages.  The canonical
+        ladder is placed on the pipeline's device; the other tables by the
+        host placement of `hash_index` / `hash_index64`.  Only a ladder that
+        no tier fits (a ValueError) may fall back: a device out of memory
+        propagates."""
         from utree_tpu_torch import hash_index as hi
         from utree_tpu_torch import hash_index64 as h64
 
@@ -398,9 +403,10 @@ class SearchPipeline:
                         raise RuntimeError(
                             f"--lookup-mode displaced cannot be honored: {e}") from e
             try:
-                return self._placed(hi.build_canonical_hash_index,
+                return self._placed(functools.partial(hi.build_canonical_hash_index,
+                                                      device=self.device),
                                     hi.canonical_to_device, index, tiers=True)
-            except (ValueError, RuntimeError) as e:
+            except ValueError as e:
                 if mode == "canonical":
                     raise RuntimeError(
                         f"--lookup-mode canonical cannot be honored: {e}") from e
